@@ -1,0 +1,53 @@
+"""Carry state across from the JAX package.
+
+The port never imports ``crdt_enc_tpu``; what crosses between the two
+packages is plain Python objects and numpy arrays:
+
+* ``orset_from_reference_obj`` builds the port's ``ORSet`` from the
+  output of the JAX package's ``ORSet.to_obj()`` (``{b"c": clock,
+  b"e": entries, b"d": deferred}``), keeping member and actor objects as
+  they are;
+* ``planes_from_numpy`` / ``planes_to_numpy`` move int32 state planes
+  ``(clock (R,), add (E, R), rm (E, R))`` between numpy and torch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.orset import ORSet
+from .models.vclock import VClock
+
+
+def orset_from_reference_obj(obj) -> ORSet:
+    s = ORSet()
+    if obj is None:
+        return s
+    s.clock = VClock({a: int(c) for a, c in (obj.get(b"c") or {}).items()})
+    s.entries = {
+        m: {r: int(c) for r, c in v.items()}
+        for m, v in (obj.get(b"e") or {}).items()
+        if v
+    }
+    s.deferred = {
+        m: {r: int(c) for r, c in v.items()}
+        for m, v in (obj.get(b"d") or {}).items()
+        if v
+    }
+    return s
+
+
+def planes_from_numpy(clock, add, rm, *, device) -> tuple:
+    """int32 numpy planes → int32 tensors on ``device``."""
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
+        for x in (clock, add, rm)
+    )
+
+
+def planes_to_numpy(clock, add, rm) -> tuple:
+    """int32 tensors (any device) → int32 numpy planes."""
+    return tuple(
+        x.detach().to("cpu", torch.int32).numpy() for x in (clock, add, rm)
+    )

@@ -1,0 +1,220 @@
+"""OR-Set fold and merge over dense int32 tensors.
+
+The port's counterpart of ``crdt_enc_tpu/ops/orset.py``: the same
+contracts and argument names, on torch tensors.
+
+* **fold**: a whole op batch (adds as dots, removes flattened to
+  per-replica horizon rows) collapses into the state planes via a
+  scatter-max and elementwise masks.  Order independence of the dense
+  formulas (max over monotone per-replica counters) is what makes this
+  legal.
+* **merge**: the Orswot clock-filter merge as pure elementwise arithmetic
+  over ``(E, R)`` planes.
+
+Counters are int32 and always ≥ 1 for real dots, so 0 is the universal
+"absent" value.  Padding rows carry the ``actor >= R`` sentinel and drop
+out.
+
+``orset_fold`` and ``orset_merge_many`` dispatch on the tensors' device:
+CUDA tensors go to the hand-written kernels (``orset_fold_cuda``,
+``orset_merge_cuda``), CPU tensors to the plain code in this module.  The
+plain functions (``*_plain``, ``orset_merge_many_tree``) are also the
+references the kernels are held against on the card; the main path never
+calls them with CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .columnar import KIND_ADD, KIND_RM
+
+
+def common_device(*tensors: torch.Tensor) -> torch.device:
+    """The one device every tensor lies on; raises on a mix, so a CUDA
+    tensor can never fall through to the plain CPU code."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and {t.device}")
+    return dev
+
+
+def _cpu_only(*tensors: torch.Tensor) -> None:
+    dev = common_device(*tensors)
+    if dev.type != "cpu":
+        raise ValueError(f"the plain path takes CPU tensors, got {dev}")
+
+
+# ---------------------------------------------------------------- fold
+def orset_scatter_plain(kind, member, actor, counter, *, num_members: int,
+                        num_replicas: int):
+    """The raw scatter phase: per (member, actor) cell the max add counter
+    and the max remove counter, as two ``(E, R)`` int32 planes.  Rows with
+    ``actor >= R`` (padding), a member outside ``[0, E)``, a negative
+    actor, or a kind other than ADD/RM drop out.  Untouched cells read 0.
+    No replay gate, no normalization."""
+    E, R = num_members, num_replicas
+    valid = (actor >= 0) & (actor < R) & (member >= 0) & (member < E)
+    is_add = (kind == KIND_ADD) & valid
+    is_rm = (kind == KIND_RM) & valid
+    seg = (member.long() * R + actor.long()).clamp(0, max(E * R - 1, 0))
+    # removes scatter into the second (E, R) plane of one flat target
+    seg2 = torch.where(is_rm, seg + E * R, seg)
+    vals = torch.where(is_add | is_rm, counter, torch.zeros_like(counter))
+    both = torch.zeros(2 * E * R, dtype=torch.int32, device=counter.device)
+    if len(vals) and E * R:
+        both.scatter_reduce_(0, seg2, vals.to(torch.int32), reduce="amax")
+    both = both.view(2, E, R)
+    return both[0], both[1]
+
+
+def orset_fold_clock_plain(clock0, add_new):
+    """The fold's clock: ``max(clock0, column max of the gated adds)``.
+    Adds advance the global clock; removes never do."""
+    if not add_new.shape[0]:
+        return clock0.clone()
+    zero = torch.zeros((), dtype=add_new.dtype, device=add_new.device)
+    gated = torch.where(add_new > clock0[None, :], add_new, zero)
+    return torch.maximum(clock0, gated.amax(dim=0))
+
+
+def orset_fold_tail_plain(clock0, clock, add0, rm0, add_new, rm_new, *,
+                          retire_rm: bool = True):
+    """The fold's tail after the scatter, given the final ``clock``:
+    the cell-level replay gate against ``clock0``, the add/rm max, add
+    killed where ≤ rm, and (``retire_rm``) horizons retired where
+    ≤ ``clock``.  Returns ``(add, rm)``."""
+    zero = torch.zeros((), dtype=add_new.dtype, device=add_new.device)
+    # stale-add replay gate, lifted from row level to cell level: dots are
+    # monotone per actor, so a cell whose scattered max is ≤ the incoming
+    # clock held only stale adds
+    gated = torch.where(add_new > clock0[None, :], add_new, zero)
+    add = torch.maximum(add0, gated)
+    rm = torch.maximum(rm0, rm_new)
+    add = torch.where(add > rm, add, zero)
+    if retire_rm:
+        rm = torch.where(rm > clock[None, :], rm, zero)
+    return add, rm
+
+
+def orset_fold_plain(clock0, add0, rm0, kind, member, actor, counter, *,
+                     num_members: int, num_replicas: int,
+                     retire_rm: bool = True):
+    """``orset_fold`` in plain torch, formula for formula the JAX fold
+    (scatter, gate, clock from the gated column max, normalize)."""
+    add_new, rm_new = orset_scatter_plain(
+        kind, member, actor, counter,
+        num_members=num_members, num_replicas=num_replicas,
+    )
+    clock = orset_fold_clock_plain(clock0, add_new)
+    add, rm = orset_fold_tail_plain(
+        clock0, clock, add0, rm0, add_new, rm_new, retire_rm=retire_rm
+    )
+    return clock, add, rm
+
+
+def orset_fold(
+    clock0: torch.Tensor,  # (R,) int32
+    add0: torch.Tensor,  # (E, R) int32
+    rm0: torch.Tensor,  # (E, R) int32
+    kind: torch.Tensor,  # (N,) int8
+    member: torch.Tensor,  # (N,) int32
+    actor: torch.Tensor,  # (N,) int32  (>= num_replicas ⇒ padding row)
+    counter: torch.Tensor,  # (N,) int32
+    *,
+    num_members: int,
+    num_replicas: int,
+    retire_rm: bool = True,
+):
+    """Fold an op batch into normalized ORSet planes.
+
+    ``retire_rm=False`` keeps remove horizons un-retired (no ``rm > clock``
+    zeroing): required when the planes are a partial reduction to be
+    combined with a pre-existing state later.
+
+    Returns ``(clock, add, rm)`` in canonical form: entries zeroed where
+    ``add ≤ rm``, horizons zeroed where ``rm ≤ clock``.  CUDA tensors run
+    the scatter and tail kernels; CPU tensors the plain code.
+    """
+    args = (clock0, add0, rm0, kind, member, actor, counter)
+    kw = dict(num_members=num_members, num_replicas=num_replicas,
+              retire_rm=retire_rm)
+    if common_device(*args).type == "cuda":
+        from .orset_fold_cuda import orset_fold_cuda
+
+        return orset_fold_cuda(*args, **kw)
+    _cpu_only(*args)
+    return orset_fold_plain(*args, **kw)
+
+
+def orset_apply_batch_planes(clock0, add0, rm0, add_b, rm_b):
+    """Apply pre-reduced op-batch planes to the state planes: the tail of
+    :func:`orset_fold` after the scatter phase, with the stale-add mask
+    lifted to cell level against the CURRENT clock.  Not the CvRDT state
+    merge (``orset_merge``) — batch rows are ops, so no clock-filter
+    survivor rule applies to them."""
+    clock = orset_fold_clock_plain(clock0, add_b)
+    add, rm = orset_fold_tail_plain(clock0, clock, add0, rm0, add_b, rm_b)
+    return clock, add, rm
+
+
+# --------------------------------------------------------------- merge
+def merge_rule(clock_a, add_a, rm_a, clock_b, add_b, rm_b, clock_merged):
+    """The clock-filter merge on raw tensors (clocks already row-broadcast
+    ready, ``clock_merged = max(clock_a, clock_b)`` supplied by the
+    caller).  The single statement of the Orswot merge semantics in the
+    port; the merge kernel (csrc/orset_merge.cu) applies it per cell."""
+    zero = torch.zeros((), dtype=add_a.dtype, device=add_a.device)
+    same = add_a == add_b
+    surv_a = torch.where(same | (add_a > clock_b), add_a, zero)
+    surv_b = torch.where(same | (add_b > clock_a), add_b, zero)
+    add = torch.maximum(surv_a, surv_b)
+    rm = torch.maximum(rm_a, rm_b)
+    add = torch.where(add > rm, add, zero)
+    rm = torch.where(rm > clock_merged, rm, zero)
+    return add, rm
+
+
+def orset_merge(clock_a, add_a, rm_a, clock_b, add_b, rm_b):
+    """CvRDT merge of two dense ORSet states over the same (members,
+    replicas) vocabularies.  Works on a leading batch axis too: clocks
+    ``(..., R)`` against planes ``(..., E, R)``."""
+    clock = torch.maximum(clock_a, clock_b)
+    add, rm = merge_rule(
+        clock_a.unsqueeze(-2), add_a, rm_a, clock_b.unsqueeze(-2), add_b, rm_b,
+        clock.unsqueeze(-2),
+    )
+    return clock, add, rm
+
+
+def orset_merge_many_tree(clocks, adds, rms):
+    """Merge a stacked batch of S states ``(S, R) / (S, E, R)`` as
+    ⌈log2 S⌉ rounds of the pairwise merge — the plain reference of the
+    merge kernel.  Merge associativity makes any order legal."""
+    c, a, r = clocks, adds, rms
+    while c.shape[0] > 1:
+        s = c.shape[0]
+        half = s // 2
+        cm, am, rmm = orset_merge(
+            c[:half], a[:half], r[:half],
+            c[half:2 * half], a[half:2 * half], r[half:2 * half],
+        )
+        if s % 2:
+            cm = torch.cat([cm, c[-1:]])
+            am = torch.cat([am, a[-1:]])
+            rmm = torch.cat([rmm, r[-1:]])
+        c, a, r = cm, am, rmm
+    return c[0], a[0], r[0]
+
+
+def orset_merge_many(clocks: torch.Tensor, adds: torch.Tensor,
+                     rms: torch.Tensor):
+    """Merge a stacked batch of S states ``(S, R) / (S, E, R)`` into one.
+    CUDA tensors run the single-pass merge kernel for every S; CPU tensors
+    the plain tree."""
+    if common_device(clocks, adds, rms).type == "cuda":
+        from .orset_merge_cuda import orset_merge_many_cuda
+
+        return orset_merge_many_cuda(clocks, adds, rms)
+    return orset_merge_many_tree(clocks, adds, rms)

@@ -1,0 +1,200 @@
+"""Each CUDA kernel of the port against its plain PyTorch version.
+
+Tests marked ``cuda`` need the card: they skip, with the reason, where
+``torch.cuda.is_available()`` is False, and run on a machine with an
+H100 via ``python -m pytest tests/test_torch_kernels.py``.  The build
+and dispatch checks above them run anywhere.  This file imports nothing
+of JAX: the machine with the card has none.
+
+All outputs are int32 planes, so the tolerance is exact equality.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from crdt_enc_tpu_torch.ops import cuda_build
+from crdt_enc_tpu_torch.ops import orset as P
+from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
+from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    return torch.device("cuda")
+
+
+def rows(N, E, R, seed, *, hi=1 << 20, pad_frac=0.1, device="cpu"):
+    rng = np.random.default_rng(seed)
+    kind = (rng.random(N) < 0.3).astype(np.int8)
+    member = rng.integers(0, E, N, dtype=np.int32)
+    actor = rng.integers(0, R, N, dtype=np.int32)
+    actor = np.where(rng.random(N) < pad_frac, R, actor).astype(np.int32)
+    counter = rng.integers(1, hi, N, dtype=np.int32)
+    return [torch.from_numpy(x).to(device) for x in (kind, member, actor, counter)]
+
+
+def state(E, R, seed, *, hi=1 << 20, device="cpu"):
+    rng = np.random.default_rng(seed + 7)
+    clock0 = rng.integers(0, hi, R).astype(np.int32)
+    add0 = np.where(rng.random((E, R)) < 0.2, rng.integers(1, hi, (E, R)), 0)
+    add0 = np.minimum(add0, clock0[None, :])
+    rm0 = np.where(rng.random((E, R)) < 0.1, rng.integers(1, hi, (E, R)), 0)
+    add0 = np.where(add0 > rm0, add0, 0)
+    rm0 = np.where(rm0 > clock0[None, :], rm0, 0)
+    return [torch.from_numpy(x.astype(np.int32)).to(device)
+            for x in (clock0, add0, rm0)]
+
+
+def assert_equal(a, b):
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype == torch.int32
+        assert torch.equal(x.cpu(), y.cpu())
+
+
+# ---- anywhere: build and dispatch ------------------------------------------
+
+
+def test_library_name_tracks_source_and_flags():
+    p = cuda_build.lib_path("orset_fold")
+    assert p.parent == cuda_build.BUILD and p.name.startswith("liborset_fold-")
+    assert p != cuda_build.lib_path("orset_merge")
+
+
+def test_a_failed_build_raises(tmp_path, monkeypatch):
+    """A compiler that fails (here ``false``) raises with its output."""
+    monkeypatch.setattr(cuda_build, "BUILD", tmp_path)
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
+        cuda_build.build(["orset_fold"])
+    assert not list(tmp_path.iterdir())
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build.os.path, "isfile", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.nvcc()
+
+
+def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
+    before = (dict(F.launches), dict(M.launches), set(cuda_build._libs))
+    E, R = 6, 11
+    clock0, add0, rm0 = state(E, R, 1)
+    got = F.orset_fold_cuda(clock0, add0, rm0, *rows(90, E, R, 1),
+                            num_members=E, num_replicas=R)
+    ref = P.orset_fold_plain(clock0, add0, rm0, *rows(90, E, R, 1),
+                             num_members=E, num_replicas=R)
+    assert_equal(ref, got)
+    assert (F.launches, M.launches, set(cuda_build._libs)) == before
+
+
+# ---- on the card ---------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,E,R", [(5000, 40, 300), (20000, 257, 1000), (7, 3, 5)])
+def test_scatter_matches_plain(dev, N, E, R):
+    cols = rows(N, E, R, N, device=dev)
+    clock0 = state(E, R, N, device=dev)[0]
+    clock = clock0.clone()
+    n0 = F.launches["orset_scatter"]
+    got = F.orset_scatter(*cols, num_members=E, num_replicas=R, clock=clock)
+    assert F.launches["orset_scatter"] == n0 + 1
+    ref = P.orset_scatter_plain(*cols, num_members=E, num_replicas=R)
+    assert_equal(ref, got)
+    # the clock the scatter finished: max(clock0, max add counter per actor)
+    ref_clock, _, _ = P.orset_fold_plain(
+        clock0, *state(E, R, N, device=dev)[1:], *cols,
+        num_members=E, num_replicas=R)
+    torch.cuda.synchronize()
+    assert torch.equal(clock, ref_clock)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("retire_rm", [True, False])
+def test_tail_matches_plain(dev, retire_rm):
+    E, R = 130, 777
+    clock0, add0, rm0 = state(E, R, 2, device=dev)
+    cols = rows(40000, E, R, 2, device=dev)
+    add_new, rm_new = P.orset_scatter_plain(*cols, num_members=E, num_replicas=R)
+    clock, _, _ = P.orset_fold_plain(clock0, add0, rm0, *cols,
+                                     num_members=E, num_replicas=R)
+    args = (clock0, clock, add0, rm0, add_new, rm_new)
+    got = F.orset_fold_tail(*args, retire_rm=retire_rm)
+    ref = P.orset_fold_tail_plain(*args, retire_rm=retire_rm)
+    assert_equal(ref, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("retire_rm", [True, False])
+def test_fold_matches_plain(dev, retire_rm):
+    E, R = 300, 1200
+    planes = state(E, R, 3, device=dev)
+    cols = rows(100000, E, R, 3, device=dev)
+    kw = dict(num_members=E, num_replicas=R, retire_rm=retire_rm)
+    assert_equal(P.orset_fold_plain(*planes, *cols, **kw),
+                 P.orset_fold(*planes, *cols, **kw))
+
+
+def canonical_stack(S, E, R, dev):
+    base = state(E, R, 4, hi=5000, device=dev)
+    outs = [P.orset_fold_plain(*base, *rows(3000, E, R, 40 + s, hi=9000,
+                                            device=dev),
+                               num_members=E, num_replicas=R)
+            for s in range(S)]
+    return [torch.stack([o[i] for o in outs]) for i in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 3, 8])
+def test_merge_matches_plain_tree(dev, S):
+    stacks = canonical_stack(S, 70, 513, dev)
+    n0 = M.launches["orset_merge_many"]
+    got = P.orset_merge_many(*stacks)
+    assert M.launches["orset_merge_many"] == n0 + 1
+    assert_equal(P.orset_merge_many_tree(*stacks), got)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_take_the_plain_path(dev, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain path reached with CUDA tensors")
+
+    for name in ("orset_scatter_plain", "orset_fold_tail_plain"):
+        monkeypatch.setattr(F, name, refuse)
+    for name in ("orset_fold_plain", "orset_merge_many_tree"):
+        monkeypatch.setattr(P, name, refuse)
+    monkeypatch.setattr(M, "orset_merge_many_tree", refuse)
+    E, R = 20, 50
+    planes = state(E, R, 5, device=dev)
+    P.orset_fold(*planes, *rows(500, E, R, 5, device=dev),
+                 num_members=E, num_replicas=R)
+    P.orset_merge_many(*(x.unsqueeze(0).expand(3, *x.shape).contiguous()
+                         for x in planes))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_bad_inputs(dev):
+    E, R = 4, 9
+    kind, member, actor, counter = rows(50, E, R, 6, device=dev)
+    with pytest.raises(TypeError, match="kind"):
+        F.orset_scatter(kind.to(torch.int32), member, actor, counter,
+                        num_members=E, num_replicas=R)
+    with pytest.raises(ValueError, match="member"):
+        F.orset_scatter(kind, member[:10], actor, counter,
+                        num_members=E, num_replicas=R)
+    clock0, add0, rm0 = state(E, R, 6, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        F.orset_fold_tail(clock0, clock0, add0.t().contiguous().t(), rm0,
+                          add0, rm0)
+    with pytest.raises(ValueError, match="different devices"):
+        F.orset_fold_tail(clock0.cpu(), clock0, add0, rm0, add0, rm0)
+    with pytest.raises(ValueError, match="clocks"):
+        M.orset_merge_many_cuda(clock0[None, :4], add0[None], rm0[None])

@@ -1,25 +1,42 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (crdt_enc_tpu_torch) on one card.
 
-The workload is BASELINE config 3, the OR-Set compaction main path:
-1,000,000 add/remove ops over 10,000 replicas and 4,096 members, made
-from a seed by a copy of bench.py's ``gen_columns`` (about 10% removes,
-dead removes as ``actor = R`` sentinel rows).  Phases:
+The main workloads are BASELINE configs 3 and 4 at full width: the OR-Set
+compaction path (1,000,000 add/remove ops over 10,000 replicas and 4,096
+members, made from a seed by a copy of bench.py's ``gen_columns``: about
+10% removes, dead removes as ``actor = R`` sentinel rows) and the LWW-map
+fold (1,000,000 writes over 1,000,000 keys and 10,000 actors, a copy of
+benchmarks/suite.py's config-4 generator), beside configs 1 and 2
+(G-Counter 4 x 1k, PN-Counter 1k x 100k).  Phases:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
-2. build: every CUDA kernel of the path from the sources in the checkout;
-3. kernels: each kernel against its plain PyTorch version on the card at
+2. build: every CUDA kernel from the sources in the checkout;
+3. OR-Set kernels against their plain PyTorch versions on the card at
    config-3 width (torch.equal: the planes are int32, the tolerance is
    exact) — the fold into empty planes, a second batch folded on top with
    ``retire_rm`` both ways, and the S = 8 merge of eight folded slices;
-4. the slice end to end: ``TorchAccelerator().fold_ops`` over the 1M op
-   objects and ``merge_states`` over eight folded slices, each byte-equal
-   (canonical bytes) to the port's host loop, with every kernel's launch
-   count read from that run alone;
-5. times: median of 7 CUDA-event-timed runs per kernel, its plain version
-   and, for the scatter, ``scatter_reduce_(..., "amax")`` as the library
-   yardstick, beside the least time the card's memory rate allows;
-6. the kernels line, then the result line.
+4. the OR-Set slice end to end: ``TorchAccelerator().fold_ops`` over the
+   1M op objects and ``merge_states`` over eight folded slices, each
+   byte-equal (canonical bytes) to the port's host loop, with every
+   kernel's launch count read from that run alone;
+5. OR-Set times: median of 7 CUDA-event-timed runs per kernel, its plain
+   version and, for the scatter, ``scatter_reduce_(..., "amax")`` as the
+   library yardstick, beside the least time the card allows;
+6. the LWW kernel against ``lww_fold_plain`` (torch.equal on every output)
+   at config 4 with ``num_values`` given and None, on a heavy-tie batch
+   with padding rows, on saturated timestamps, and
+   ``lww_fold_into(fold(first half), second half) == fold(whole)``;
+7. LWW and counters end to end: ``fold_ops`` over the 1M config-4
+   ``LWWOp`` objects, then a 200k tie-and-delete batch into that state,
+   then configs 1 and 2, each byte-equal to the host loop, with the LWW
+   kernel's launches read from the LWW run alone;
+8. LWW times: the kernel (all three passes) and its plain version at
+   config 4, beside the bound;
+9. K3's shape: 1M rows folded into empty planes at E = 4,096,
+   R = 261,000 (where the TPU package leaves its ablk layout for
+   ``_fold_wide``) by the kernels and by the plain fold, compared
+   plane for plane, with the device-memory peak and the fold's time;
+then the kernels line and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It needs one
 card.  Without a CUDA device, or without the package beside it, it exits
@@ -28,6 +45,7 @@ nonzero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -43,6 +61,20 @@ N_ROWS, N_REPLICAS, N_MEMBERS = 1_000_000, 10_000, 4096
 SEED, SEED2 = 7, 8
 MERGE_S = 8
 REPS = 7
+
+# BASELINE config 4 (benchmarks/suite.py bench_lwwmap) and the batches the
+# LWW kernel is held against its plain version on
+LWW_N, LWW_K, LWW_R, LWW_V, LWW_SEED = 1_000_000, 1_000_000, 10_000, 100, 4
+TIE_N, TIE_K, TIE_R, TIE_V = 1_000_000, 1000, 16, 4
+SAT_K = 100_000
+TIE_BATCH_N, TIE_BATCH_KEYS = 200_000, 50_000
+HI31 = (1 << 31) - 1
+# BASELINE configs 1 and 2 (benchmarks/suite.py bench_gcounter / _pncounter)
+GC_N, GC_R = 1000, 4
+PN_N, PN_R = 100_000, 1000
+# K3's shape: 2·Ep·Rp = 2·4096·262,144 = 2^31 overflows the TPU ablk
+# layout's int32 keys, so the JAX package folds it with _fold_wide
+K3_E, K3_R, K3_SEED = 4096, 261_000, 9
 
 # peak device-memory rates (NVIDIA data sheets); float32 outside the
 # tensor cores is the table's nearest rate for the kernels' int32 ALU work
@@ -131,9 +163,10 @@ def max_abs_err(ref, got) -> int:
 def check_equal(what: str, ref, got, errs: dict, key: str) -> None:
     import torch
 
-    err = max_abs_err(ref, got)
+    same = all(r.dtype == g.dtype and torch.equal(r, g)
+               for r, g in zip(ref, got))
+    err = 0 if same else max(max_abs_err(ref, got), 1)
     errs[key] = max(errs.get(key, 0), err)
-    same = all(torch.equal(r, g) for r, g in zip(ref, got))
     print(f"  {what}: equal={same} max_abs_err={err}", flush=True)
     if not same:
         raise AssertionError(f"{what}: kernel disagrees with its plain version")
@@ -376,13 +409,369 @@ def phase_times(fold_inputs, stacks, E: int, R: int, rate: float):
     return out
 
 
+# ---- LWW map and counters (BASELINE configs 4, 1 and 2) --------------------
+
+
+def running_count(group: np.ndarray, n_groups: int) -> np.ndarray:
+    """1-based running occurrence count per group id, in row order (a copy
+    of benchmarks/suite.py's)."""
+    n = len(group)
+    order = np.argsort(group, kind="stable")
+    g = group[order]
+    cum = np.arange(1, n + 1, dtype=np.int64)
+    base = np.searchsorted(g, np.arange(n_groups))[g]
+    out = np.empty(n, np.int64)
+    out[order] = cum - base
+    return out.astype(np.int32)
+
+
+def gen_lww(N: int, K: int, R: int, seed: int = LWW_SEED):
+    """Config-4 writes (a copy of benchmarks/suite.py's generator): keys
+    uniform over K, timestamps uniform in [1, 2^40), values in [0, 100)."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, K, N, dtype=np.int32)
+    ts = rng.integers(1, 1 << 40, N, dtype=np.int64)
+    actor = rng.integers(0, R, N, dtype=np.int32)
+    value = rng.integers(0, 100, N, dtype=np.int32)
+    return key, ts, actor, value
+
+
+def lww_batches():
+    """name -> (int32 columns key, ts_hi, ts_lo, actor, value; K; V)."""
+    from crdt_enc_tpu_torch.ops.lww import ts_split
+
+    key, ts, actor, value = gen_lww(LWW_N, LWW_K, LWW_R)
+    out = {"config 4": ((key, *ts_split(ts), actor, value), LWW_K, LWW_V)}
+    rng = np.random.default_rng(5)
+    key = rng.integers(0, TIE_K, TIE_N, dtype=np.int32)
+    key = np.where(rng.random(TIE_N) < 0.05, TIE_K, key).astype(np.int32)
+    hi, lo = ts_split(rng.integers(0, 4, TIE_N))
+    out["heavy ties, 5% padding"] = (
+        (key, hi, lo, rng.integers(0, TIE_R, TIE_N, dtype=np.int32),
+         rng.integers(0, TIE_V, TIE_N, dtype=np.int32)), TIE_K, TIE_V)
+    rng = np.random.default_rng(6)
+    n = LWW_N
+    hi = np.where(rng.random(n) < 0.5, HI31 - rng.integers(0, 4, n),
+                  rng.integers(0, HI31, n, endpoint=True)).astype(np.int32)
+    out["saturated ts_lo, ts_hi to 2^31-1"] = (
+        (rng.integers(0, SAT_K, n, dtype=np.int32), hi,
+         np.full(n, HI31, np.int32),
+         rng.integers(0, LWW_R, n, dtype=np.int32),
+         rng.integers(0, LWW_V, n, dtype=np.int32)), SAT_K, LWW_V)
+    return out
+
+
+def phase_lww_kernels(device):
+    """The LWW kernel against ``lww_fold_plain`` on every batch, in both
+    modes, and the incremental fold against the whole.  Returns
+    (max_abs_err per kernel, name -> (device columns, K, V))."""
+    import torch
+
+    from crdt_enc_tpu_torch.ops import lww as L
+    from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
+
+    errs: dict = {}
+    batches = {}
+    for name, (cols, K, V) in lww_batches().items():
+        dev = [torch.from_numpy(x).to(device) for x in cols]
+        for nv in (V, None):
+            got = LC.lww_fold_cuda(*dev, num_keys=K, num_values=nv)
+            ref = L.lww_fold_plain(*dev, num_keys=K, num_values=nv)
+            check_equal(f"lww_fold ({name}, N={len(cols[0])}, K={K}, "
+                        f"num_values={nv})", ref, got, errs, "lww_fold")
+        h = len(cols[0]) // 2
+        whole = LC.lww_fold_cuda(*dev, num_keys=K, num_values=V)
+        into = L.lww_fold_into(
+            LC.lww_fold_cuda(*(x[:h] for x in dev), num_keys=K, num_values=V),
+            *(x[h:] for x in dev), num_keys=K, num_values=V)
+        check_equal(f"lww_fold_into(fold(first half), second half) == "
+                    f"fold(whole) ({name})", whole, into, errs, "lww_fold")
+        print(f"    {int(whole[4].sum())} of {K} keys present", flush=True)
+        batches[name] = (dev, K, V)
+    return errs, batches
+
+
+def lww_tie_ops(entries: dict, actors: list, n: int, seed: int = 12):
+    """A batch that collides with a populated state: keys drawn from the
+    first TIE_BATCH_KEYS of its entries (about four rows a key), each row's
+    timestamp within one tick of the entry's, its actor and value the
+    entry's half the time each, a quarter of the rows deletes, and a tenth
+    of the rows on keys the state does not hold."""
+    from crdt_enc_tpu_torch import LWWOp
+
+    rng = np.random.default_rng(seed)
+    keys = list(entries)[:TIE_BATCH_KEYS]
+    cols = zip(rng.integers(0, len(keys), n).tolist(),
+               rng.integers(-1, 2, n).tolist(),
+               (rng.random(n) < 0.5).tolist(), (rng.random(n) < 0.5).tolist(),
+               (rng.random(n) < 0.25).tolist(), (rng.random(n) < 0.1).tolist(),
+               rng.integers(0, 16, n).tolist(), rng.integers(0, 100, n).tolist())
+    ops = []
+    for i, dts, same_a, same_v, delete, fresh, a, v in cols:
+        k = keys[i]
+        ts0, a0, v0, tomb0 = entries[k]
+        if fresh:
+            k, ts0 = f"fresh{i % 1000}", 1 << 30
+        actor = a0 if same_a and not fresh else actors[a]
+        ts = max(ts0 + dts, 0)
+        if delete:
+            ops.append(LWWOp(k, ts, actor, None, True))
+        else:
+            val = v0 if same_v and not tomb0 and not fresh else v
+            ops.append(LWWOp(k, ts, actor, val))
+    return ops
+
+
+def print_fold(label: str, wall_s: float, snap: dict) -> None:
+    print(f"  {label}: fold_ops wall {wall_s:.4f}s", flush=True)
+    for name, v in sorted(snap["spans"].items()):
+        print(f"    span {name}: {v['seconds'] * 1e3:.2f} ms x{v['count']}")
+    print(f"    h2d_bytes {snap['counters'].get('h2d_bytes', 0)}", flush=True)
+
+
+def compare_bytes(label: str, got, host) -> None:
+    from crdt_enc_tpu_torch import canonical_bytes
+
+    gb, hb = canonical_bytes(got), canonical_bytes(host)
+    print(f"  {label}: bytes equal to host loop: {gb == hb} ({len(gb)} bytes)",
+          flush=True)
+    if gb != hb:
+        raise AssertionError(f"{label}: fold_ops disagrees with the host loop")
+
+
+def timed_fold(accel, state, ops):
+    from crdt_enc_tpu_torch.utils import trace
+
+    trace.reset()
+    t0 = time.perf_counter()
+    out = accel.fold_ops(state, ops)
+    return out, time.perf_counter() - t0, trace.snapshot()
+
+
+def phase_lww_end_to_end(device):
+    """The LWW-map path through ``fold_ops``: config 4 into an empty state,
+    then a tie-and-delete batch into that state, each held byte for byte
+    against the port's host loop.  Returns the LWW kernel's launches in
+    these two folds."""
+    from crdt_enc_tpu_torch import HostAccelerator, LWWMap, LWWOp, TorchAccelerator
+    from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
+
+    key, ts, actor, value = gen_lww(LWW_N, LWW_K, LWW_R)
+    actors = actor_ids(LWW_R)
+    t0 = time.perf_counter()
+    ops = [LWWOp(k, t, actors[a], v) for k, t, a, v in zip(
+        key.tolist(), ts.tolist(), actor.tolist(), value.tolist())]
+    print(f"  {len(ops)} LWWOp objects built in {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    accel = TorchAccelerator(device=device)
+
+    LC.launches["lww_fold"] = 0
+    state, wall, snap = timed_fold(accel, LWWMap(), ops)
+    launches_cfg4 = LC.launches["lww_fold"]
+    print_fold("config 4 (1M writes, empty state)", wall, snap)
+    t0 = time.perf_counter()
+    host = HostAccelerator().fold_ops(LWWMap(), ops)
+    print(f"    host loop {time.perf_counter() - t0:.2f}s; "
+          f"{len(host.entries)} entries; state._mut {state._mut}", flush=True)
+    compare_bytes("config 4", state, host)
+
+    ties = lww_tie_ops(host.entries, actors, TIE_BATCH_N)
+    LC.launches["lww_fold"] = 0
+    state, wall, snap = timed_fold(accel, state, ties)
+    launches_ties = LC.launches["lww_fold"]
+    print_fold(f"tie batch ({len(ties)} ops, 25% deletes, into the config-4 "
+               "state)", wall, snap)
+    host = HostAccelerator().fold_ops(host, ties)
+    print(f"    {sum(e[3] for e in host.entries.values())} tombstones; "
+          f"state._mut {state._mut}", flush=True)
+    compare_bytes("tie batch", state, host)
+    print(f"  lww_fold launches: {launches_cfg4} (config 4), {launches_ties} "
+          "(tie batch)", flush=True)
+    if launches_cfg4 == 0 or launches_ties == 0:
+        raise AssertionError("lww_fold never launched on the LWW path")
+    return launches_cfg4 + launches_ties
+
+
+def phase_counters_end_to_end(device):
+    """Configs 1 and 2 through ``fold_ops`` (plain PyTorch on the card: the
+    JAX package folds counters in XLA, with no Pallas kernel), into an empty
+    state and again (a full replay) into the folded state."""
+    from crdt_enc_tpu_torch import (
+        Dot, GCounter, HostAccelerator, PNCounter, TorchAccelerator,
+    )
+
+    accel = TorchAccelerator(device=device, min_device_batch=1)
+    rng = np.random.default_rng(1)
+    actor = rng.integers(0, GC_R, GC_N, dtype=np.int32)
+    counter = running_count(actor, GC_R)
+    actors = actor_ids(GC_R)
+    g_ops = [Dot(actors[a], c) for a, c in zip(actor.tolist(), counter.tolist())]
+    rng = np.random.default_rng(2)
+    actor = rng.integers(0, PN_R, PN_N, dtype=np.int32)
+    sign = (rng.random(PN_N) < 0.3).astype(np.int8)
+    counter = running_count(actor * 2 + sign, PN_R * 2)
+    actors = actor_ids(PN_R)
+    pn_ops = [(s, Dot(actors[a], c)) for a, s, c in zip(
+        actor.tolist(), sign.tolist(), counter.tolist())]
+    for label, cls, ops in (
+        (f"config 1 (G-Counter, {GC_R} replicas, {GC_N} ops)", GCounter, g_ops),
+        (f"config 2 (PN-Counter, {PN_R} replicas, {PN_N} ops)", PNCounter,
+         pn_ops),
+    ):
+        accel.fold_ops(cls(), ops[:10])  # first-call set-up, untimed
+        state, wall, snap = timed_fold(accel, cls(), ops)
+        print_fold(label, wall, snap)
+        t0 = time.perf_counter()
+        host = HostAccelerator().fold_ops(cls(), ops)
+        print(f"    host loop {time.perf_counter() - t0:.4f}s; read() "
+              f"{state.read()}", flush=True)
+        compare_bytes(label, state, host)
+        state, wall, snap = timed_fold(accel, state, ops)
+        print_fold(label + ", replayed into the folded state", wall, snap)
+        compare_bytes(label + " replayed", state,
+                      HostAccelerator().fold_ops(host, ops))
+
+
+def device_breakdown(fn, calls: int = 5) -> str:
+    """Mean device time per CUDA kernel and memset of ``fn``, from
+    torch.profiler's CUPTI trace; "not measured" where the trace holds no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        parts = []
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "device_time_total",
+                             getattr(evt, "cuda_time_total", 0))
+            if dev_us > 0:
+                parts.append(f"{evt.key[:40]} {dev_us / calls:.1f} us")
+        return "; ".join(parts) or "not measured (no device time traced)"
+    except Exception as exc:  # the profiler is a diagnostic only
+        return f"not measured ({type(exc).__name__}: {exc})"
+
+
+def phase_lww_times(batches: dict, rate: float):
+    """The LWW kernel (all three passes) and its plain version on each
+    batch, beside the bound; at config 4 also without ``num_values``, the
+    per-pass device times, and pass 1 alone through ``scatter_reduce_`` as
+    a yardstick.  Returns config 4's row of the kernels line."""
+    import torch
+
+    from crdt_enc_tpu_torch.ops import lww as L
+    from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
+
+    out = None
+    for name, (dev, K, V) in batches.items():
+        N = dev[0].shape[0]
+        ms = time_ms(lambda: LC.lww_fold_cuda(*dev, num_keys=K, num_values=V))
+        plain_ms = time_ms(lambda: L.lww_fold_plain(*dev, num_keys=K,
+                                                    num_values=V))
+        nbytes = 20 * N + 17 * K
+        bytes_ms = nbytes / rate * 1e3
+        ops_ms = 4 * N / CUDA_CORE_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        print(f"  lww_fold ({name}, num_values={V}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB)", flush=True)
+        if out is not None:
+            continue
+        out = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bound_ms,
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        out["unpacked_ms"] = time_ms(lambda: LC.lww_fold_cuda(*dev, num_keys=K))
+        out["plain_unpacked_ms"] = time_ms(
+            lambda: L.lww_fold_plain(*dev, num_keys=K))
+        key, hi, lo = dev[:3]
+        packed_ts = ((hi.long() << 31) | lo.long()) + 1
+        idx = key.long()
+        out["pass1_scatter_reduce_ms"] = time_ms(
+            lambda: torch.zeros(K, dtype=torch.int64, device=key.device
+                                ).scatter_reduce_(0, idx, packed_ts,
+                                                  reduce="amax"))
+        print(f"    num_values=None: kernel {out['unpacked_ms']:.4f} ms, plain "
+              f"{out['plain_unpacked_ms']:.4f} ms", flush=True)
+        print(f"    pass 1 alone as scatter_reduce_(amax) of the packed "
+              f"timestamp (no library call computes the whole winner): "
+              f"{out['pass1_scatter_reduce_ms']:.4f} ms", flush=True)
+        print("    device time per launch: " + device_breakdown(
+            lambda: LC.lww_fold_cuda(*dev, num_keys=K, num_values=V)),
+            flush=True)
+    return out
+
+
+def phase_k3(device, rate: float):
+    """1M rows into empty planes at K3's shape, by the kernels and by the
+    plain fold; the planes compared with torch.equal.  Returns (max_abs_err,
+    the times and the memory peak)."""
+    import torch
+
+    from crdt_enc_tpu_torch.ops import orset as P
+    from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
+
+    E, R, N = K3_E, K3_R, N_ROWS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  device memory in use before: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB", flush=True)
+    cols = gen_columns(N, R, E, K3_SEED)
+    dev = [torch.from_numpy(x).to(device) for x in cols]
+    clock0 = torch.zeros(R, dtype=torch.int32, device=device)
+    z = torch.zeros((E, R), dtype=torch.int32, device=device)
+    kw = dict(num_members=E, num_replicas=R)
+    errs: dict = {}
+    for retire in (True, False):
+        got = F.orset_fold_cuda(clock0, z, z, *dev, **kw, retire_rm=retire)
+        ref = P.orset_fold_plain(clock0, z, z, *dev, **kw, retire_rm=retire)
+        check_equal(f"fold at E={E}, R={R}, N={N}, retire_rm={retire} "
+                    "(kernels vs plain)", ref, got, errs, "k3")
+        print(f"    {int((got[1] > 0).sum())} live add cells, "
+              f"{int((got[2] > 0).sum())} live horizons", flush=True)
+        del ref, got
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"    peak device memory {peak / 1e9:.3f} GB of {total / 1e9:.1f} GB",
+          flush=True)
+    if peak > 0.9 * total:
+        raise AssertionError("K3 check peaked too close to the card's memory")
+    fold_ms = time_ms(lambda: F.orset_fold_cuda(clock0, z, z, *dev, **kw))
+    plain_ms = time_ms(lambda: P.orset_fold_plain(clock0, z, z, *dev, **kw))
+    nbytes = 2 * (2 * E * R * 4) + 13 * N + 2 * 4 * R
+    bound_ms = nbytes / rate * 1e3
+    print(f"  fold (scatter + tail) at K3's shape: {fold_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"(bench.py bytes model: {nbytes / 1e9:.3f} GB)", flush=True)
+    return errs["k3"], dict(E=E, R=R, N=N, fold_ms=fold_ms,
+                            fold_plain_ms=plain_ms, bound_ms=bound_ms,
+                            peak_bytes=peak, match=errs["k3"] == 0)
+
+
+# name -> (source, file:line of the TPU kernel's pallas_call, the Pallas
+# functions it stands for).  K3 (_fold_wide) has the same contract as K1
+# plus the tail, over (E, R) past the ablk layout's int32 keys: the scatter
+# and the tail cover it with int64 cell indices (phase 9).
 KERNELS = {
     "orset_scatter": ("crdt_enc_tpu_torch/csrc/orset_fold.cu",
-                      "crdt_enc_tpu/ops/pallas_fold.py:628"),
+                      "crdt_enc_tpu/ops/pallas_fold.py:628",
+                      "K1 orset_scatter_pallas; K3 _fold_wide "
+                      "(crdt_enc_tpu/ops/pallas_fold.py:259)"),
     "orset_fold_tail": ("crdt_enc_tpu_torch/csrc/orset_fold.cu",
-                        "crdt_enc_tpu/ops/pallas_fold.py:830"),
+                        "crdt_enc_tpu/ops/pallas_fold.py:830",
+                        "K2 orset_fold_pallas_fused; K3 _fold_wide "
+                        "(crdt_enc_tpu/ops/pallas_fold.py:259)"),
     "orset_merge_many": ("crdt_enc_tpu_torch/csrc/orset_merge.cu",
-                         "crdt_enc_tpu/ops/pallas_merge.py:111"),
+                         "crdt_enc_tpu/ops/pallas_merge.py:111",
+                         "K4 orset_merge_many_pallas"),
+    "lww_fold": ("crdt_enc_tpu_torch/csrc/lww_fold.cu",
+                 "crdt_enc_tpu/ops/pallas_lww.py:332",
+                 "K5 lww_fold_pallas -> _lww_fold_pallas_impl"),
 }
 
 
@@ -426,15 +815,39 @@ def main() -> int:
     print("== 5. times (median of 7, CUDA events)", flush=True)
     rate = memory_rate(name)
     times = phase_times(fold_inputs, stacks, E, R, rate)
+    del fold_inputs, stacks
+
+    print(f"== 6. LWW kernel against plain (config 4: N={LWW_N}, K={LWW_K}, "
+          f"R={LWW_R}, V={LWW_V}; heavy ties; saturated)", flush=True)
+    lww_errs, lww_dev = phase_lww_kernels("cuda")
+    errs.update(lww_errs)
+
+    print("== 7. LWW and counters end to end", flush=True)
+    launches["lww_fold"] = phase_lww_end_to_end("cuda")
+    phase_counters_end_to_end("cuda")
+
+    print("== 8. LWW times (median of 7, CUDA events; per-pass device times "
+          "from torch.profiler)", flush=True)
+    times["lww_fold"] = phase_lww_times(lww_dev, rate)
+    del lww_dev
+
+    print(f"== 9. K3's shape (E={K3_E}, R={K3_R}, N={N_ROWS})", flush=True)
+    k3_err, k3 = phase_k3("cuda", rate)
 
     kernels = []
-    for kname, (source, replaces) in KERNELS.items():
-        kernels.append({
+    for kname, (source, replaces, pallas) in KERNELS.items():
+        entry = {
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kname],
+            "replaces": replaces, "pallas": pallas,
+            "launches": launches[kname],
             "max_abs_err": errs[kname], "match": errs[kname] == 0,
             **times[kname],
-        })
+        }
+        if kname in ("orset_scatter", "orset_fold_tail"):
+            entry["k3"] = k3
+            entry["max_abs_err"] = max(entry["max_abs_err"], k3_err)
+            entry["match"] = entry["max_abs_err"] == 0
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -4,9 +4,9 @@ The port sits beside the JAX package and never imports it: every host
 module it needs is its own copy, and every Pallas kernel on its path is a
 hand-written CUDA kernel for Hopper (``csrc/``), built on first use.
 
-This slice covers the OR-Set compaction hot path at the accelerator
-boundary ``Core`` uses: ``TorchAccelerator.fold_ops`` and
-``TorchAccelerator.merge_states``.  Importing the package loads torch and
+The port covers the accelerator boundary ``Core`` uses:
+``TorchAccelerator.fold_ops`` for OR-Set, G-/PN-Counter and LWW-map op
+batches, and ``TorchAccelerator.merge_states`` for OR-Sets.  Importing the package loads torch and
 numpy only when a name below is first touched (PEP 562), so ``import
 crdt_enc_tpu_torch`` stays cheap and never needs a GPU.
 """
@@ -21,6 +21,11 @@ _EXPORTS = {
     "ORSet": ".models.orset",
     "AddOp": ".models.orset",
     "RmOp": ".models.orset",
+    "LWWMap": ".models.lwwmap",
+    "LWWOp": ".models.lwwmap",
+    "GCounter": ".models.counters",
+    "PNCounter": ".models.counters",
+    "Dot": ".models.vclock",
     "canonical_bytes": ".models.base",
 }
 

@@ -7,6 +7,10 @@ packages is plain Python objects and numpy arrays:
   output of the JAX package's ``ORSet.to_obj()`` (``{b"c": clock,
   b"e": entries, b"d": deferred}``), keeping member and actor objects as
   they are;
+* ``lwwmap_from_reference_obj``, ``gcounter_from_reference_obj`` and
+  ``pncounter_from_reference_obj`` do the same for ``LWWMap``
+  (``{key: [ts, actor, value, tombstone]}``), ``GCounter`` (``{actor:
+  counter}``) and ``PNCounter`` (``[p, n]``);
 * ``planes_from_numpy`` / ``planes_to_numpy`` move int32 state planes
   ``(clock (R,), add (E, R), rm (E, R))`` between numpy and torch.
 """
@@ -16,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.counters import GCounter, PNCounter
+from .models.lwwmap import LWWMap
 from .models.orset import ORSet
 from .models.vclock import VClock
 
@@ -36,6 +42,18 @@ def orset_from_reference_obj(obj) -> ORSet:
         if v
     }
     return s
+
+
+def lwwmap_from_reference_obj(obj) -> LWWMap:
+    return LWWMap.from_obj(obj)
+
+
+def gcounter_from_reference_obj(obj) -> GCounter:
+    return GCounter.from_obj(obj)
+
+
+def pncounter_from_reference_obj(obj) -> PNCounter:
+    return PNCounter.from_obj(obj)
 
 
 def planes_from_numpy(clock, add, rm, *, device) -> tuple:

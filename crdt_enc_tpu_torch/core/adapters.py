@@ -1,7 +1,7 @@
 """CRDT-type adapters and the host accelerator.
 
-The port's copy of ``HostAccelerator`` and ``orset_adapter`` from
-``crdt_enc_tpu/core/adapters.py``.  An adapter bundles how the core
+The port's copy of ``HostAccelerator`` and the OR-Set, counter and LWW-map
+adapters from ``crdt_enc_tpu/core/adapters.py``.  An adapter bundles how the core
 (de)serializes a state type and its ops; the *accelerator* is the
 pluggable execution backend for the two hot paths (per-op fold and state
 merge).  ``HostAccelerator`` is the plain loop; ``TorchAccelerator``
@@ -13,8 +13,11 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
+from ..models.counters import GCounter, PNCounter
+from ..models.lwwmap import LWWMap, LWWOp
 from ..models.orset import ORSet
 from ..models.orset import op_from_obj as orset_op_from_obj
+from ..models.vclock import Dot
 
 
 class HostAccelerator:
@@ -48,10 +51,38 @@ class CrdtAdapter:
     op_from_obj: Callable = field(default=lambda obj: obj)
 
 
+def gcounter_adapter() -> CrdtAdapter:
+    return CrdtAdapter(
+        name=b"gcounter",
+        new=GCounter,
+        state_from_obj=GCounter.from_obj,
+        op_from_obj=Dot.from_obj,
+    )
+
+
+def pncounter_adapter() -> CrdtAdapter:
+    return CrdtAdapter(
+        name=b"pncounter",
+        new=PNCounter,
+        state_from_obj=PNCounter.from_obj,
+        op_to_obj=lambda op: [op[0], op[1].to_obj()],
+        op_from_obj=lambda obj: (int(obj[0]), Dot.from_obj(obj[1])),
+    )
+
+
 def orset_adapter() -> CrdtAdapter:
     return CrdtAdapter(
         name=b"orset",
         new=ORSet,
         state_from_obj=ORSet.from_obj,
         op_from_obj=orset_op_from_obj,
+    )
+
+
+def lwwmap_adapter() -> CrdtAdapter:
+    return CrdtAdapter(
+        name=b"lwwmap",
+        new=LWWMap,
+        state_from_obj=LWWMap.from_obj,
+        op_from_obj=LWWOp.from_obj,
     )

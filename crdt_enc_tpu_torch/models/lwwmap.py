@@ -1,0 +1,113 @@
+"""Last-writer-wins map with per-key registers and delete tombstones.
+
+A copy of ``crdt_enc_tpu/models/lwwmap.py``.  The ``(timestamp, actor)``
+pair totally orders writes (actor bytes break timestamp ties
+deterministically); deletes are tombstoned writes so they win over
+concurrent older puts and survive merges.  The device analogue is a
+per-key lexicographic argmax over rank-interned (ts, actor, value) columns
+(``crdt_enc_tpu_torch.ops.lww``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from ..utils import codec
+from .vclock import Actor
+
+
+@dataclass(frozen=True)
+class LWWOp:
+    key: object
+    ts: int
+    actor: Actor
+    value: object  # ignored when tombstone
+    tombstone: bool = False
+
+    def to_obj(self):
+        return [self.key, self.ts, self.actor, self.value, self.tombstone]
+
+    @classmethod
+    def from_obj(cls, obj) -> "LWWOp":
+        key, ts, actor, value, tombstone = obj
+        return cls(key, int(ts), bytes(actor), value, bool(tombstone))
+
+
+def _wins(a_ts, a_actor, a_val, a_tomb, b_ts, b_actor, b_val, b_tomb) -> bool:
+    """True if write A beats write B.  Total order: ts, then actor bytes,
+    then canonical value bytes, then tombstone (delete wins a full tie) —
+    every duplicate-write pathology converges deterministically."""
+    if a_ts != b_ts:
+        return a_ts > b_ts
+    if a_actor != b_actor:
+        return a_actor > b_actor
+    pa, pb = codec.pack(a_val), codec.pack(b_val)
+    if pa != pb:
+        return pa > pb
+    return a_tomb > b_tomb
+
+
+@dataclass
+class LWWMap:
+    # key -> [ts, actor, value, tombstone]
+    entries: dict = field(default_factory=dict)
+    # mutation epoch: bumped by every mutating method and by the
+    # accelerator's writeback — the same cache-validity law as
+    # ORSet._mut; excluded from the semantic __eq__ below
+    _mut: int = field(default=0, compare=False, repr=False)
+
+    def put(self, key, ts: int, actor: Actor, value) -> LWWOp:
+        return LWWOp(key, ts, actor, value)
+
+    def delete(self, key, ts: int, actor: Actor) -> LWWOp:
+        return LWWOp(key, ts, actor, None, tombstone=True)
+
+    def apply(self, op) -> None:
+        self._mut += 1
+        if isinstance(op, (list, tuple)):
+            op = LWWOp.from_obj(op)
+        cur = self.entries.get(op.key)
+        new = [op.ts, op.actor, None if op.tombstone else op.value, op.tombstone]
+        if cur is None or _wins(*new, *cur):
+            self.entries[op.key] = new
+
+    def merge(self, other: "LWWMap") -> None:
+        self._mut += 1
+        for key, theirs in other.entries.items():
+            cur = self.entries.get(key)
+            if cur is None or _wins(*theirs, *cur):
+                self.entries[key] = list(theirs)
+
+    def get(self, key):
+        e = self.entries.get(key)
+        if e is None or e[3]:
+            return None
+        return e[2]
+
+    def keys(self) -> list:
+        return sorted(
+            (k for k, e in self.entries.items() if not e[3]),
+            key=lambda k: codec.pack(k),
+        )
+
+    def to_obj(self):
+        return {
+            k: [ts, actor, value, bool(tomb)]
+            for k, (ts, actor, value, tomb) in self.entries.items()
+        }
+
+    @classmethod
+    def from_obj(cls, obj) -> "LWWMap":
+        m = cls()
+        if obj is None:
+            return m
+        m.entries = {
+            k: [int(ts), bytes(actor), value, bool(tomb)]
+            for k, (ts, actor, value, tomb) in obj.items()
+        }
+        return m
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, LWWMap):
+            return NotImplemented
+        return codec.pack(self.to_obj()) == codec.pack(other.to_obj())

@@ -38,6 +38,10 @@ class VClock:
         the op that carries it commits it)."""
         return Dot(actor, self.get(actor) + 1)
 
+    def apply(self, dot: Dot) -> None:
+        if dot.counter > self.get(dot.actor):
+            self.counters[dot.actor] = dot.counter
+
     def merge(self, other: "VClock") -> None:
         for a, c in other.counters.items():
             if c > self.get(a):

@@ -1,8 +1,8 @@
-"""Columnar encodings bridging host OR-Sets and the device kernels.
+"""Columnar encodings bridging host CRDT states and the device kernels.
 
-The OR-Set part of ``crdt_enc_tpu/ops/columnar.py``.  The kernels consume
-dense tensors; OR-Set states and op logs are sparse, dict-shaped host
-objects.  This module owns the conversion:
+The OR-Set, counter and LWW parts of ``crdt_enc_tpu/ops/columnar.py``.
+The kernels consume dense tensors; states and op logs are sparse,
+dict-shaped host objects.  This module owns the conversion:
 
 * **interning**: replica UUIDs and set members become dense indices via a
   ``Vocab`` (order of first appearance; canonical output never depends on
@@ -10,7 +10,10 @@ objects.  This module owns the conversion:
 * **op columns**: a batch of OR-Set ops flattens to parallel int arrays —
   one row per add-dot or per (remove × context-actor),
 * **state planes**: an ORSet becomes ``(clock[R], add[E,R], rm[E,R])``
-  int32 matrices and back, losslessly.
+  int32 matrices and back, losslessly; a counter's VClock a dense
+  ``(R,)`` vector,
+* **LWW columns**: actors and values are *rank*-interned (sorted by
+  their bytes), so integer order on the device is the host's byte order.
 
 The writeback fills the state dicts in Python: the JAX package's own
 byte-identical fallback for its native ``grouped_rows_dicts`` pass, which
@@ -23,8 +26,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..models.counters import NEG, POS
+from ..models.lwwmap import LWWOp
 from ..models.orset import AddOp, ORSet, RmOp, op_from_obj
-from ..models.vclock import VClock
+from ..models.vclock import Dot, VClock
 from ..utils import codec
 
 KIND_ADD = 0
@@ -198,3 +203,114 @@ def orset_planes_to_state(
     _fill_dicts_from_plane(add, members, replicas, state.entries)
     _fill_dicts_from_plane(rm, members, replicas, state.deferred)
     return state
+
+
+# ---- counters ------------------------------------------------------------
+
+INT32_MAX = 2**31 - 1
+
+
+@dataclass
+class CounterColumns:
+    sign: np.ndarray  # int8 — POS | NEG (always POS for G-Counter)
+    actor: np.ndarray  # int32
+    counter: np.ndarray  # int32, or int64 when a counter needs it
+    replicas: Vocab = field(default_factory=Vocab)
+
+
+def _counter_dtype(values) -> type:
+    """int32, or int64 when any counter needs it: the host loop takes any
+    counter, so the device route widens rather than truncates."""
+    return np.int64 if any(c > INT32_MAX for c in values) else np.int32
+
+
+def counter_ops_to_columns(ops, replicas: Vocab | None = None) -> CounterColumns:
+    """Flatten G-Counter (Dot) or PN-Counter ((dir, Dot)) op batches."""
+    replicas = replicas if replicas is not None else Vocab()
+    sign, actor, counter = [], [], []
+    for op in ops:
+        if isinstance(op, Dot):
+            direction, dot = POS, op
+        else:
+            direction, dot = op
+            if not isinstance(dot, Dot):
+                dot = Dot.from_obj(dot)
+        if direction not in (POS, NEG):
+            raise ValueError(f"bad counter op direction {direction!r}")
+        sign.append(direction)
+        actor.append(replicas.intern(dot.actor))
+        counter.append(dot.counter)
+    return CounterColumns(
+        np.asarray(sign, np.int8),
+        np.asarray(actor, np.int32),
+        np.asarray(counter, _counter_dtype(counter)),
+        replicas,
+    )
+
+
+def vclock_to_dense(clock: VClock, replicas: Vocab) -> np.ndarray:
+    for r in clock.counters:
+        replicas.intern(r)
+    out = np.zeros(len(replicas), _counter_dtype(clock.counters.values()))
+    for r, c in clock.counters.items():
+        out[replicas.index[r]] = c
+    return out
+
+
+def dense_to_vclock(arr: np.ndarray, replicas: Vocab) -> VClock:
+    arr = np.asarray(arr)
+    nz = np.nonzero(arr)[0]
+    robj = np.asarray(replicas.items, dtype=object)[nz].tolist()
+    return VClock(dict(zip(robj, arr[nz].tolist())))
+
+
+# ---- LWW -----------------------------------------------------------------
+
+
+@dataclass
+class LwwColumns:
+    key: np.ndarray  # int32 — index into keys vocab
+    ts_hi: np.ndarray  # int32 — timestamp high 31 bits
+    ts_lo: np.ndarray  # int32 — timestamp low 31 bits
+    actor: np.ndarray  # int32 — index into actors_sorted (rank)
+    value: np.ndarray  # int32 — index into values_sorted (rank)
+    tombstone: np.ndarray  # bool
+    keys: Vocab = field(default_factory=Vocab)
+    actors_sorted: list = field(default_factory=list)  # rank → actor bytes
+    values_sorted: list = field(default_factory=list)  # rank → value object
+
+
+def lww_ops_to_columns(ops, keys: Vocab | None = None) -> LwwColumns:
+    """Flatten LWW ops.  Actors and values are *rank*-interned (sorted by
+    bytes) so integer comparison on the device reproduces the host's
+    lexicographic tie-breaks exactly.  Each value is packed once."""
+    from .lww import ts_split
+
+    ops = [LWWOp.from_obj(o) if isinstance(o, (list, tuple)) else o for o in ops]
+    keys = keys if keys is not None else Vocab()
+    actors = sorted({op.actor for op in ops})
+    actor_rank = {a: i for i, a in enumerate(actors)}
+    packed = []
+    packed_vals = {}
+    for op in ops:
+        v = None if op.tombstone else op.value
+        p = codec.pack(v)
+        packed.append(p)
+        packed_vals[p] = v
+    order = sorted(packed_vals)
+    values_sorted = [packed_vals[k] for k in order]
+    value_rank = {k: i for i, k in enumerate(order)}
+    intern = keys.intern
+    key_col = [intern(op.key) for op in ops]
+    ts_hi, ts_lo = ts_split(np.asarray([op.ts for op in ops], np.int64).reshape(-1))
+    return LwwColumns(
+        np.asarray(key_col, np.int32),
+        ts_hi,
+        ts_lo,
+        np.asarray([actor_rank[op.actor] for op in ops], np.int32),
+        np.asarray([value_rank[p] for p in packed], np.int32),
+        np.asarray([op.tombstone for op in ops], bool),
+        keys,
+        actors,
+        values_sorted,
+    )

@@ -1,13 +1,15 @@
 """Torch accelerator: the drop-in replacement for the core's host fold and
-merge, OR-Set half.
+merge.
 
 The port's counterpart of ``TpuAccelerator`` (crdt_enc_tpu/parallel/
 accel.py).  It plugs in where the core takes an accelerator (the duck-typed
 ``fold_ops`` / ``merge_states`` interface of ``HostAccelerator``).  Each
-call converts sparse host state ↔ dense int32 planes around the device
-fold or merge; the conversion cost is amortized over whole op batches,
-which is exactly the compaction shape.  Small batches and every type
-other than ORSet take the host loop.
+call converts sparse host state ↔ dense tensors around the device fold or
+merge; the conversion cost is amortized over whole op batches, which is
+exactly the compaction shape.  ``fold_ops`` sends ORSet, PNCounter,
+GCounter and LWWMap batches to the device, as the JAX accelerator does;
+small batches and every other type take the host loop.  ``merge_states``
+merges three or more ORSets on the device.
 
 Eager PyTorch compiles nothing per shape, so the JAX package's bucket
 padding of rows and vocabularies (a bound on XLA recompiles) has no
@@ -20,14 +22,22 @@ import numpy as np
 import torch
 
 from ..core.adapters import HostAccelerator
+from ..models.counters import GCounter, PNCounter
+from ..models.lwwmap import LWWMap, _wins
 from ..models.orset import ORSet
 from ..ops.columnar import (
     Vocab,
+    counter_ops_to_columns,
+    dense_to_vclock,
+    lww_ops_to_columns,
     orset_ops_to_columns,
     orset_planes_to_state,
     orset_scan_vocab,
     orset_state_to_planes,
+    vclock_to_dense,
 )
+from ..ops.counters import gcounter_fold, pncounter_fold
+from ..ops.lww import lww_fold
 from ..ops.orset import orset_fold, orset_merge_many
 from ..utils import trace
 
@@ -35,10 +45,10 @@ MIN_DEVICE_BATCH = 256  # below this the host loop wins
 
 
 class TorchAccelerator(HostAccelerator):
-    """Folds ORSet op batches and merges three or more ORSet states on the
-    device; anything else — other state types, batches below
-    ``min_device_batch``, sparse batches over huge vocabularies — takes
-    the host loops.
+    """Folds ORSet, PNCounter, GCounter and LWWMap op batches and merges
+    three or more ORSet states on the device; anything else — other state
+    types, batches below ``min_device_batch``, sparse OR-Set batches over
+    huge vocabularies — takes the host loops.
 
     ``device``: ``None`` means ``"cuda"``, and then CUDA must be
     available: the accelerator raises rather than carry on silently on
@@ -78,9 +88,15 @@ class TorchAccelerator(HostAccelerator):
 
     # ------------------------------------------------------------- fold_ops
     def fold_ops(self, state, ops: list):
-        if len(ops) < self.min_device_batch or not isinstance(state, ORSet):
+        if len(ops) < self.min_device_batch:
             return super().fold_ops(state, ops)
-        return self._fold_orset(state, ops)
+        if isinstance(state, ORSet):
+            return self._fold_orset(state, ops)
+        if isinstance(state, (PNCounter, GCounter)):
+            return self._fold_counter(state, ops)
+        if isinstance(state, LWWMap):
+            return self._fold_lww(state, ops)
+        return super().fold_ops(state, ops)
 
     def _use_sparse(self, E: int, R: int, n_rows: int) -> bool:
         cells = E * R
@@ -132,6 +148,108 @@ class TorchAccelerator(HostAccelerator):
         state.deferred = folded.deferred
         state._mut += 1
         return state
+
+    # ------------------------------------------------------------- counters
+    def _fold_counter(self, state, ops: list):
+        """The G- and PN-Counter fold: op columns, the replica vocabulary
+        (state actors included), the fold on the device, the dense clocks
+        written back to the sparse state.  The planes are int64 on the
+        device, so any counter the host loop takes folds exactly (the JAX
+        route narrows a prior clock to int32 there)."""
+        with trace.span("fold.columns"):
+            cols = counter_ops_to_columns(ops)
+        replicas = cols.replicas
+        pn = isinstance(state, PNCounter)
+        clocks = (state.p.clock, state.n.clock) if pn else (state.clock,)
+        for c in clocks:
+            for a in c.counters:
+                replicas.intern(a)
+        R = len(replicas)
+        if R == 0:
+            return state
+        with trace.span("fold.planes"):
+            dense = [vclock_to_dense(c, replicas).astype(np.int64) for c in clocks]
+        rows = (cols.actor, cols.counter.astype(np.int64))
+        with trace.span("fold.device"):
+            if pn:
+                p0, n0, sign, actor, counter = self._upload(
+                    (*dense, cols.sign, *rows))
+                p, n, _ = pncounter_fold(p0, n0, sign, actor, counter,
+                                         num_replicas=R)
+                out = [p.cpu().numpy(), n.cpu().numpy()]
+            else:
+                clock0, actor, counter = self._upload((*dense, *rows))
+                clock, _ = gcounter_fold(clock0, actor, counter, num_replicas=R)
+                out = [clock.cpu().numpy()]
+        with trace.span("fold.writeback"):
+            if pn:
+                state.p.clock = dense_to_vclock(out[0], replicas)
+                state.n.clock = dense_to_vclock(out[1], replicas)
+            else:
+                state.clock = dense_to_vclock(out[0], replicas)
+        return state
+
+    # ------------------------------------------------------------------ LWW
+    def _fold_lww(self, state: LWWMap, ops: list) -> LWWMap:
+        with trace.span("fold.columns"):
+            cols = lww_ops_to_columns(ops)
+        Kn = len(cols.keys)
+        if Kn == 0:
+            return state
+        # the packed (actor, value) rank of the plain cascade, when it
+        # fits int32; the kernel orders the pair without it either way
+        V = len(cols.values_sorted)
+        num_values = V if len(cols.actors_sorted) * V < 2**31 else None
+        with trace.span("fold.device"):
+            dev = self._upload(
+                (cols.key, cols.ts_hi, cols.ts_lo, cols.actor, cols.value))
+            out = lww_fold(*dev, num_keys=Kn, num_values=num_values)
+            m_hi, m_lo, m_actor, m_value, present = (x.cpu().numpy() for x in out)
+        with trace.span("fold.writeback"):
+            self._lww_writeback(state, cols, m_hi, m_lo, m_actor, m_value,
+                                present)
+        state._mut += 1
+        return state
+
+    @staticmethod
+    def _lww_writeback(state: LWWMap, cols, m_hi, m_lo, m_actor, m_value,
+                       present) -> None:
+        """Winner table → state entries.  A key's winner is a tombstone
+        when any of its rows that equal the winner is one (the host's
+        "delete wins a full tie").  The entries materialize in bulk; the
+        host tie-break runs only where a key already holds an entry."""
+        ki = cols.key
+        win = (
+            (cols.ts_hi == m_hi[ki])
+            & (cols.ts_lo == m_lo[ki])
+            & (cols.actor == m_actor[ki])
+            & (cols.value == m_value[ki])
+        )
+        tomb_by_key = np.zeros(len(cols.keys), bool)
+        np.maximum.at(tomb_by_key, ki[win], cols.tombstone[win])
+
+        idx = np.flatnonzero(present)
+        ts64 = (m_hi[idx].astype(np.int64) << 31) | m_lo[idx]
+        items = cols.keys.items
+        actors, values = cols.actors_sorted, cols.values_sorted
+        new_entries = {
+            items[k]: [t, actors[a], None if tomb else values[v], tomb]
+            for k, t, a, v, tomb in zip(
+                idx.tolist(),
+                ts64.tolist(),
+                m_actor[idx].tolist(),
+                m_value[idx].tolist(),
+                tomb_by_key[idx].tolist(),
+            )
+        }
+        entries = state.entries
+        if not entries:
+            state.entries = new_entries
+            return
+        for key_obj, new in new_entries.items():
+            cur = entries.get(key_obj)
+            if cur is None or _wins(*new, *cur):
+                entries[key_obj] = new
 
     # --------------------------------------------------------- merge_states
     def merge_states(self, state, others: list):

@@ -8,8 +8,11 @@ State crosses between the packages as plain objects
 (``convert.orset_from_reference_obj``); ops cross as their ``to_obj()``
 form.
 
-Mirrors tests/test_accelerator.py::test_merge_many_orsets_matches_host and
-the OR-Set cases of tests/test_ops_kernels.py.
+Mirrors tests/test_accelerator.py (the ORSet merge, and the LWW-map,
+G-Counter and PN-Counter folds) and the OR-Set cases of
+tests/test_ops_kernels.py.  LWW-map, G-Counter and PN-Counter states cross
+through ``convert.lwwmap_from_reference_obj``,
+``gcounter_from_reference_obj`` and ``pncounter_from_reference_obj``.
 """
 
 from __future__ import annotations
@@ -23,20 +26,34 @@ import torch
 
 from crdt_enc_tpu import ops as JK
 from crdt_enc_tpu.core.adapters import HostAccelerator as JHostAccelerator
+from crdt_enc_tpu.models import GCounter as JGCounter
+from crdt_enc_tpu.models import LWWMap as JLWWMap
 from crdt_enc_tpu.models import ORSet as JORSet
+from crdt_enc_tpu.models import PNCounter as JPNCounter
 from crdt_enc_tpu.models.orset import AddOp as JAddOp
+from crdt_enc_tpu.models.vclock import Dot as JDot
 from crdt_enc_tpu.models import canonical_bytes as j_canonical_bytes
 from crdt_enc_tpu.parallel.accel import TpuAccelerator
 
 from crdt_enc_tpu_torch import (
+    Dot,
+    GCounter,
     HostAccelerator,
+    LWWMap,
+    LWWOp,
     ORSet,
+    PNCounter,
     TorchAccelerator,
     canonical_bytes,
     convert,
 )
 from crdt_enc_tpu_torch import ops as PK
-from crdt_enc_tpu_torch.core.adapters import orset_adapter
+from crdt_enc_tpu_torch.core.adapters import (
+    gcounter_adapter,
+    lwwmap_adapter,
+    orset_adapter,
+    pncounter_adapter,
+)
 from crdt_enc_tpu_torch.models.orset import op_from_obj
 from crdt_enc_tpu_torch.utils import trace
 
@@ -346,3 +363,277 @@ def test_kernel_merge_many_tree():
     merged = PK.orset_planes_to_state(clock.numpy(), add.numpy(), rm.numpy(),
                                       members, replicas)
     assert canonical_bytes(merged) == j_canonical_bytes(host)
+
+
+# ---- LWW-map, G-Counter and PN-Counter folds, on both packages ----------
+
+
+def lww_script(n_ops, n_keys, seed, state=None, actors=ACTORS, n_values=100):
+    """A host-applied JAX-package LWW history; coarse timestamps force
+    plenty of (ts, actor, value) ties, a quarter of the writes delete.
+    Values mix ints and strings, so the value rank crosses types."""
+    rng = np.random.default_rng(seed)
+    state = state if state is not None else JLWWMap()
+    ops = []
+    for _ in range(n_ops):
+        a = actors[int(rng.integers(len(actors)))]
+        k = f"k{int(rng.integers(n_keys))}"
+        ts = int(rng.integers(0, 8)) * (1 << 33) + int(rng.integers(0, 4))
+        if rng.random() < 0.25:
+            op = state.delete(k, ts, a)
+        else:
+            v = int(rng.integers(n_values))
+            op = state.put(k, ts, a, v if v % 3 else f"v{v}")
+        state.apply(op)
+        ops.append(op)
+    return state, ops
+
+
+def port_lww_ops(ops):
+    return [LWWOp.from_obj(op.to_obj()) for op in ops]
+
+
+def three_way_lww(jinit, jops):
+    j = TpuAccelerator(min_device_batch=1).fold_ops(
+        JLWWMap.from_obj(jinit.to_obj()), list(jops))
+    t = cpu_accel().fold_ops(convert.lwwmap_from_reference_obj(jinit.to_obj()),
+                             port_lww_ops(jops))
+    h = HostAccelerator().fold_ops(
+        convert.lwwmap_from_reference_obj(jinit.to_obj()), port_lww_ops(jops))
+    return j, t, h
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_lww_fold_matches_tpu_accelerator_and_host(seed):
+    final, ops = lww_script(400, 40, seed)
+    j, t, h = three_way_lww(JLWWMap(), ops)
+    assert canonical_bytes(t) == j_canonical_bytes(j) == canonical_bytes(h)
+    assert canonical_bytes(t) == j_canonical_bytes(final)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_lww_fold_into_populated_state(seed):
+    """A carried-across state: batch writes collide with its entries, so
+    the writeback's host tie-break (``_wins``) runs."""
+    base, _ = lww_script(300, 30, 20 + seed)
+    _, ops = lww_script(300, 45, 30 + seed,
+                        state=JLWWMap.from_obj(base.to_obj()))
+    replay = ops[: len(ops) // 4]  # duplicates of writes in the batch
+    j, t, h = three_way_lww(base, ops + replay)
+    assert canonical_bytes(t) == j_canonical_bytes(j) == canonical_bytes(h)
+
+
+def test_lww_full_tie_tombstone_wins():
+    """An exact duplicate (ts, actor, value) where one write is a delete:
+    the delete wins (tests/test_accelerator.py's tombstone tie)."""
+    a = ACTORS[0]
+    ops = [JLWWMap().put("k", 5, a, 1), JLWWMap().delete("k", 5, a),
+           JLWWMap().put("j", 0, a, None), JLWWMap().delete("j", 0, a)]
+    for jops in (ops, ops[::-1]):
+        j, t, h = three_way_lww(JLWWMap(), jops)
+        assert canonical_bytes(t) == j_canonical_bytes(j) == canonical_bytes(h)
+        assert t.get("k") is None and t.entries["k"][3]
+        assert t.entries["j"][3]
+
+
+def test_lww_tombstone_tie_against_a_state_entry():
+    """The batch winner ties a state entry exactly; the delete wins from
+    either side."""
+    a = ACTORS[1]
+    for state_op, batch_op in (
+        (JLWWMap().put("k", 9, a, 2), JLWWMap().delete("k", 9, a)),
+        (JLWWMap().delete("k", 9, a), JLWWMap().put("k", 9, a, None)),
+    ):
+        base = JLWWMap()
+        base.apply(state_op)
+        j, t, h = three_way_lww(base, [batch_op])
+        assert canonical_bytes(t) == j_canonical_bytes(j) == canonical_bytes(h)
+        assert t.entries["k"][3]
+
+
+def test_lww_unpacked_route_through_the_accelerator(monkeypatch):
+    """``num_values=None`` (taken when |actors|·V ≥ 2^31) gives the host
+    loop's bytes.  Such a batch is too large for a test, so the route is
+    forced: the accelerator's fold is called with ``num_values=None``."""
+    from crdt_enc_tpu_torch.parallel import accel as A
+
+    seen = []
+    real = A.lww_fold
+
+    def unpacked(*args, num_keys, num_values=None):
+        seen.append(num_values)
+        return real(*args, num_keys=num_keys, num_values=None)
+
+    monkeypatch.setattr(A, "lww_fold", unpacked)
+    base, _ = lww_script(200, 20, 40)
+    _, ops = lww_script(300, 30, 41, state=JLWWMap.from_obj(base.to_obj()))
+    _, t, h = three_way_lww(base, ops)
+    assert canonical_bytes(t) == canonical_bytes(h)
+    assert seen and seen[0] is not None  # the packed rank fits here
+
+
+def test_lww_unpacked_fold_matches_jax_on_accelerator_columns():
+    """The ``num_values=None`` cascade on the columns the accelerator
+    builds, against the JAX ``lww_fold`` in the same mode."""
+    _, ops = lww_script(500, 60, 42)
+    jc = JK.lww_ops_to_columns(ops)
+    pc = PK.lww_ops_to_columns(port_lww_ops(ops))
+    cols = (pc.key, pc.ts_hi, pc.ts_lo, pc.actor, pc.value)
+    Kn = len(pc.keys)
+    ref = JK.lww_fold(jc.key, jc.ts_hi, jc.ts_lo, jc.actor, jc.value,
+                      num_keys=Kn)
+    got = PK.lww_fold(*(torch.from_numpy(c) for c in cols), num_keys=Kn)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(np.asarray(r), g.numpy())
+
+
+def test_lww_columns_match_jax():
+    _, ops = lww_script(300, 25, 43)
+    jc = JK.lww_ops_to_columns(ops)
+    pc = PK.lww_ops_to_columns(port_lww_ops(ops))
+    for name in ("key", "ts_hi", "ts_lo", "actor", "value", "tombstone"):
+        r, g = getattr(jc, name), getattr(pc, name)
+        assert r.dtype == g.dtype, name
+        np.testing.assert_array_equal(r, g, err_msg=name)
+    assert list(jc.keys.items) == list(pc.keys.items)
+    assert jc.actors_sorted == pc.actors_sorted
+    assert jc.values_sorted == pc.values_sorted
+
+
+def test_lww_fold_bumps_the_epoch_and_records_spans():
+    """The JAX writeback leaves ``_mut`` where it was; the port bumps it
+    after a device fold, as the OR-Set writeback does."""
+    _, ops = lww_script(120, 10, 44)
+    state = LWWMap()
+    trace.reset()
+    cpu_accel().fold_ops(state, port_lww_ops(ops))
+    assert state._mut == 1
+    spans = trace.snapshot()["spans"]
+    for name in ("fold.columns", "fold.device", "fold.writeback"):
+        assert spans[name]["count"] == 1, name
+    jstate = JLWWMap()
+    TpuAccelerator(min_device_batch=1).fold_ops(jstate, list(ops))
+    assert jstate._mut == 0
+
+
+def test_lww_small_batch_takes_the_host_loop():
+    _, ops = lww_script(40, 6, 45)
+    trace.reset()
+    t = TorchAccelerator(device="cpu").fold_ops(LWWMap(), port_lww_ops(ops))
+    assert "fold.device" not in trace.snapshot()["spans"]
+    h = HostAccelerator().fold_ops(LWWMap(), port_lww_ops(ops))
+    assert canonical_bytes(t) == canonical_bytes(h)
+    assert t._mut == h._mut == len(ops)
+
+
+def counter_script(kind, n_ops, seed, state=None, actors=ACTORS):
+    """A host-applied JAX G- or PN-Counter history (30% decrements)."""
+    rng = np.random.default_rng(seed)
+    state = state if state is not None else (
+        JGCounter() if kind == "g" else JPNCounter())
+    ops = []
+    for _ in range(n_ops):
+        a = actors[int(rng.integers(len(actors)))]
+        steps = int(rng.integers(1, 5))
+        if kind == "pn" and rng.random() < 0.3:
+            op = state.dec(a, steps)
+        else:
+            op = state.inc(a, steps)
+        state.apply(op)
+        ops.append(op)
+    return state, ops
+
+
+def port_counter_ops(ops):
+    return [Dot.from_obj(op.to_obj()) if isinstance(op, JDot)
+            else (op[0], Dot.from_obj(op[1].to_obj())) for op in ops]
+
+
+def three_way_counter(kind, jinit, jops):
+    jcls = JGCounter if kind == "g" else JPNCounter
+    conv = (convert.gcounter_from_reference_obj if kind == "g"
+            else convert.pncounter_from_reference_obj)
+    j = TpuAccelerator(min_device_batch=1).fold_ops(
+        jcls.from_obj(jinit.to_obj()), list(jops))
+    t = cpu_accel().fold_ops(conv(jinit.to_obj()), port_counter_ops(jops))
+    h = HostAccelerator().fold_ops(conv(jinit.to_obj()), port_counter_ops(jops))
+    return j, t, h
+
+
+@pytest.mark.parametrize("kind", ["g", "pn"])
+@pytest.mark.parametrize("seed", range(3))
+def test_counter_fold_matches_tpu_accelerator_and_host(kind, seed):
+    final, ops = counter_script(kind, 500, seed)
+    j, t, h = three_way_counter(kind, final.__class__(), ops)
+    assert canonical_bytes(t) == j_canonical_bytes(j) == canonical_bytes(h)
+    assert canonical_bytes(t) == j_canonical_bytes(final)
+    assert t.read() == final.read()
+
+
+@pytest.mark.parametrize("kind", ["g", "pn"])
+def test_counter_fold_into_populated_state(kind):
+    """Prior clocks with actors the batch never names; a replayed third of
+    the batch changes nothing."""
+    base, _ = counter_script(kind, 200, 7)
+    _, ops = counter_script(kind, 300, 8, state=base.__class__.from_obj(
+        base.to_obj()), actors=ACTORS[2:])
+    j, t, h = three_way_counter(kind, base, ops + ops[: len(ops) // 3])
+    assert canonical_bytes(t) == j_canonical_bytes(j) == canonical_bytes(h)
+
+
+@pytest.mark.parametrize("kind", ["g", "pn"])
+def test_counter_fold_records_spans(kind):
+    _, ops = counter_script(kind, 100, 9)
+    trace.reset()
+    cpu_accel().fold_ops((GCounter if kind == "g" else PNCounter)(),
+                         port_counter_ops(ops))
+    spans = trace.snapshot()["spans"]
+    for name in ("fold.columns", "fold.device", "fold.writeback"):
+        assert spans[name]["count"] == 1, name
+
+
+def test_counters_past_int32_match_the_host_loop():
+    """A prior clock past 2^31 − 1, and a dot past it in the batch.  The
+    port widens to int64 and gives the host loop's bytes.  The JAX device
+    route does not: it narrows the prior clock to int32 (the G-Counter's
+    2^31 + 5 entry is lost, the PN-Counter's 2^32 + 1 reads 1) and raises
+    OverflowError on the wide dot."""
+    a = ACTORS
+    g = JGCounter()
+    g.clock.counters.update({a[0]: 2**31 + 5, a[1]: 3})
+    pn = JPNCounter()
+    pn.p.clock.counters[a[0]] = 2**32 + 1
+    cases = (
+        ("g", g, [JDot(a[1], 7), JDot(a[2], 9)]),
+        ("pn", pn, [(0, JDot(a[1], 7)), (1, JDot(a[2], 9))]),
+    )
+    for kind, base, ops in cases:
+        j, t, h = three_way_counter(kind, base, ops)
+        assert canonical_bytes(t) == canonical_bytes(h)
+        assert j_canonical_bytes(j) != canonical_bytes(h)
+    wide = [JDot(a[1], 2**31 + 7)]
+    t = cpu_accel().fold_ops(GCounter(), port_counter_ops(wide))
+    assert t.clock.counters == {a[1]: 2**31 + 7}
+    with pytest.raises(OverflowError):
+        TpuAccelerator(min_device_batch=1).fold_ops(JGCounter(), list(wide))
+
+
+@pytest.mark.parametrize("name,cls", [("gcounter", GCounter),
+                                      ("pncounter", PNCounter),
+                                      ("lwwmap", LWWMap)])
+def test_adapters_round_trip_state_and_ops(name, cls):
+    if name == "lwwmap":
+        final, ops = lww_script(80, 6, 46)
+        ad = lwwmap_adapter()
+    else:
+        final, ops = counter_script("g" if name == "gcounter" else "pn", 80, 47)
+        ad = gcounter_adapter() if name == "gcounter" else pncounter_adapter()
+    assert ad.name == name.encode()
+    state = ad.state_from_obj(final.to_obj())
+    assert isinstance(state, cls)
+    assert canonical_bytes(state) == j_canonical_bytes(final)
+    folded = HostAccelerator().fold_ops(
+        ad.new(), [ad.op_from_obj(ad.op_to_obj(op)) for op in
+                   (port_lww_ops(ops) if name == "lwwmap"
+                    else port_counter_ops(ops))])
+    assert canonical_bytes(folded) == j_canonical_bytes(final)

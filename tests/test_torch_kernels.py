@@ -6,7 +6,8 @@ H100 via ``python -m pytest tests/test_torch_kernels.py``.  The build
 and dispatch checks above them run anywhere.  This file imports nothing
 of JAX: the machine with the card has none.
 
-All outputs are int32 planes, so the tolerance is exact equality.
+All outputs are int32 planes or tables (and a bool ``present``), so the
+tolerance is exact equality.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import pytest
 import torch
 
 from crdt_enc_tpu_torch.ops import cuda_build
+from crdt_enc_tpu_torch.ops import lww as L
+from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
 from crdt_enc_tpu_torch.ops import orset as P
 from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
 from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
@@ -92,6 +95,16 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
                              num_members=E, num_replicas=R)
     assert_equal(ref, got)
     assert (F.launches, M.launches, set(cuda_build._libs)) == before
+
+
+def test_lww_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    before = (dict(LC.launches), set(cuda_build._libs))
+    cols, K, V = lww_batch("random", device="cpu")
+    for nv in (V, None):
+        got = LC.lww_fold_cuda(*cols, num_keys=K, num_values=nv)
+        assert_tables_equal(L.lww_fold_plain(*cols, num_keys=K, num_values=nv),
+                            got)
+    assert (LC.launches, set(cuda_build._libs)) == before
 
 
 # ---- on the card ---------------------------------------------------------
@@ -198,3 +211,102 @@ def test_wrappers_refuse_bad_inputs(dev):
         F.orset_fold_tail(clock0.cpu(), clock0, add0, rm0, add0, rm0)
     with pytest.raises(ValueError, match="clocks"):
         M.orset_merge_many_cuda(clock0[None, :4], add0[None], rm0[None])
+
+
+# ---- the LWW winner fold ---------------------------------------------------
+
+HI31 = (1 << 31) - 1
+
+
+def lww_batch(name, *, device, N=20000):
+    """The smoke run's batches at small size: config-4-like random writes,
+    heavy ties with 5% padding rows, and saturated timestamps."""
+    rng = np.random.default_rng({"random": 4, "ties": 5, "saturated": 6}[name])
+    if name == "random":
+        K, R, V = 15000, 300, 100
+        key = rng.integers(0, K, N, dtype=np.int32)
+        hi, lo = L.ts_split(rng.integers(1, 1 << 40, N))
+    elif name == "ties":
+        K, R, V = 50, 16, 4
+        key = rng.integers(0, K, N, dtype=np.int32)
+        key = np.where(rng.random(N) < 0.05, K, key).astype(np.int32)
+        hi, lo = L.ts_split(rng.integers(0, 4, N))
+    else:
+        K, R, V = 3000, 40, 9
+        key = rng.integers(0, K, N, dtype=np.int32)
+        hi = rng.integers(HI31 - 3, HI31, N, endpoint=True).astype(np.int32)
+        lo = np.full(N, HI31, np.int32)
+    actor = rng.integers(0, R, N, dtype=np.int32)
+    value = rng.integers(0, V, N, dtype=np.int32)
+    cols = [torch.from_numpy(x).to(device) for x in (key, hi, lo, actor, value)]
+    return cols, K, V
+
+
+def assert_tables_equal(ref, got):
+    assert len(ref) == len(got) == 5
+    for i, (x, y) in enumerate(zip(ref, got)):
+        assert x.dtype == y.dtype == (torch.bool if i == 4 else torch.int32)
+        assert torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("name", ["random", "ties", "saturated"])
+def test_lww_fold_matches_plain(dev, name, packed):
+    cols, K, V = lww_batch(name, device=dev)
+    nv = V if packed else None
+    n0 = LC.launches["lww_fold"]
+    got = L.lww_fold(*cols, num_keys=K, num_values=nv)
+    assert LC.launches["lww_fold"] == n0 + 1
+    assert_tables_equal(L.lww_fold_plain(*cols, num_keys=K, num_values=nv), got)
+
+
+@pytest.mark.cuda
+def test_lww_fold_into_halves_equals_the_whole(dev):
+    cols, K, V = lww_batch("ties", device=dev)
+    h = cols[0].shape[0] // 2
+    first, second = [c[:h] for c in cols], [c[h:] for c in cols]
+    got = L.lww_fold_into(L.lww_fold(*first, num_keys=K, num_values=V),
+                          *second, num_keys=K, num_values=V)
+    assert_tables_equal(L.lww_fold(*cols, num_keys=K, num_values=V), got)
+
+
+@pytest.mark.cuda
+def test_lww_zero_ts_and_all_padding(dev):
+    z = torch.zeros(4, dtype=torch.int32, device=dev)
+    key = torch.tensor([0, 3, 10, 10], dtype=torch.int32, device=dev)
+    got = L.lww_fold(key, z, z, z, z, num_keys=10)
+    assert got[4].cpu().tolist() == [True, False, False, True] + [False] * 6
+    assert_tables_equal(L.lww_fold_plain(key, z, z, z, z, num_keys=10), got)
+    pad = torch.full((4,), 10, dtype=torch.int32, device=dev)
+    assert not L.lww_fold(pad, z, z, z, z, num_keys=10)[4].any()
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    assert_tables_equal(L.lww_fold_plain(*[empty] * 5, num_keys=7),
+                        L.lww_fold(*[empty] * 5, num_keys=7))
+
+
+@pytest.mark.cuda
+def test_lww_cuda_tensors_never_take_the_plain_path(dev, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain path reached with CUDA tensors")
+
+    monkeypatch.setattr(L, "lww_fold_plain", refuse)
+    monkeypatch.setattr(LC, "lww_fold_plain", refuse)
+    cols, K, V = lww_batch("random", device=dev, N=500)
+    L.lww_fold(*cols, num_keys=K, num_values=V)
+    L.lww_fold(*cols, num_keys=K)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_lww_wrapper_refuses_bad_inputs(dev):
+    cols, K, V = lww_batch("random", device=dev, N=64)
+    with pytest.raises(TypeError, match="ts_hi"):
+        LC.lww_fold_cuda(cols[0], cols[1].long(), *cols[2:], num_keys=K)
+    with pytest.raises(ValueError, match="value"):
+        LC.lww_fold_cuda(*cols[:4], cols[4][:10], num_keys=K)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.stack([cols[1], cols[1]], dim=1)[:, 0]
+        LC.lww_fold_cuda(cols[0], strided, *cols[2:], num_keys=K)
+    with pytest.raises(ValueError, match="different devices"):
+        LC.lww_fold_cuda(cols[0].cpu(), *cols[1:], num_keys=K)

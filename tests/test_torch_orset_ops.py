@@ -20,7 +20,12 @@ import pytest
 import torch
 
 from crdt_enc_tpu.ops import orset as J
-from crdt_enc_tpu.ops.pallas_fold import fold_cap, orset_fold_pallas, orset_scatter_pallas
+from crdt_enc_tpu.ops.pallas_fold import (
+    ablk_key_space_fits,
+    fold_cap,
+    orset_fold_pallas,
+    orset_scatter_pallas,
+)
 from crdt_enc_tpu.ops.pallas_merge import orset_merge_many_pallas
 
 from crdt_enc_tpu_torch import convert
@@ -162,6 +167,34 @@ def test_fold_matches_pallas_interpret(case):
                             tile_cap=fold_cap(member, E), interpret=True)
     got = P.orset_fold(*t(*planes, *rows), num_members=E, num_replicas=R)
     assert_planes_equal(ref, got)
+
+
+# K3: the wide layout (``_fold_wide``), which ``orset_fold_pallas`` takes
+# when the ablk layout's int32 segment keys overflow.  Its contract is the
+# fold's; the port computes it with the same scatter + tail (int64 cell
+# indices), so the port's fold is held against ``layout="wide"`` here, as
+# tests/test_pallas_fold.py holds both layouts against the XLA fold.
+@pytest.mark.parametrize("retire_rm", [True, False])
+@pytest.mark.parametrize("case", ["sentinel_rows", "prior_state_stale_adds",
+                                  "unaligned_tiny", "untouched_cells"])
+def test_fold_matches_pallas_wide_layout_interpret(case, retire_rm):
+    planes, rows, E, R = fold_inputs(case, seed=2)
+    kw = dict(num_members=E, num_replicas=R, retire_rm=retire_rm)
+    ref = orset_fold_pallas(*planes, *rows, tile_cap=fold_cap(rows[1], E),
+                            interpret=True, layout="wide", **kw)
+    assert_planes_equal(ref, P.orset_fold(*t(*planes, *rows), **kw))
+    assert_planes_equal(ref, orset_fold_cuda(*t(*planes, *rows), **kw))
+
+
+def test_k3_shape_forces_the_wide_layout():
+    """E = 4,096, R = 261,000 (the shape chip_smoke.py folds on the card):
+    the ablk key space 2·Ep·Rp = 2^31 overflows int32, so the JAX front
+    door reroutes to ``_fold_wide``, whose own guard still holds.  The
+    port pads nothing and indexes cells in int64."""
+    E, R = 4096, 261_000
+    assert not ablk_key_space_fits(E, R)
+    assert ablk_key_space_fits(E, R - 2048)  # one ablk actor block less fits
+    assert (E // 8) * (2 * 8 * R) + 2 * 8 * R < 2**31
 
 
 def test_scatter_matches_pallas_scatter_interpret():

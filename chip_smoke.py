@@ -10,18 +10,27 @@ benchmarks/suite.py's config-4 generator), beside configs 1 and 2
 (G-Counter 4 x 1k, PN-Counter 1k x 100k).  Phases:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
-2. build: every CUDA kernel from the sources in the checkout;
+2. build: every CUDA kernel from the sources in the checkout, with each
+   kernel's registers, shared memory and spills from ``-Xptxas -v``;
 3. OR-Set kernels against their plain PyTorch versions on the card at
    config-3 width (torch.equal: the planes are int32, the tolerance is
-   exact) — the fold into empty planes, a second batch folded on top with
-   ``retire_rm`` both ways, and the S = 8 merge of eight folded slices;
+   exact) — both entries of the bucketed fold (``orset_scatter``, with and
+   without the clock; ``orset_fold_cuda``) into empty planes, a second
+   batch folded on top with ``retire_rm`` both ways, a hot-member and a
+   hot-cell batch (half the rows on one member, on one cell), and the
+   S = 8 merge of eight folded slices;
 4. the OR-Set slice end to end: ``TorchAccelerator().fold_ops`` over the
    1M op objects and ``merge_states`` over eight folded slices, each
    byte-equal (canonical bytes) to the port's host loop, with every
-   kernel's launch count read from that run alone;
-5. OR-Set times: median of 7 CUDA-event-timed runs per kernel, its plain
-   version and, for the scatter, ``scatter_reduce_(..., "amax")`` as the
-   library yardstick, beside the least time the card allows;
+   kernel's launch count read from that run alone (the fold entry exactly
+   once, the merge at least once; the raw scatter is not on that path);
+5. OR-Set times: median of 7 CUDA-event-timed single calls per kernel,
+   its plain version and, for the raw scatter, ``scatter_reduce_(...,
+   "amax")`` as the library yardstick, beside the least time the card
+   allows (the fold timed into two distinct zero planes); for both fold
+   entries also the per-call time over 20 back-to-back calls, the device
+   time of each pass (torch.profiler), the host's enqueue time per call,
+   and the skewed batches;
 6. the LWW kernel against ``lww_fold_plain`` (torch.equal on every output)
    at config 4 with ``num_values`` given and None, on a heavy-tie batch
    with padding rows, on saturated timestamps, and
@@ -34,7 +43,7 @@ benchmarks/suite.py's config-4 generator), beside configs 1 and 2
    config 4, beside the bound;
 9. K3's shape: 1M rows folded into empty planes at E = 4,096,
    R = 261,000 (where the TPU package leaves its ablk layout for
-   ``_fold_wide``) by the kernels and by the plain fold, compared
+   ``_fold_wide``) by both entries and by the plain versions, compared
    plane for plane, with the device-memory peak and the fold's time;
 then the kernels line and the result line.
 
@@ -48,6 +57,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -172,13 +182,59 @@ def check_equal(what: str, ref, got, errs: dict, key: str) -> None:
         raise AssertionError(f"{what}: kernel disagrees with its plain version")
 
 
-def phase_kernels(cols, cols2, E: int, R: int, device):
-    """Each kernel against its plain version at the given width.  Returns
-    (max_abs_err per kernel, the fold outputs, the S-way merge stacks)."""
+def skewed_columns(cols, R: int, seed: int = 3) -> dict:
+    """name -> config-3 columns with half the rows bent onto one member
+    (member 3) or onto one cell (member 5, actor 7; sentinel rows stay
+    sentinels)."""
+    kind, member, actor, counter = cols
+    half = np.random.default_rng(seed).random(len(kind)) < 0.5
+    hot_cell_actor = np.where(half & (actor < R), 7, actor).astype(np.int32)
+    return {
+        "hot member": (kind, np.where(half, 3, member).astype(np.int32),
+                       actor, counter),
+        "hot cell": (kind, np.where(half, 5, member).astype(np.int32),
+                     hot_cell_actor, counter),
+    }
+
+
+def check_entries(label: str, dev, E: int, R: int, errs: dict, planes=None,
+                  retire_rm: bool = True):
+    """Both entries of the bucketed fold against their plain versions on
+    one batch: the raw scatter (with the clock it raises) and the fold
+    (into empty planes unless ``planes`` is given).  Returns the fold."""
     import torch
 
     from crdt_enc_tpu_torch.ops import orset as P
     from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
+
+    kw = dict(num_members=E, num_replicas=R)
+    if planes is None:
+        z = torch.zeros((E, R), dtype=torch.int32, device=dev[0].device)
+        planes = (torch.zeros(R, dtype=torch.int32, device=z.device), z, z)
+    ref = P.orset_scatter_plain(*dev, **kw)
+    check_equal(f"orset_scatter ({label})", ref,
+                F.orset_scatter(*dev, **kw), errs, "orset_scatter")
+    clock = planes[0].clone()
+    got = F.orset_scatter(*dev, **kw, clock=clock)
+    check_equal(f"orset_scatter with clock ({label})",
+                (*ref, P.orset_fold_clock_plain(planes[0], ref[0])),
+                (*got, clock), errs, "orset_scatter")
+    del ref, got
+    ref = P.orset_fold_plain(*planes, *dev, **kw, retire_rm=retire_rm)
+    got = F.orset_fold_cuda(*planes, *dev, **kw, retire_rm=retire_rm)
+    check_equal(f"orset_fold ({label}, retire_rm={retire_rm})", ref, got,
+                errs, "orset_fold")
+    del ref
+    return got
+
+
+def phase_kernels(cols, cols2, E: int, R: int, device):
+    """Each kernel against its plain version at the given width.  Returns
+    (max_abs_err per kernel, the fold inputs, the S-way merge stacks, the
+    skewed batches on the card)."""
+    import torch
+
+    from crdt_enc_tpu_torch.ops import orset as P
     from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
 
     errs: dict = {}
@@ -186,37 +242,24 @@ def phase_kernels(cols, cols2, E: int, R: int, device):
     z = torch.zeros((E, R), dtype=torch.int32, device=device)
     clock0 = torch.zeros(R, dtype=torch.int32, device=device)
 
-    clock = clock0.clone()
-    got = F.orset_scatter(*dev, num_members=E, num_replicas=R, clock=clock)
-    ref = P.orset_scatter_plain(*dev, num_members=E, num_replicas=R)
-    check_equal("scatter (seed 7, empty planes)", ref, got, errs, "orset_scatter")
-    ref_fold = P.orset_fold_plain(clock0, z, z, *dev, num_members=E, num_replicas=R)
-    check_equal("scatter clock", ref_fold[:1], (clock,), errs, "orset_scatter")
-    tail = F.orset_fold_tail(clock0, clock, z, z, *got)
-    check_equal("tail (seed 7)", ref_fold[1:], tail, errs, "orset_fold_tail")
-    fold1 = P.orset_fold(clock0, z, z, *dev, num_members=E, num_replicas=R)
-    check_equal("fold (seed 7)", ref_fold, fold1, errs, "orset_fold_tail")
-    del got, ref, tail, ref_fold
-
+    fold1 = check_entries("seed 7, empty planes", dev, E, R, errs)
     dev2 = [torch.from_numpy(x).to(device) for x in cols2]
     for retire in (True, False):
-        kw = dict(num_members=E, num_replicas=R, retire_rm=retire)
-        ref = P.orset_fold_plain(*fold1, *dev2, **kw)
-        got = P.orset_fold(*fold1, *dev2, **kw)
-        check_equal(f"fold (seed 8 onto seed 7, retire_rm={retire})", ref, got,
-                    errs, "orset_fold_tail")
-        # the same fold, kernel by kernel
-        clock = fold1[0].clone()
-        add_new, rm_new = F.orset_scatter(*dev2, num_members=E, num_replicas=R,
-                                          clock=clock)
-        check_equal(f"  scatter clock (retire_rm={retire})", ref[:1], (clock,),
-                    errs, "orset_scatter")
-        tail = F.orset_fold_tail(fold1[0], clock, fold1[1], fold1[2], add_new,
-                                 rm_new, retire_rm=retire)
-        check_equal(f"  tail (retire_rm={retire})", ref[1:], tail, errs,
-                    "orset_fold_tail")
-        del ref, got, add_new, rm_new, tail
+        check_entries("seed 8 onto seed 7", dev2, E, R, errs, planes=fold1,
+                      retire_rm=retire)
+        # the dispatch the accelerator calls
+        ref = P.orset_fold_plain(*fold1, *dev2, num_members=E, num_replicas=R,
+                                 retire_rm=retire)
+        got = P.orset_fold(*fold1, *dev2, num_members=E, num_replicas=R,
+                           retire_rm=retire)
+        check_equal(f"ops.orset.orset_fold (seed 8 onto seed 7, "
+                    f"retire_rm={retire})", ref, got, errs, "orset_fold")
+        del ref, got
     del dev2
+    skewed = {}
+    for name, skew in skewed_columns(cols, R).items():
+        skewed[name] = [torch.from_numpy(x).to(device) for x in skew]
+        check_entries(name, skewed[name], E, R, errs)
 
     # S disjoint contiguous slices of the rows, each folded into empty planes
     N = len(cols[0])
@@ -230,7 +273,7 @@ def phase_kernels(cols, cols2, E: int, R: int, device):
     ref = P.orset_merge_many_tree(*stacks)
     check_equal(f"merge (S={MERGE_S})", ref, got, errs, "orset_merge_many")
     del got, ref
-    return errs, (clock0, z, dev, fold1), stacks
+    return errs, (clock0, z, dev, fold1), stacks, skewed
 
 
 def phase_end_to_end(cols, E: int, R: int, device):
@@ -298,9 +341,9 @@ def phase_end_to_end(cols, E: int, R: int, device):
           f"({len(mb)} bytes)", flush=True)
     if mb != hmb:
         raise AssertionError("merge_states disagrees with the host loop")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the slice path: {missing}")
+    if launches["orset_fold"] != 1 or launches["orset_merge_many"] == 0:
+        raise AssertionError("the slice path did not launch the fold entry "
+                             f"once and the merge: {launches}")
     return launches
 
 
@@ -323,10 +366,44 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
-def phase_times(fold_inputs, stacks, E: int, R: int, rate: float):
+def time_stream_ms(fn, calls: int = 20) -> float:
+    """Per-call time of ``calls`` back-to-back calls between two CUDA
+    events (the host enqueues ahead while the card works), after a warm-up
+    call: the card's throughput where a single call's event window also
+    holds the host's enqueue time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def host_enqueue_ms(fn, calls: int = 20) -> float:
+    """Host time to enqueue one call, back to back with no synchronize (the
+    card's queue absorbs them)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return enqueue
+
+
+def phase_times(fold_inputs, stacks, skewed, E: int, R: int, rate: float):
     """Kernel, plain and library times at the config-3 shape, with each
     function's bound from the bytes it must move (every input read once,
-    every output written once) and the int32 operations it does."""
+    every output written once) and the int32 operations it does; the
+    device time of each pass; the skewed batches."""
     import torch
 
     from crdt_enc_tpu_torch.ops import orset as P
@@ -334,15 +411,15 @@ def phase_times(fold_inputs, stacks, E: int, R: int, rate: float):
     from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
 
     clock0, z, dev, fold1 = fold_inputs
+    z2 = torch.zeros_like(z)  # add0 and rm0 distinct, as the bound counts
     kind, member, actor, counter = dev
     N = kind.shape[0]
     S = stacks[1].shape[0]
     kw = dict(num_members=E, num_replicas=R)
-    clock = clock0.clone()
-    add_new, rm_new = F.orset_scatter(*dev, **kw, clock=clock)
 
     # the library yardstick: one scatter_reduce_ into a zeroed flat target
-    # (row masks and segment ids precomputed, outside the timing)
+    # (row masks and segment ids precomputed, outside the timing); like
+    # K1, it computes the two planes and no clock
     valid = (actor < R)
     is_rm = (kind == 1) & valid
     seg = (member.long() * R + actor.long().clamp(max=R - 1))
@@ -357,18 +434,17 @@ def phase_times(fold_inputs, stacks, E: int, R: int, rate: float):
     cells = E * R
     rows = {
         "orset_scatter": dict(
-            kernel=lambda: F.orset_scatter(*dev, **kw, clock=clock0.clone()),
+            kernel=lambda: F.orset_scatter(*dev, **kw),
             plain=lambda: P.orset_scatter_plain(*dev, **kw),
             library=library_scatter,
-            bytes=13 * N + 2 * cells * 4 + 2 * R * 4,
+            bytes=13 * N + 2 * cells * 4,
             ops=3 * N),
-        "orset_fold_tail": dict(
-            kernel=lambda: F.orset_fold_tail(clock0, clock, z, z, add_new, rm_new),
-            plain=lambda: P.orset_fold_tail_plain(clock0, clock, z, z, add_new,
-                                                  rm_new),
+        "orset_fold": dict(
+            kernel=lambda: F.orset_fold_cuda(clock0, z, z2, *dev, **kw),
+            plain=lambda: P.orset_fold_plain(clock0, z, z2, *dev, **kw),
             library=None,
-            bytes=6 * cells * 4 + 2 * R * 4,
-            ops=8 * cells),
+            bytes=4 * cells * 4 + 13 * N + 2 * R * 4,
+            ops=8 * cells + 3 * N),
         "orset_merge_many": dict(
             kernel=lambda: M.orset_merge_many_cuda(*stacks),
             plain=lambda: P.orset_merge_many_tree(*stacks),
@@ -390,22 +466,54 @@ def phase_times(fold_inputs, stacks, E: int, R: int, rate: float):
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {lib} ms, bound {out[name]['bound_ms']:.4f} ms "
               f"({out[name]['bound_by']}: {r['bytes'] / 1e6:.1f} MB)", flush=True)
+        if name != "orset_merge_many":
+            out[name]["back_to_back_ms"] = time_stream_ms(r["kernel"])
+            line = (f"    per call over 20 back-to-back calls: kernel "
+                    f"{out[name]['back_to_back_ms']:.4f} ms")
+            if r["library"]:
+                out[name]["library_back_to_back_ms"] = time_stream_ms(
+                    r["library"])
+                line += (f", library "
+                         f"{out[name]['library_back_to_back_ms']:.4f} ms")
+            print(line, flush=True)
 
-    # where the scatter's time goes: the two zeroed planes alone, and the
-    # scatter without the clock update
-    zeros_ms = time_ms(lambda: (torch.zeros((E, R), dtype=torch.int32, device=kind.device),
-                                torch.zeros((E, R), dtype=torch.int32, device=kind.device)))
-    noclock_ms = time_ms(lambda: F.orset_scatter(*dev, **kw))
-    print(f"  orset_scatter breakdown: zero fill {zeros_ms:.4f} ms, "
-          f"without the clock {noclock_ms:.4f} ms", flush=True)
-
-    # the whole dense fold, against bench.py's bytes model of it
-    fold_ms = time_ms(lambda: P.orset_fold(clock0, z, z, *dev, **kw))
-    fold_plain_ms = time_ms(lambda: P.orset_fold_plain(clock0, z, z, *dev, **kw))
-    fold_bytes = 2 * (2 * cells * 4) + 13 * N + 2 * 4 * R
-    print(f"  fold (scatter + tail): {fold_ms:.4f} ms, plain {fold_plain_ms:.4f} ms, "
-          f"bound {fold_bytes / rate * 1e3:.4f} ms ({fold_bytes / 1e6:.1f} MB)",
+    scatter_clock_ms = time_ms(
+        lambda: F.orset_scatter(*dev, **kw, clock=clock0.clone()))
+    out["orset_scatter"]["with_clock_ms"] = scatter_clock_ms
+    print(f"  orset_scatter raising a clock too: {scatter_clock_ms:.4f} ms",
           flush=True)
+    print("    device time per call: " + device_breakdown(
+        lambda: F.orset_scatter(*dev, **kw)), flush=True)
+    print("  orset_fold device time per call: " + device_breakdown(
+        lambda: F.orset_fold_cuda(clock0, z, z2, *dev, **kw)), flush=True)
+    same_ms = time_ms(lambda: F.orset_fold_cuda(clock0, z, z, *dev, **kw))
+    out["orset_fold"]["one_zero_plane_as_add0_and_rm0_ms"] = same_ms
+    print(f"  orset_fold with one zero plane as add0 and rm0 (read once; how "
+          f"earlier runs timed the fold): {same_ms:.4f} ms", flush=True)
+    for name, r in rows.items():
+        if name == "orset_merge_many":
+            continue
+        enqueue = host_enqueue_ms(r["kernel"])
+        out[name]["host_enqueue_ms"] = enqueue
+        line = f"  {name} host enqueue time per call: {enqueue:.4f} ms"
+        if r["library"]:
+            lib_enqueue = host_enqueue_ms(r["library"])
+            out[name]["library_host_enqueue_ms"] = lib_enqueue
+            line += f" (library {lib_enqueue:.4f} ms)"
+        print(line, flush=True)
+    prior_ms = time_ms(lambda: F.orset_fold_cuda(*fold1, *dev, **kw))
+    out["orset_fold"]["onto_prior_state_ms"] = prior_ms
+    print(f"  orset_fold onto the seed-7 state (distinct add0 and rm0 "
+          f"planes): {prior_ms:.4f} ms", flush=True)
+    for name, sk in skewed.items():
+        fold_ms = time_ms(lambda: F.orset_fold_cuda(clock0, z, z2, *sk, **kw))
+        scatter_ms = time_ms(lambda: F.orset_scatter(*sk, **kw))
+        out["orset_fold"][name.replace(" ", "_") + "_ms"] = fold_ms
+        out["orset_scatter"][name.replace(" ", "_") + "_ms"] = scatter_ms
+        print(f"  {name}: orset_fold {fold_ms:.4f} ms, orset_scatter "
+              f"{scatter_ms:.4f} ms", flush=True)
+        print("    orset_fold device time per call: " + device_breakdown(
+            lambda: F.orset_fold_cuda(clock0, z, z2, *sk, **kw)), flush=True)
     return out
 
 
@@ -651,7 +759,9 @@ def device_breakdown(fn, calls: int = 5) -> str:
             dev_us = getattr(evt, "device_time_total",
                              getattr(evt, "cuda_time_total", 0))
             if dev_us > 0:
-                parts.append(f"{evt.key[:40]} {dev_us / calls:.1f} us")
+                key = evt.key.replace("(anonymous namespace)::", "")
+                key = key.split("(")[0].removeprefix("void ")
+                parts.append(f"{key[:40]} {dev_us / calls:.1f} us")
         return "; ".join(parts) or "not measured (no device time traced)"
     except Exception as exc:  # the profiler is a diagnostic only
         return f"not measured ({type(exc).__name__}: {exc})"
@@ -707,9 +817,9 @@ def phase_lww_times(batches: dict, rate: float):
 
 
 def phase_k3(device, rate: float):
-    """1M rows into empty planes at K3's shape, by the kernels and by the
-    plain fold; the planes compared with torch.equal.  Returns (max_abs_err,
-    the times and the memory peak)."""
+    """1M rows into empty planes at K3's shape, by both entries and by
+    their plain versions; the planes compared with torch.equal.  Returns
+    (max_abs_err per entry, the times and the memory peak)."""
     import torch
 
     from crdt_enc_tpu_torch.ops import orset as P
@@ -730,42 +840,55 @@ def phase_k3(device, rate: float):
     for retire in (True, False):
         got = F.orset_fold_cuda(clock0, z, z, *dev, **kw, retire_rm=retire)
         ref = P.orset_fold_plain(clock0, z, z, *dev, **kw, retire_rm=retire)
-        check_equal(f"fold at E={E}, R={R}, N={N}, retire_rm={retire} "
-                    "(kernels vs plain)", ref, got, errs, "k3")
+        check_equal(f"orset_fold at E={E}, R={R}, N={N}, retire_rm={retire}",
+                    ref, got, errs, "orset_fold")
         print(f"    {int((got[1] > 0).sum())} live add cells, "
               f"{int((got[2] > 0).sum())} live horizons", flush=True)
         del ref, got
+    ref = P.orset_scatter_plain(*dev, **kw)
+    got = F.orset_scatter(*dev, **kw)
+    check_equal(f"orset_scatter at E={E}, R={R}, N={N}", ref, got, errs,
+                "orset_scatter")
+    del ref, got
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     print(f"    peak device memory {peak / 1e9:.3f} GB of {total / 1e9:.1f} GB",
           flush=True)
     if peak > 0.9 * total:
         raise AssertionError("K3 check peaked too close to the card's memory")
-    fold_ms = time_ms(lambda: F.orset_fold_cuda(clock0, z, z, *dev, **kw))
-    plain_ms = time_ms(lambda: P.orset_fold_plain(clock0, z, z, *dev, **kw))
+    z2 = torch.zeros_like(z)  # add0 and rm0 distinct, as the bound counts
+    fold_ms = time_ms(lambda: F.orset_fold_cuda(clock0, z, z2, *dev, **kw))
+    plain_ms = time_ms(lambda: P.orset_fold_plain(clock0, z, z2, *dev, **kw))
+    same_ms = time_ms(lambda: F.orset_fold_cuda(clock0, z, z, *dev, **kw))
     nbytes = 2 * (2 * E * R * 4) + 13 * N + 2 * 4 * R
     bound_ms = nbytes / rate * 1e3
-    print(f"  fold (scatter + tail) at K3's shape: {fold_ms:.4f} ms, plain "
+    print(f"  orset_fold at K3's shape: {fold_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"(bench.py bytes model: {nbytes / 1e9:.3f} GB)", flush=True)
-    return errs["k3"], dict(E=E, R=R, N=N, fold_ms=fold_ms,
-                            fold_plain_ms=plain_ms, bound_ms=bound_ms,
-                            peak_bytes=peak, match=errs["k3"] == 0)
+          f"(bench.py bytes model: {nbytes / 1e9:.3f} GB); with one zero "
+          f"plane as add0 and rm0 (how earlier runs timed it): {same_ms:.4f} ms",
+          flush=True)
+    print("    device time per call: " + device_breakdown(
+        lambda: F.orset_fold_cuda(clock0, z, z2, *dev, **kw), calls=2),
+        flush=True)
+    return errs, dict(E=E, R=R, N=N, fold_ms=fold_ms, fold_plain_ms=plain_ms,
+                      one_zero_plane_as_add0_and_rm0_ms=same_ms,
+                      bound_ms=bound_ms, peak_bytes=peak,
+                      match=max(errs.values()) == 0)
 
 
 # name -> (source, file:line of the TPU kernel's pallas_call, the Pallas
-# functions it stands for).  K3 (_fold_wide) has the same contract as K1
-# plus the tail, over (E, R) past the ablk layout's int32 keys: the scatter
-# and the tail cover it with int64 cell indices (phase 9).
+# functions it stands for).  Both OR-Set entries run the bucketed kernels
+# of csrc/orset_fold.cu and differ in the range kernel's epilogue; K3
+# (_fold_wide) has K2's contract over (E, R) past the ablk layout's int32
+# keys, which the same kernels cover with int64 cell indices (phase 9).
 KERNELS = {
     "orset_scatter": ("crdt_enc_tpu_torch/csrc/orset_fold.cu",
                       "crdt_enc_tpu/ops/pallas_fold.py:628",
-                      "K1 orset_scatter_pallas; K3 _fold_wide "
-                      "(crdt_enc_tpu/ops/pallas_fold.py:259)"),
-    "orset_fold_tail": ("crdt_enc_tpu_torch/csrc/orset_fold.cu",
-                        "crdt_enc_tpu/ops/pallas_fold.py:830",
-                        "K2 orset_fold_pallas_fused; K3 _fold_wide "
-                        "(crdt_enc_tpu/ops/pallas_fold.py:259)"),
+                      "K1 orset_scatter_pallas"),
+    "orset_fold": ("crdt_enc_tpu_torch/csrc/orset_fold.cu",
+                   "crdt_enc_tpu/ops/pallas_fold.py:830",
+                   "K2 orset_fold_pallas_fused; K3 _fold_wide "
+                   "(crdt_enc_tpu/ops/pallas_fold.py:259)"),
     "orset_merge_many": ("crdt_enc_tpu_torch/csrc/orset_merge.cu",
                          "crdt_enc_tpu/ops/pallas_merge.py:111",
                          "K4 orset_merge_many_pallas"),
@@ -773,6 +896,26 @@ KERNELS = {
                  "crdt_enc_tpu/ops/pallas_lww.py:332",
                  "K5 lww_fold_pallas -> _lww_fold_pallas_impl"),
 }
+
+
+def print_build_log() -> None:
+    """Each kernel's registers, shared memory and spills, from
+    ``-Xptxas -v``."""
+    from crdt_enc_tpu_torch.ops import cuda_build
+
+    for src, log in sorted(cuda_build.build_log.items()):
+        kernel = "?"
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                kernel = next(iter(re.findall(r"(?<=\d)([a-z_]+_kernel)", m[1])),
+                              m[1])
+                if "ILb1E" in m[1]:
+                    kernel += "<fold>"
+                elif "ILb0E" in m[1]:
+                    kernel += "<raw>"
+            elif "registers" in line or "spill" in line:
+                print(f"  {src} {kernel}: {line.split(':', 1)[-1].strip()}")
 
 
 def main() -> int:
@@ -795,10 +938,7 @@ def main() -> int:
     print("== 2. build", flush=True)
     build_s = cuda_build.build()
     print(f"  kernels built in {build_s:.2f}s", flush=True)
-    for src, log in sorted(cuda_build.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}")
+    print_build_log()
 
     print(f"== 3. kernels against plain (N={N}, E={E}, R={R}, S={MERGE_S})",
           flush=True)
@@ -807,15 +947,16 @@ def main() -> int:
     cols2 = gen_columns(N, R, E, SEED2)
     print(f"  columns generated in {time.perf_counter() - t0:.2f}s "
           f"({int((cols[2] >= R).sum())} sentinel rows)", flush=True)
-    errs, fold_inputs, stacks = phase_kernels(cols, cols2, E, R, "cuda")
+    errs, fold_inputs, stacks, skewed = phase_kernels(cols, cols2, E, R,
+                                                      "cuda")
 
     print("== 4. the slice end to end", flush=True)
     launches = phase_end_to_end(cols, E, R, "cuda")
 
     print("== 5. times (median of 7, CUDA events)", flush=True)
     rate = memory_rate(name)
-    times = phase_times(fold_inputs, stacks, E, R, rate)
-    del fold_inputs, stacks
+    times = phase_times(fold_inputs, stacks, skewed, E, R, rate)
+    del fold_inputs, stacks, skewed
 
     print(f"== 6. LWW kernel against plain (config 4: N={LWW_N}, K={LWW_K}, "
           f"R={LWW_R}, V={LWW_V}; heavy ties; saturated)", flush=True)
@@ -832,7 +973,7 @@ def main() -> int:
     del lww_dev
 
     print(f"== 9. K3's shape (E={K3_E}, R={K3_R}, N={N_ROWS})", flush=True)
-    k3_err, k3 = phase_k3("cuda", rate)
+    k3_errs, k3 = phase_k3("cuda", rate)
 
     kernels = []
     for kname, (source, replaces, pallas) in KERNELS.items():
@@ -843,10 +984,11 @@ def main() -> int:
             "max_abs_err": errs[kname], "match": errs[kname] == 0,
             **times[kname],
         }
-        if kname in ("orset_scatter", "orset_fold_tail"):
-            entry["k3"] = k3
-            entry["max_abs_err"] = max(entry["max_abs_err"], k3_err)
+        if kname in k3_errs:
+            entry["max_abs_err"] = max(entry["max_abs_err"], k3_errs[kname])
             entry["match"] = entry["max_abs_err"] == 0
+        if kname == "orset_fold":
+            entry["k3"] = k3
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,7 @@ from .orset import (
     orset_fold,
     orset_merge,
     orset_merge_many,
+    orset_retire,
 )
 
 __all__ = [
@@ -58,6 +59,7 @@ __all__ = [
     "orset_merge_many",
     "orset_ops_to_columns",
     "orset_planes_to_state",
+    "orset_retire",
     "orset_scan_vocab",
     "orset_state_to_planes",
     "pad_orset_rows",

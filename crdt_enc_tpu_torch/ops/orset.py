@@ -135,7 +135,7 @@ def orset_fold(
 
     Returns ``(clock, add, rm)`` in canonical form: entries zeroed where
     ``add ≤ rm``, horizons zeroed where ``rm ≤ clock``.  CUDA tensors run
-    the scatter and tail kernels; CPU tensors the plain code.
+    the bucketed fold kernels; CPU tensors the plain code.
     """
     args = (clock0, add0, rm0, kind, member, actor, counter)
     kw = dict(num_members=num_members, num_replicas=num_replicas,
@@ -146,6 +146,15 @@ def orset_fold(
         return orset_fold_cuda(*args, **kw)
     _cpu_only(*args)
     return orset_fold_plain(*args, **kw)
+
+
+def orset_retire(clock, rm):
+    """Finalize a chain of ``retire_rm=False`` folds: the horizon
+    retirement they skipped, ``rm`` zeroed where ≤ ``clock``.  Equal to
+    the eager chain's final ``rm`` (the JAX package's ``orset_retire``,
+    plain code there too)."""
+    zero = torch.zeros((), dtype=rm.dtype, device=rm.device)
+    return torch.where(rm > clock[None, :], rm, zero)
 
 
 def orset_apply_batch_planes(clock0, add0, rm0, add_b, rm_b):

@@ -1,26 +1,29 @@
-"""The OR-Set fold on the card: two hand-written CUDA kernels.
+"""The OR-Set fold on the card: one bucketed fold, hand-written in CUDA.
 
-``csrc/orset_fold.cu`` holds both:
+``csrc/orset_fold.cu`` cuts the flat cells ``member·R + actor`` into
+ranges of ``C`` cells, bins the rows by range (and raises the clock),
+scans the counts, places each row in its range's slots, and folds each
+range in shared memory in one block, which writes every output cell once.
+Two entry points share those kernels and differ in the epilogue:
 
-* ``orset_scatter`` — the raw scatter phase (covers the TPU's
-  ``orset_scatter_pallas``): one thread per row, ``atomicMax`` into the add
-  or remove plane, and optionally into a clock seeded with ``clock0``;
-* ``orset_fold_tail`` — the normalize tail (covers the epilogue of
-  ``orset_fold_pallas_fused`` and ``orset_retire``): elementwise over
-  ``(E, R)``.
+* ``orset_scatter`` — the raw scatter planes (covers the TPU's
+  ``orset_scatter_pallas``), optionally raising a clock seeded with
+  ``clock0``;
+* ``orset_fold_cuda`` — the whole fold (covers ``orset_fold_pallas_fused``
+  and ``_fold_wide``): the scatter, the replay gate, the clock and the
+  normalize tail; ``ops.orset.orset_fold`` runs it for CUDA tensors.
 
-``orset_fold_cuda`` chains them into the fold ``ops.orset.orset_fold``
-runs for CUDA tensors.  Each wrapper checks device, dtype, shape and
-contiguity, allocates its outputs, launches on the current stream and
-raises on a launch error.  Given CPU tensors, a wrapper runs the kernel's
-plain version from ``ops/orset.py`` instead; given CUDA tensors it
-launches the kernel or raises.  ``launches`` counts the kernel launches
-per wrapper.
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs and scratch, launches on the current stream and raises on a launch
+error.  Given CPU tensors, a wrapper runs the kernels' plain version from
+``ops/orset.py`` instead; given CUDA tensors it launches the kernels or
+raises.  ``launches`` counts the calls per entry point that launched them.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,27 +32,101 @@ from .cuda_build import expect
 from .orset import (
     common_device,
     orset_fold_clock_plain,
-    orset_fold_tail_plain,
+    orset_fold_plain,
     orset_scatter_plain,
 )
 
-launches = {"orset_scatter": 0, "orset_fold_tail": 0}
+launches = {"orset_scatter": 0, "orset_fold": 0}
+
+# C = 2^RANGE_SHIFT cells per range: two int32 tiles of C cells take
+# 64 KB of shared memory per block, three blocks per SM.
+RANGE_SHIFT = 13
+# up to this many ranges (48 KB of counters) the row passes count in
+# shared memory; past it, with one global atomic per row
+DENSE_RANGES_MAX = 12_288
+# the largest R whose clock a bin block keeps in shared memory (48 KB)
+CLOCK_SMEM_MAX = 12_288
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
+_LIB: ctypes.CDLL | None = None
+
+
+class FoldGeometry(NamedTuple):
+    cells_per_range: int  # C
+    n_ranges: int  # ceil(E·R / C): one block each
+    smem_bytes: int  # the add and rm tiles of one block
+
+
+def fold_geometry(num_members: int, num_replicas: int) -> FoldGeometry:
+    """The range cut of an ``(E, R)`` fold: ranges of ``C`` consecutive
+    flat cells (the last one ragged) that cover ``E·R`` exactly.  Cells
+    are Python ints here and int64 in the kernels; ranges, the grid and
+    the row slots are int32, so more than 2^31 − 1 ranges raise."""
+    C = 1 << RANGE_SHIFT
+    n_ranges = -(-(num_members * num_replicas) // C)
+    if n_ranges >= 2**31:
+        raise ValueError(f"E={num_members}, R={num_replicas}: {n_ranges} "
+                         "ranges exceed the int32 grid")
+    return FoldGeometry(C, n_ranges, 2 * C * 4)
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("orset_fold")
-    lib.orset_scatter_launch.argtypes = [
-        _P, _P, _P, _P, ctypes.c_int64, _I32, _I32, _P, _P, _P, _P,
-    ]
-    lib.orset_scatter_launch.restype = ctypes.c_int
-    lib.orset_fold_tail_launch.argtypes = [
-        _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _P, _P, _P,
-    ]
-    lib.orset_fold_tail_launch.restype = ctypes.c_int
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("orset_fold")
+        lib.orset_fold_launch.argtypes = [
+            _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32,
+            _P, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P,
+        ]
+        lib.orset_fold_launch.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check_rows(kind, member, actor, counter) -> None:
+    n = kind.shape[0]
+    expect(kind, "kind", torch.int8, (n,))
+    for t, name in ((member, "member"), (actor, "actor"), (counter, "counter")):
+        expect(t, name, torch.int32, (n,))
+    if n >= 2**31:
+        raise ValueError(f"{n} rows: the kernels' row slots are int32")
+
+
+def _launch(entry: str, rows, E: int, R: int, *, clock0=None, clock=None,
+            add0=None, rm0=None, retire_rm: bool = True, add, rm) -> None:
+    """The kernels on the current stream.  ``add0 is None`` selects the
+    raw epilogue (``clock``, if given, raised in place); otherwise the
+    fold epilogue, which writes ``clock`` from ``clock0``."""
+    kind, member, actor, counter = rows
+    n = kind.shape[0]
+    dev = kind.device
+    geo = fold_geometry(E, R)
+    # one scratch allocation: the packed rows (int64), then the int32
+    # range counts with a finish ticket, and the range starts
+    ints = 2 * (geo.n_ranges + 1)
+    scratch = torch.empty(n + ints // 2, dtype=torch.int64, device=dev)
+    packed = scratch.data_ptr()
+    count = packed + 8 * n
+    begin = count + 4 * (geo.n_ranges + 1)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.orset_fold_launch(
+            kind.data_ptr(), member.data_ptr(), actor.data_ptr(),
+            counter.data_ptr(), n, E, R,
+            geo.cells_per_range.bit_length() - 1, geo.n_ranges,
+            DENSE_RANGES_MAX, CLOCK_SMEM_MAX, packed, count, begin,
+            ptr(clock0), ptr(clock), ptr(add0), ptr(rm0), int(retire_rm),
+            add.data_ptr(), rm.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    cuda_build.check(lib, rc, entry)
+    launches[entry] += 1
 
 
 def orset_scatter(kind, member, actor, counter, *, num_members: int,
@@ -74,73 +151,40 @@ def orset_scatter(kind, member, actor, counter, *, num_members: int,
         if clock is not None:
             clock.copy_(orset_fold_clock_plain(clock, add_new))
         return add_new, rm_new
-    n = kind.shape[0]
-    expect(kind, "kind", torch.int8, (n,))
-    for t, name in ((member, "member"), (actor, "actor"), (counter, "counter")):
-        expect(t, name, torch.int32, (n,))
+    _check_rows(kind, member, actor, counter)
     if clock is not None:
         expect(clock, "clock", torch.int32, (R,))
-    add_new = torch.zeros((E, R), dtype=torch.int32, device=dev)
-    rm_new = torch.zeros((E, R), dtype=torch.int32, device=dev)
-    if n and E and R:
-        lib = _lib()
-        with torch.cuda.device(dev):
-            rc = lib.orset_scatter_launch(
-                kind.data_ptr(), member.data_ptr(), actor.data_ptr(),
-                counter.data_ptr(), n, E, R, add_new.data_ptr(),
-                rm_new.data_ptr(), None if clock is None else clock.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        cuda_build.check(lib, rc, "orset_scatter")
-        launches["orset_scatter"] += 1
+    add_new = torch.empty((E, R), dtype=torch.int32, device=dev)
+    rm_new = torch.empty((E, R), dtype=torch.int32, device=dev)
+    if E and R:  # else no row is valid: no plane cell, no clock change
+        _launch("orset_scatter", (kind, member, actor, counter), E, R,
+                clock=clock, add=add_new, rm=rm_new)
     return add_new, rm_new
-
-
-def orset_fold_tail(clock0, clock, add0, rm0, add_new, rm_new, *,
-                    retire_rm: bool = True):
-    """The fold's normalize tail given the final ``clock``: replay gate
-    ``add_new > clock0``, ``add = max(add0, gated)``, ``rm = max(rm0,
-    rm_new)``, add killed where ≤ rm, and with ``retire_rm`` horizons
-    zeroed where ≤ ``clock``.  Returns new ``(add, rm)`` planes."""
-    dev = common_device(clock0, clock, add0, rm0, add_new, rm_new)
-    if dev.type != "cuda":
-        return orset_fold_tail_plain(
-            clock0, clock, add0, rm0, add_new, rm_new, retire_rm=retire_rm
-        )
-    E, R = add0.shape
-    for t, name in ((clock0, "clock0"), (clock, "clock")):
-        expect(t, name, torch.int32, (R,))
-    for t, name in ((add0, "add0"), (rm0, "rm0"), (add_new, "add_new"),
-                    (rm_new, "rm_new")):
-        expect(t, name, torch.int32, (E, R))
-    add = torch.empty((E, R), dtype=torch.int32, device=dev)
-    rm = torch.empty((E, R), dtype=torch.int32, device=dev)
-    if E and R:
-        lib = _lib()
-        with torch.cuda.device(dev):
-            rc = lib.orset_fold_tail_launch(
-                clock0.data_ptr(), clock.data_ptr(), add0.data_ptr(),
-                rm0.data_ptr(), add_new.data_ptr(), rm_new.data_ptr(), E, R,
-                int(retire_rm), add.data_ptr(), rm.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        cuda_build.check(lib, rc, "orset_fold_tail")
-        launches["orset_fold_tail"] += 1
-    return add, rm
 
 
 def orset_fold_cuda(clock0, add0, rm0, kind, member, actor, counter, *,
                     num_members: int, num_replicas: int,
                     retire_rm: bool = True):
-    """``orset_fold`` through the two kernels: the scatter finishes the
-    clock (seeded with ``clock0``), the tail normalizes.  Same contract and
-    output as the plain fold."""
-    clock = clock0.clone()
-    add_new, rm_new = orset_scatter(
-        kind, member, actor, counter,
-        num_members=num_members, num_replicas=num_replicas, clock=clock,
-    )
-    add, rm = orset_fold_tail(
-        clock0, clock, add0, rm0, add_new, rm_new, retire_rm=retire_rm
-    )
+    """``orset_fold`` through the bucketed kernels: the bin pass finishes
+    the clock (seeded with ``clock0``), the range kernel applies the rows
+    and the normalize tail and writes ``add`` and ``rm`` once.  Same
+    contract and output as the plain fold; returns ``(clock, add, rm)``."""
+    E, R = num_members, num_replicas
+    args = (clock0, add0, rm0, kind, member, actor, counter)
+    kw = dict(num_members=E, num_replicas=R, retire_rm=retire_rm)
+    dev = common_device(*args)
+    if dev.type != "cuda":
+        return orset_fold_plain(*args, **kw)
+    _check_rows(kind, member, actor, counter)
+    expect(clock0, "clock0", torch.int32, (R,))
+    expect(add0, "add0", torch.int32, (E, R))
+    expect(rm0, "rm0", torch.int32, (E, R))
+    add = torch.empty((E, R), dtype=torch.int32, device=dev)
+    rm = torch.empty((E, R), dtype=torch.int32, device=dev)
+    if not (E and R):  # no row is valid: the clock stays clock0
+        return clock0.clone(), add, rm
+    clock = torch.empty(R, dtype=torch.int32, device=dev)
+    _launch("orset_fold", (kind, member, actor, counter), E, R,
+            clock0=clock0, clock=clock, add0=add0, rm0=rm0,
+            retire_rm=retire_rm, add=add, rm=rm)
     return clock, add, rm

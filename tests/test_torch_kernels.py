@@ -110,38 +110,115 @@ def test_lww_cpu_tensors_take_the_plain_version_and_launch_nothing():
 # ---- on the card ---------------------------------------------------------
 
 
+# name -> (N, E, R, how the rows are bent).  C = 8,192 cells per range.
+CASES = {
+    "small": (5000, 40, 300, None),
+    "wide": (20000, 257, 1000, None),
+    "tiny": (7, 3, 5, None),
+    "R_past_one_range": (30000, 7, 9000, None),
+    "ragged_last_range": (20000, 13, 1001, None),
+    "E_is_1": (3000, 1, 20000, None),
+    "R_is_1": (3000, 20000, 1, None),
+    "no_rows": (0, 9, 700, None),
+    "all_padding": (4000, 9, 700, "all_padding"),
+    "counters_near_int32_max": (20000, 50, 600, "near_max"),
+    "counters_le_0": (20000, 50, 600, "nonpositive"),
+    "other_kinds": (20000, 50, 600, "other_kinds"),
+    "negative_member_and_actor": (20000, 50, 600, "negative"),
+    "hot_member": (40000, 64, 9000, "hot_member"),
+    "hot_cell": (40000, 64, 900, "hot_cell"),
+}
+
+
+def case_rows(case, device):
+    """The rows of a CASES entry, on ``device``."""
+    N, E, R, bend = CASES[case]
+    kind, member, actor, counter = (x.numpy() for x in rows(N, E, R, N + E))
+    rng = np.random.default_rng(N + R)
+    half = rng.random(N) < 0.5
+    if bend == "all_padding":
+        actor = np.full(N, R, np.int32)
+    elif bend == "near_max":
+        counter = rng.integers((1 << 31) - 100, (1 << 31) - 1, N,
+                               endpoint=True).astype(np.int32)
+    elif bend == "nonpositive":
+        counter = np.where(half, counter, rng.integers(-5, 1, N)).astype(np.int32)
+    elif bend == "other_kinds":
+        kind = np.where(half, kind, rng.integers(-3, 6, N)).astype(np.int8)
+    elif bend == "negative":
+        member = np.where(rng.random(N) < 0.2, -1 - member, member).astype(np.int32)
+        actor = np.where(rng.random(N) < 0.2, -1 - actor, actor).astype(np.int32)
+    elif bend == "hot_member":
+        member = np.where(half, 3, member).astype(np.int32)
+    elif bend == "hot_cell":
+        member = np.where(half, 5, member).astype(np.int32)
+        actor = np.where(half, 7, actor).astype(np.int32)
+    cols = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in (kind, member, actor, counter)]
+    return cols, E, R
+
+
+@pytest.fixture(params=["shared", "global"])
+def row_path(request, monkeypatch):
+    """The row passes' two routes: counts and clock in shared memory (every
+    shape here has few ranges and replicas), or forced to one global
+    atomic per row, the route of shapes past DENSE_RANGES_MAX ranges and
+    CLOCK_SMEM_MAX replicas."""
+    if request.param == "global":
+        monkeypatch.setattr(F, "DENSE_RANGES_MAX", 0)
+        monkeypatch.setattr(F, "CLOCK_SMEM_MAX", 0)
+    return request.param
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,E,R", [(5000, 40, 300), (20000, 257, 1000), (7, 3, 5)])
-def test_scatter_matches_plain(dev, N, E, R):
-    cols = rows(N, E, R, N, device=dev)
-    clock0 = state(E, R, N, device=dev)[0]
-    clock = clock0.clone()
+@pytest.mark.parametrize("with_clock", [True, False])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_scatter_matches_plain(dev, row_path, case, with_clock):
+    cols, E, R = case_rows(case, dev)
+    clock0 = state(E, R, 1, device=dev)[0]
+    clock = clock0.clone() if with_clock else None
     n0 = F.launches["orset_scatter"]
     got = F.orset_scatter(*cols, num_members=E, num_replicas=R, clock=clock)
     assert F.launches["orset_scatter"] == n0 + 1
     ref = P.orset_scatter_plain(*cols, num_members=E, num_replicas=R)
     assert_equal(ref, got)
-    # the clock the scatter finished: max(clock0, max add counter per actor)
-    ref_clock, _, _ = P.orset_fold_plain(
-        clock0, *state(E, R, N, device=dev)[1:], *cols,
-        num_members=E, num_replicas=R)
-    torch.cuda.synchronize()
-    assert torch.equal(clock, ref_clock)
+    if with_clock:
+        # the clock the bin pass finished: max(clock0, max add counter)
+        ref_clock = P.orset_fold_clock_plain(clock0, ref[0])
+        torch.cuda.synchronize()
+        assert torch.equal(clock, ref_clock)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("retire_rm", [True, False])
-def test_tail_matches_plain(dev, retire_rm):
-    E, R = 130, 777
-    clock0, add0, rm0 = state(E, R, 2, device=dev)
-    cols = rows(40000, E, R, 2, device=dev)
-    add_new, rm_new = P.orset_scatter_plain(*cols, num_members=E, num_replicas=R)
-    clock, _, _ = P.orset_fold_plain(clock0, add0, rm0, *cols,
-                                     num_members=E, num_replicas=R)
-    args = (clock0, clock, add0, rm0, add_new, rm_new)
-    got = F.orset_fold_tail(*args, retire_rm=retire_rm)
-    ref = P.orset_fold_tail_plain(*args, retire_rm=retire_rm)
-    assert_equal(ref, got)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tail_matches_plain(dev, row_path, case, retire_rm):
+    """The fold entry, whose range kernel applies the tail formula in its
+    epilogue, against the plain fold over a prior state."""
+    cols, E, R = case_rows(case, dev)
+    planes = state(E, R, 2, device=dev)
+    kw = dict(num_members=E, num_replicas=R, retire_rm=retire_rm)
+    n0 = F.launches["orset_fold"]
+    got = F.orset_fold_cuda(*planes, *cols, **kw)
+    assert F.launches["orset_fold"] == n0 + 1
+    assert_equal(P.orset_fold_plain(*planes, *cols, **kw), got)
+
+
+@pytest.mark.cuda
+def test_fold_of_misaligned_planes_takes_the_scalar_walk(dev):
+    """Prior planes that start 4 bytes past a 16-byte boundary (contiguous
+    views at an odd offset) leave the int4 walk for the scalar one."""
+    cols, E, R = case_rows("ragged_last_range", dev)
+    clock0, add0, rm0 = state(E, R, 3, device=dev)
+    shifted = []
+    for x in (add0, rm0):
+        buf = torch.empty(E * R + 1, dtype=torch.int32, device=dev)
+        buf[1:] = x.reshape(-1)
+        shifted.append(buf[1:].view(E, R))
+    assert shifted[0].data_ptr() % 16
+    kw = dict(num_members=E, num_replicas=R)
+    assert_equal(P.orset_fold_plain(clock0, add0, rm0, *cols, **kw),
+                 F.orset_fold_cuda(clock0, *shifted, *cols, **kw))
 
 
 @pytest.mark.cuda
@@ -179,7 +256,7 @@ def test_cuda_tensors_never_take_the_plain_path(dev, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("plain path reached with CUDA tensors")
 
-    for name in ("orset_scatter_plain", "orset_fold_tail_plain"):
+    for name in ("orset_scatter_plain", "orset_fold_plain"):
         monkeypatch.setattr(F, name, refuse)
     for name in ("orset_fold_plain", "orset_merge_many_tree"):
         monkeypatch.setattr(P, name, refuse)
@@ -204,11 +281,16 @@ def test_wrappers_refuse_bad_inputs(dev):
         F.orset_scatter(kind, member[:10], actor, counter,
                         num_members=E, num_replicas=R)
     clock0, add0, rm0 = state(E, R, 6, device=dev)
+    kw = dict(num_members=E, num_replicas=R)
     with pytest.raises(ValueError, match="contiguous"):
-        F.orset_fold_tail(clock0, clock0, add0.t().contiguous().t(), rm0,
-                          add0, rm0)
+        F.orset_fold_cuda(clock0, add0.t().contiguous().t(), rm0, kind,
+                          member, actor, counter, **kw)
+    with pytest.raises(ValueError, match="rm0"):
+        F.orset_fold_cuda(clock0, add0, rm0[:2], kind, member, actor,
+                          counter, **kw)
     with pytest.raises(ValueError, match="different devices"):
-        F.orset_fold_tail(clock0.cpu(), clock0, add0, rm0, add0, rm0)
+        F.orset_fold_cuda(clock0.cpu(), add0, rm0, kind, member, actor,
+                          counter, **kw)
     with pytest.raises(ValueError, match="clocks"):
         M.orset_merge_many_cuda(clock0[None, :4], add0[None], rm0[None])
 

@@ -7,10 +7,10 @@ exact equality.  The JAX Pallas kernels run in interpret mode, as
 tests/test_pallas_fold.py and tests/test_pallas_merge.py run them; their
 shapes stay small (E ≤ 24, R ≤ 300, N ≤ 2048) to keep this file fast.
 
-On CPU tensors the kernel wrappers (``orset_scatter``, ``orset_fold_tail``,
-``orset_fold_cuda``, ``orset_merge_many_cuda``) run their plain versions,
-so their shape handling and composition are checked here too; the kernels
-themselves are checked on the card by tests/test_torch_kernels.py.
+On CPU tensors the kernel wrappers (``orset_scatter``, ``orset_fold_cuda``,
+``orset_merge_many_cuda``) run their plain versions, so their shape
+handling and composition are checked here too; the kernels themselves are
+checked on the card by tests/test_torch_kernels.py.
 """
 
 from __future__ import annotations
@@ -30,11 +30,7 @@ from crdt_enc_tpu.ops.pallas_merge import orset_merge_many_pallas
 
 from crdt_enc_tpu_torch import convert
 from crdt_enc_tpu_torch.ops import orset as P
-from crdt_enc_tpu_torch.ops.orset_fold_cuda import (
-    orset_fold_cuda,
-    orset_fold_tail,
-    orset_scatter,
-)
+from crdt_enc_tpu_torch.ops.orset_fold_cuda import orset_fold_cuda, orset_scatter
 from crdt_enc_tpu_torch.ops.orset_merge_cuda import orset_merge_many_cuda
 
 
@@ -219,8 +215,8 @@ def test_scatter_clock_and_tail_compose_to_the_fold(retire_rm):
     expect = planes[0].copy()
     np.maximum.at(expect, actor[live], counter[live])
     np.testing.assert_array_equal(clock.numpy(), expect)
-    add, rm = orset_fold_tail(clock0, clock, *t(planes[1], planes[2]),
-                              add_new, rm_new, retire_rm=retire_rm)
+    add, rm = P.orset_fold_tail_plain(clock0, clock, *t(planes[1], planes[2]),
+                                      add_new, rm_new, retire_rm=retire_rm)
     ref = J.orset_fold(*planes, *rows, num_members=E, num_replicas=R,
                        retire_rm=retire_rm)
     assert_planes_equal(ref, (clock, add, rm))

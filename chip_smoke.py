@@ -32,15 +32,21 @@ benchmarks/suite.py's config-4 generator), beside configs 1 and 2
    time of each pass (torch.profiler), the host's enqueue time per call,
    and the skewed batches;
 6. the LWW kernel against ``lww_fold_plain`` (torch.equal on every output)
-   at config 4 with ``num_values`` given and None, on a heavy-tie batch
-   with padding rows, on saturated timestamps, and
+   at config 4, on a heavy-tie batch with padding rows, on saturated
+   timestamps and on 2^23 config-4 rows (past what the grid keeps in
+   registers), each with ``num_values`` given and None, on both routes
+   (shared-memory tile, global table) and in both modes (one packed word
+   a key, two words) forced, and
    ``lww_fold_into(fold(first half), second half) == fold(whole)``;
 7. LWW and counters end to end: ``fold_ops`` over the 1M config-4
    ``LWWOp`` objects, then a 200k tie-and-delete batch into that state,
    then configs 1 and 2, each byte-equal to the host loop, with the LWW
    kernel's launches read from the LWW run alone;
-8. LWW times: the kernel (all three passes) and its plain version at
-   config 4, beside the bound;
+8. LWW times: the kernel (one launch) and its plain version on every
+   batch, beside the bound; at config 4 and on the heavy-tie batch, per
+   route and mode, the single call, the per-call time over 20 back-to-back calls,
+   the host's enqueue time and the device time per launch; and the device
+   time of a launch with no rows at the full grid (the barriers' cost);
 9. K3's shape: 1M rows folded into empty planes at E = 4,096,
    R = 261,000 (where the TPU package leaves its ablk layout for
    ``_fold_wide``) by both entries and by the plain versions, compared
@@ -54,6 +60,7 @@ nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -77,6 +84,12 @@ REPS = 7
 LWW_N, LWW_K, LWW_R, LWW_V, LWW_SEED = 1_000_000, 1_000_000, 10_000, 100, 4
 TIE_N, TIE_K, TIE_R, TIE_V = 1_000_000, 1000, 16, 4
 SAT_K = 100_000
+PAST_N = 1 << 23  # config-4 rows past the grid's register residency
+# the LWW kernel's routes, forced through its threshold, and its modes,
+# forced through the widest word it packs
+LWW_ROUTES = {"shared": 2**31 - 1, "global": 0}
+LWW_MODES = {"one word": 64, "two words": 0}
+LWW_PATHS = [(r, m) for r in LWW_ROUTES for m in LWW_MODES]
 TIE_BATCH_N, TIE_BATCH_KEYS = 200_000, 50_000
 HI31 = (1 << 31) - 1
 # BASELINE configs 1 and 2 (benchmarks/suite.py bench_gcounter / _pncounter)
@@ -566,13 +579,31 @@ def lww_batches():
          np.full(n, HI31, np.int32),
          rng.integers(0, LWW_R, n, dtype=np.int32),
          rng.integers(0, LWW_V, n, dtype=np.int32)), SAT_K, LWW_V)
+    key, ts, actor, value = gen_lww(PAST_N, LWW_K, LWW_R, seed=10)
+    out["2^23 rows, past register residency"] = (
+        (key, *ts_split(ts), actor, value), LWW_K, LWW_V)
     return out
+
+
+@contextlib.contextmanager
+def lww_path(route: str, mode: str):
+    """Force the LWW kernel's route (through its threshold) and mode
+    (through the widest word it packs; data whose widths do not fit take
+    two words either way)."""
+    from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
+
+    saved = LC.SHARED_KEYS_MAX, LC.PACK_BITS
+    LC.SHARED_KEYS_MAX, LC.PACK_BITS = LWW_ROUTES[route], LWW_MODES[mode]
+    try:
+        yield
+    finally:
+        LC.SHARED_KEYS_MAX, LC.PACK_BITS = saved
 
 
 def phase_lww_kernels(device):
     """The LWW kernel against ``lww_fold_plain`` on every batch, in both
-    modes, and the incremental fold against the whole.  Returns
-    (max_abs_err per kernel, name -> (device columns, K, V))."""
+    modes and on both routes, and the incremental fold against the whole.
+    Returns (max_abs_err per kernel, name -> (device columns, K, V))."""
     import torch
 
     from crdt_enc_tpu_torch.ops import lww as L
@@ -582,11 +613,23 @@ def phase_lww_kernels(device):
     batches = {}
     for name, (cols, K, V) in lww_batches().items():
         dev = [torch.from_numpy(x).to(device) for x in cols]
+        default = "shared" if LC.lww_tile(K) else "global"
         for nv in (V, None):
-            got = LC.lww_fold_cuda(*dev, num_keys=K, num_values=nv)
             ref = L.lww_fold_plain(*dev, num_keys=K, num_values=nv)
-            check_equal(f"lww_fold ({name}, N={len(cols[0])}, K={K}, "
-                        f"num_values={nv})", ref, got, errs, "lww_fold")
+            for route, mode in LWW_PATHS:
+                with lww_path(route, mode):
+                    geo = LC.plan(len(cols[0]), K, dev[0].device)
+                    got = LC.lww_fold_cuda(*dev, num_keys=K, num_values=nv)
+                check_equal(
+                    f"lww_fold ({name}, N={len(cols[0])}, K={K}, "
+                    f"num_values={nv}, route={route}"
+                    f"{' (its default)' if route == default else ''}, "
+                    f"{mode}; "
+                    f"{geo.blocks} blocks x {LC.THREADS} threads x "
+                    f"{geo.rows_per_thread} rows, {geo.chunks} chunks, "
+                    f"{geo.tile_keys} tile keys)", ref, got, errs, "lww_fold")
+                del got
+            del ref
         h = len(cols[0]) // 2
         whole = LC.lww_fold_cuda(*dev, num_keys=K, num_values=V)
         into = L.lww_fold_into(
@@ -740,10 +783,11 @@ def phase_counters_end_to_end(device):
                       HostAccelerator().fold_ops(host, ops))
 
 
-def device_breakdown(fn, calls: int = 5) -> str:
-    """Mean device time per CUDA kernel and memset of ``fn``, from
-    torch.profiler's CUPTI trace; "not measured" where the trace holds no
-    device time."""
+def device_times(fn, calls: int = 5) -> dict | str:
+    """Mean device µs per launch of each CUDA kernel and memset of ``fn``,
+    from torch.profiler's CUPTI trace, by kernel name (averaged over the
+    launches the trace recorded, which may be fewer than were made); a
+    "not measured" string where the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -754,24 +798,83 @@ def device_breakdown(fn, calls: int = 5) -> str:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        parts = []
+        out = {}
         for evt in prof.key_averages():
             dev_us = getattr(evt, "device_time_total",
                              getattr(evt, "cuda_time_total", 0))
             if dev_us > 0:
                 key = evt.key.replace("(anonymous namespace)::", "")
                 key = key.split("(")[0].removeprefix("void ")
-                parts.append(f"{key[:40]} {dev_us / calls:.1f} us")
-        return "; ".join(parts) or "not measured (no device time traced)"
+                out[key[:40]] = dev_us / max(evt.count, 1)
+        return out or "not measured (no device time traced)"
     except Exception as exc:  # the profiler is a diagnostic only
         return f"not measured ({type(exc).__name__}: {exc})"
 
 
+def device_breakdown(fn, calls: int = 5) -> str:
+    """``device_times`` as one line."""
+    got = device_times(fn, calls)
+    if isinstance(got, str):
+        return got
+    return "; ".join(f"{k} {us:.1f} us" for k, us in got.items())
+
+
+def lww_path_times(dev, K: int, V: int) -> dict:
+    """The LWW kernel on one batch with each route and mode forced: the
+    single call, the per-call time over 20 back-to-back calls, the host's
+    enqueue time per call, the device time per launch and the launch
+    geometry."""
+    from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
+
+    out = {}
+    for route, mode in LWW_PATHS:
+        with lww_path(route, mode):
+            def fn():
+                return LC.lww_fold_cuda(*dev, num_keys=K, num_values=V)
+
+            geo = LC.plan(dev[0].shape[0], K, dev[0].device)
+            r = out[f"{route}, {mode}"] = dict(
+                ms=time_ms(fn), back_to_back_ms=time_stream_ms(fn),
+                host_enqueue_ms=host_enqueue_ms(fn), device_us=device_times(fn),
+                geometry=geo._asdict())
+        dev_us = r["device_us"]
+        if not isinstance(dev_us, str):
+            dev_us = "; ".join(f"{k} {us:.2f} us" for k, us in dev_us.items())
+        print(f"    route {route}, {mode}: single call {r['ms']:.4f} ms, back to back "
+              f"{r['back_to_back_ms']:.4f} ms, host enqueue "
+              f"{r['host_enqueue_ms']:.4f} ms; device {dev_us} "
+              f"({geo.blocks} blocks, {geo.rows_per_thread} rows a thread, "
+              f"{geo.chunks} chunks, {geo.tile_keys} tile keys)", flush=True)
+    return out
+
+
+def lww_barrier_probe(device) -> dict:
+    """Device time of a launch with no rows and four keys, on one block
+    and at each route's full grid: the difference is what the three grid
+    barriers cost across the whole grid (and the wider launch)."""
+    import torch
+
+    from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
+
+    empty = [torch.empty(0, dtype=torch.int32, device=device)] * 5
+    out = {}
+    for route, tile in (("global", 0), ("shared", 4)):
+        sms, per_sm = LC.occupancy(empty[0].device, tile)
+        one = LC.lww_geometry(0, 4, tile, sms, per_sm)
+        for geo in (one, one._replace(blocks=sms * per_sm)):
+            label = f"{route} route, {geo.blocks} blocks"
+            out[label] = device_times(lambda g=geo: LC.launch(empty, 4, g),
+                                      calls=20)
+            print(f"    empty launch, {label}: {out[label]}", flush=True)
+    return out
+
+
 def phase_lww_times(batches: dict, rate: float):
-    """The LWW kernel (all three passes) and its plain version on each
-    batch, beside the bound; at config 4 also without ``num_values``, the
-    per-pass device times, and pass 1 alone through ``scatter_reduce_`` as
-    a yardstick.  Returns config 4's row of the kernels line."""
+    """The LWW kernel (one launch) and its plain version on each batch,
+    beside the bound; at config 4 and on the heavy-tie batch the times of
+    each route; at config 4 also without ``num_values`` and pass 1 alone
+    through ``scatter_reduce_`` as a yardstick; the barrier probe.
+    Returns config 4's row of the kernels line."""
     import torch
 
     from crdt_enc_tpu_torch.ops import lww as L
@@ -787,14 +890,29 @@ def phase_lww_times(batches: dict, rate: float):
         bytes_ms = nbytes / rate * 1e3
         ops_ms = 4 * N / CUDA_CORE_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        print(f"  lww_fold ({name}, num_values={V}): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB)", flush=True)
+        default = "shared" if LC.lww_tile(K) else "global"
+        print(f"  lww_fold ({name}, num_values={V}, default route {default}): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
         if out is not None:
+            slug = re.sub(r"[^a-z0-9]+", "_", name.lower()).strip("_")
+            out[f"{slug}_ms"] = ms
+            out[f"{slug}_plain_ms"] = plain_ms
+            out[f"{slug}_bound_ms"] = bound_ms
+            if K == TIE_K:
+                out[f"{slug}_routes"] = lww_path_times(dev, K, V)
             continue
+        routes = lww_path_times(dev, K, V)
         out = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                    bound_ms=bound_ms,
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   default_route=default,
+                   back_to_back_ms=routes[f"{default}, one word"]
+                   ["back_to_back_ms"],
+                   host_enqueue_ms=routes[f"{default}, one word"]
+                   ["host_enqueue_ms"],
+                   device_us=routes[f"{default}, one word"]["device_us"],
+                   routes=routes)
         out["unpacked_ms"] = time_ms(lambda: LC.lww_fold_cuda(*dev, num_keys=K))
         out["plain_unpacked_ms"] = time_ms(
             lambda: L.lww_fold_plain(*dev, num_keys=K))
@@ -813,6 +931,7 @@ def phase_lww_times(batches: dict, rate: float):
         print("    device time per launch: " + device_breakdown(
             lambda: LC.lww_fold_cuda(*dev, num_keys=K, num_values=V)),
             flush=True)
+    out["barrier_probe_us"] = lww_barrier_probe(batches["config 4"][0][0].device)
     return out
 
 
@@ -903,17 +1022,20 @@ def print_build_log() -> None:
     ``-Xptxas -v``."""
     from crdt_enc_tpu_torch.ops import cuda_build
 
+    # the bool template argument of each source's kernels
+    labels = {"lww_fold": ("<global route>", "<shared route>")}
     for src, log in sorted(cuda_build.build_log.items()):
         kernel = "?"
+        no, yes = labels.get(src, ("<raw>", "<fold>"))
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
                 kernel = next(iter(re.findall(r"(?<=\d)([a-z_]+_kernel)", m[1])),
                               m[1])
                 if "ILb1E" in m[1]:
-                    kernel += "<fold>"
+                    kernel += yes
                 elif "ILb0E" in m[1]:
-                    kernel += "<raw>"
+                    kernel += no
             elif "registers" in line or "spill" in line:
                 print(f"  {src} {kernel}: {line.split(':', 1)[-1].strip()}")
 
@@ -959,7 +1081,8 @@ def main() -> int:
     del fold_inputs, stacks, skewed
 
     print(f"== 6. LWW kernel against plain (config 4: N={LWW_N}, K={LWW_K}, "
-          f"R={LWW_R}, V={LWW_V}; heavy ties; saturated)", flush=True)
+          f"R={LWW_R}, V={LWW_V}; heavy ties; saturated; {PAST_N} rows; "
+          f"both routes, both modes)", flush=True)
     lww_errs, lww_dev = phase_lww_kernels("cuda")
     errs.update(lww_errs)
 
@@ -967,7 +1090,7 @@ def main() -> int:
     launches["lww_fold"] = phase_lww_end_to_end("cuda")
     phase_counters_end_to_end("cuda")
 
-    print("== 8. LWW times (median of 7, CUDA events; per-pass device times "
+    print("== 8. LWW times (median of 7, CUDA events; device times per launch "
           "from torch.profiler)", flush=True)
     times["lww_fold"] = phase_lww_times(lww_dev, rate)
     del lww_dev

@@ -331,16 +331,105 @@ def assert_tables_equal(ref, got):
         assert torch.equal(x.cpu(), y.cpu())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("packed", [True, False])
-@pytest.mark.parametrize("name", ["random", "ties", "saturated"])
-def test_lww_fold_matches_plain(dev, name, packed):
-    cols, K, V = lww_batch(name, device=dev)
-    nv = V if packed else None
+@pytest.fixture(params=["shared", "global"])
+def lww_route(request, monkeypatch):
+    """The LWW fold's two routes, forced: each block folds its rows in
+    shared memory first (the first TILE_KEYS_MAX keys where K is larger,
+    the rest straight to the global table), or every row goes straight to
+    the global table."""
+    shared = request.param == "shared"
+    monkeypatch.setattr(LC, "SHARED_KEYS_MAX", 2**31 - 1 if shared else 0)
+    return request.param
+
+
+@pytest.fixture(params=["one word", "two words"])
+def lww_mode(request, monkeypatch):
+    """The LWW fold's two modes: one packed (t, actor, value) word a key
+    where the batch's widths fit 64 bits, or forced to two words a key
+    (max t, then max (actor, value) among its rows)."""
+    if request.param == "two words":
+        monkeypatch.setattr(LC, "PACK_BITS", 0)
+    return request.param
+
+
+def fold_on_route(cols, K, nv, route):
+    """The dispatch's fold, checked to take ``route`` and launch once."""
+    assert (LC.plan(cols[0].shape[0], K, cols[0].device).tile_keys > 0) == (
+        route == "shared")
     n0 = LC.launches["lww_fold"]
     got = L.lww_fold(*cols, num_keys=K, num_values=nv)
     assert LC.launches["lww_fold"] == n0 + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("name", ["random", "ties", "saturated"])
+def test_lww_fold_matches_plain(dev, lww_route, lww_mode, name, packed):
+    cols, K, V = lww_batch(name, device=dev)
+    nv = V if packed else None
+    got = fold_on_route(cols, K, nv, lww_route)
     assert_tables_equal(L.lww_fold_plain(*cols, num_keys=K, num_values=nv), got)
+
+
+@pytest.mark.cuda
+def test_lww_fold_past_register_residency(dev, lww_route, lww_mode):
+    """More rows than the grid keeps in registers: phases 1 and 2 loop
+    over chunks, and phase 2 re-reads all but the last."""
+    cols, K, V = lww_batch("random", device=dev, N=3_000_000)
+    geo = LC.plan(cols[0].shape[0], K, dev)
+    assert geo.chunks > 1 and geo.rows_per_thread == LC.ROWS_MAX
+    got = fold_on_route(cols, K, V, lww_route)
+    assert_tables_equal(L.lww_fold_plain(*cols, num_keys=K, num_values=V), got)
+
+
+@pytest.mark.cuda
+def test_lww_fold_one_key(dev, lww_route, lww_mode):
+    rng = np.random.default_rng(13)
+    N = 5000
+    key = rng.integers(-2, 3, N).astype(np.int32)  # K = 1: keys 0 only
+    cols = [torch.from_numpy(x).to(dev) for x in (
+        key, rng.integers(0, 3, N).astype(np.int32),
+        rng.integers(0, 3, N).astype(np.int32),
+        rng.integers(0, 5, N).astype(np.int32),
+        rng.integers(0, 5, N).astype(np.int32))]
+    got = fold_on_route(cols, 1, None, lww_route)
+    assert got[4].cpu().tolist() == [True]
+    assert_tables_equal(L.lww_fold_plain(*cols, num_keys=1), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("above", [0, 1])
+def test_lww_fold_at_the_shared_threshold(dev, lww_mode, above):
+    """K at SHARED_KEYS_MAX takes the shared route, one key more the
+    global one, with the module's own threshold."""
+    K = LC.SHARED_KEYS_MAX + above
+    cols, _, V = lww_batch("random", device=dev, N=60000)
+    cols[0] = cols[0] % K
+    got = fold_on_route(cols, K, V, "global" if above else "shared")
+    assert_tables_equal(L.lww_fold_plain(*cols, num_keys=K, num_values=V), got)
+
+
+@pytest.mark.cuda
+def test_lww_fold_of_unaligned_columns(dev, lww_route, lww_mode):
+    """Column views that start 4 bytes past an allocation's start."""
+    cols, K, V = lww_batch("ties", device=dev, N=20001)
+    cols = [c[1:] for c in cols]
+    assert cols[0].data_ptr() % 16
+    got = fold_on_route(cols, K, V, lww_route)
+    assert_tables_equal(L.lww_fold_plain(*cols, num_keys=K, num_values=V), got)
+
+
+@pytest.mark.cuda
+def test_lww_fold_launches_once_per_call(dev):
+    cols, K, V = lww_batch("random", device=dev, N=1000)
+    n0 = LC.launches["lww_fold"]
+    for nv in (V, None, V):
+        L.lww_fold(*cols, num_keys=K, num_values=nv)
+    assert LC.launches["lww_fold"] == n0 + 3
+    got = L.lww_fold(*cols, num_keys=0)  # no key: nothing to launch
+    assert LC.launches["lww_fold"] == n0 + 3
+    assert [tuple(x.shape) for x in got] == [(0,)] * 5
 
 
 @pytest.mark.cuda

@@ -51,6 +51,16 @@ benchmarks/suite.py's config-4 generator), beside configs 1 and 2
    R = 261,000 (where the TPU package leaves its ablk layout for
    ``_fold_wide``) by both entries and by the plain versions, compared
    plane for plane, with the device-memory peak and the fold's time;
+10. compaction end to end: the config-3 rows as ~30k op files (48 ops a
+   file, each within one actor, dense versions), sealed by the port's own
+   ``Core`` into an encrypted ``FsStorage`` remote under the temporary
+   directory, plus 8 snapshots sealed by 8 other replicas over the
+   version-1 files of half the actors; ``Core.compact()`` from a fresh
+   replica with ``TorchAccelerator`` (the snapshot merge launches K4
+   once, the op files fold through ``fold_payloads`` and K2 once) and
+   with ``HostAccelerator`` on a byte-identical copy; the two states
+   byte-equal, and a third replica reads the compacted remote back; the
+   wall of each compaction and its spans and counters;
 then the kernels line and the result line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It needs one
@@ -69,6 +79,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import uuid
 
@@ -95,6 +106,10 @@ HI31 = (1 << 31) - 1
 # BASELINE configs 1 and 2 (benchmarks/suite.py bench_gcounter / _pncounter)
 GC_N, GC_R = 1000, 4
 PN_N, PN_R = 100_000, 1000
+# phase 10: op files of the compaction remote and the snapshots beside them
+COMPACT_OPS_PER_FILE = 48
+COMPACT_SNAPSHOTS = 8
+COMPACT_WRITE_BATCH = 1024
 # K3's shape: 2·Ep·Rp = 2·4096·262,144 = 2^31 overflows the TPU ablk
 # layout's int32 keys, so the JAX package folds it with _fold_wide
 K3_E, K3_R, K3_SEED = 4096, 261_000, 9
@@ -168,6 +183,21 @@ def device_line() -> str:
         ).stdout.strip().splitlines()
         return out[0]
     return f"{torch.cuda.get_device_name(0)}, power limit unavailable (no nvidia-smi)"
+
+
+def fs_type(path: str) -> str:
+    """The filesystem type of the mount holding ``path`` (/proc/mounts)."""
+    best, kind = "", "unknown filesystem"
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                parts = line.split()
+                mnt = parts[1]
+                if path.startswith(mnt.rstrip("/") + "/") and len(mnt) > len(best):
+                    best, kind = mnt, f"{parts[2]} at {mnt}"
+    except OSError:
+        pass
+    return kind
 
 
 def memory_rate(name: str) -> float:
@@ -995,6 +1025,213 @@ def phase_k3(device, rate: float):
                       match=max(errs.values()) == 0)
 
 
+# ---- compaction end to end (phase 10) --------------------------------------
+
+
+def compaction_files(cols, actors: list) -> list:
+    """Config-3 rows as op files (the bench.py e2e pattern): live rows
+    grouped by actor, up to COMPACT_OPS_PER_FILE ops a file within one
+    actor, dense versions per actor.  Returns ``(actor index, actor id,
+    version, ops)`` per file, ops in their wire form."""
+    kind, member, actor, counter = cols
+    R = len(actors)
+    live = actor < R
+    order = np.argsort(actor[live], kind="stable")
+    k_l, m_l = kind[live][order].tolist(), member[live][order].tolist()
+    a_l, c_l = actor[live][order], counter[live][order].tolist()
+    bounds = np.flatnonzero(np.diff(a_l)) + 1
+    starts = np.concatenate([[0], bounds]).tolist()
+    ends = np.concatenate([bounds, [len(a_l)]]).tolist()
+    a_l = a_l.tolist()
+    out = []
+    for s, e in zip(starts, ends):
+        ai = a_l[s]
+        ab = actors[ai]
+        for v, lo in enumerate(range(s, e, COMPACT_OPS_PER_FILE), start=1):
+            hi = min(lo + COMPACT_OPS_PER_FILE, e)
+            out.append((ai, ab, v, [
+                [0, m_l[t], [ab, c_l[t]]] if k_l[t] == 0
+                else [1, m_l[t], {ab: c_l[t]}]
+                for t in range(lo, hi)
+            ]))
+    return out
+
+
+def compaction_options(root, local: str, remote, accel):
+    from crdt_enc_tpu_torch import (
+        FsStorage, OpenOptions, PlainKeyCryptor, XChaChaCryptor, orset_adapter,
+    )
+
+    version = uuid.UUID("c3b80d17-42fe-4e95-b7a8-2d50c61e9f07").bytes
+    return OpenOptions(
+        storage=FsStorage(os.path.join(root, local), str(remote)),
+        cryptor=XChaChaCryptor(), key_cryptor=PlainKeyCryptor(),
+        adapter=orset_adapter(), supported_data_versions=(version,),
+        current_data_version=version, create=True, accelerator=accel,
+    )
+
+
+async def build_compaction_remote(root: str, files: list) -> dict:
+    """The encrypted fs remote the compaction reads, written by the port's
+    own ``Core``: every op file sealed by one writer (``_seal``) and stored
+    under ``remote/``, plus COMPACT_SNAPSHOTS snapshots sealed by other
+    replicas.  Snapshot i comes from a copy of the initialized remote
+    (meta and key) holding the version-1 files of the actors with
+    ``actor % 16 == i``: a replica compacts the copy and its snapshot
+    moves into ``remote/states``.  So the compaction merges S snapshots
+    (a quarter of the rows) and folds the op files past their cursors."""
+    import asyncio
+
+    from crdt_enc_tpu_torch import Core, FsStorage, HostAccelerator
+
+    base = os.path.join(root, "base")
+    remote = os.path.join(root, "remote")
+    writer = await Core.open(compaction_options(root, "writer", base,
+                                                HostAccelerator()))
+    shutil.copytree(base, remote)
+    copies = [os.path.join(root, f"snap{i}") for i in range(COMPACT_SNAPSHOTS)]
+    for c in copies:
+        shutil.copytree(base, c)
+    main = FsStorage(os.path.join(root, "store"), remote)
+    side = [FsStorage(os.path.join(root, "store"), c) for c in copies]
+    n_bytes = 0
+    # a batch of files at a time: the seals' encrypts and the stores'
+    # writes and fsyncs overlap in FsStorage's thread pool
+    for b in range(0, len(files), COMPACT_WRITE_BATCH):
+        batch = files[b : b + COMPACT_WRITE_BATCH]
+        blobs = await asyncio.gather(*(writer._seal(ops) for *_, ops in batch))
+        stores = []
+        for (ai, ab, v, _), blob in zip(batch, blobs):
+            n_bytes += len(blob)
+            stores.append(main.store_ops(ab, v, blob))
+            if v == 1 and ai % 16 < COMPACT_SNAPSHOTS:
+                stores.append(side[ai % 16].store_ops(ab, v, blob))
+        await asyncio.gather(*stores)
+    covered = 0
+    os.makedirs(os.path.join(remote, "states"), exist_ok=True)
+    for i, c in enumerate(copies):
+        replica = await Core.open(compaction_options(root, f"sealer{i}", c,
+                                                     HostAccelerator()))
+        await replica.compact()
+        covered += sum(replica.info().next_op_versions.counters.values())
+        (name,) = os.listdir(os.path.join(c, "states"))
+        shutil.move(os.path.join(c, "states", name),
+                    os.path.join(remote, "states", name))
+        shutil.rmtree(c)
+    shutil.rmtree(base)
+    return dict(remote=remote, op_files=len(files), op_bytes=n_bytes,
+                ops=sum(len(ops) for *_, ops in files),
+                files_in_snapshots=covered)
+
+
+async def timed_compaction(root: str, local: str, remote: str, accel):
+    """Open a fresh replica on ``remote`` and compact it.  Returns the
+    core, the wall seconds from open and the trace snapshot."""
+    from crdt_enc_tpu_torch import Core
+    from crdt_enc_tpu_torch.utils import trace
+
+    trace.reset()
+    t0 = time.perf_counter()
+    core = await Core.open(compaction_options(root, local, remote, accel))
+    await core.compact()
+    wall = time.perf_counter() - t0
+    return core, wall, trace.snapshot()
+
+
+COMPACTION_SPANS = (
+    "states.list", "states.load", "states.decrypt_decode", "states.merge",
+    "merge.planes", "merge.device", "merge.writeback", "ops.list", "ops.load",
+    "ops.bulk_unwrap", "ops.bulk_decrypt", "ops.bulk_fold", "fold.decode",
+    "fold.vocab", "fold.planes", "fold.device", "fold.writeback",
+    "compact.ingest", "compact.seal", "compact.write", "compact.gc",
+)
+
+
+def print_compaction(label: str, wall: float, snap: dict) -> None:
+    print(f"  {label}: compaction wall {wall:.3f}s (Core.open to the end of "
+          "compact())", flush=True)
+    spans = snap["spans"]
+    for name in COMPACTION_SPANS + tuple(sorted(set(spans) - set(COMPACTION_SPANS))):
+        if name in spans:
+            v = spans[name]
+            print(f"    span {name}: {v['seconds'] * 1e3:.1f} ms x{v['count']}")
+    print("    counters: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(snap["counters"].items())), flush=True)
+
+
+def phase_compaction(cols, E: int, R: int, device, root: str) -> dict:
+    """``Core.compact()`` over an encrypted fs remote at config 3, once
+    with ``TorchAccelerator`` and once with ``HostAccelerator`` on a
+    byte-identical copy; the states compared byte for byte, then read back
+    by a fresh replica.  Returns the launches of the device compaction."""
+    import asyncio
+
+    from crdt_enc_tpu_torch import HostAccelerator, TorchAccelerator
+    from crdt_enc_tpu_torch import canonical_bytes
+    from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
+    from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
+    from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
+
+    actors = actor_ids(R)
+    t0 = time.perf_counter()
+    files = compaction_files(cols, actors)
+    remote = asyncio.run(build_compaction_remote(root, files))
+    del files
+    print(f"  remote built in {time.perf_counter() - t0:.1f}s under {root}: "
+          f"{remote['op_files']} op files, {remote['ops']} ops, "
+          f"{remote['op_bytes']} bytes sealed; {COMPACT_SNAPSHOTS} snapshots "
+          f"covering {remote['files_in_snapshots']} files", flush=True)
+    host_remote = os.path.join(root, "remote_host")
+    shutil.copytree(remote["remote"], host_remote)
+
+    for counts in (F.launches, M.launches, LC.launches):
+        for k in counts:
+            counts[k] = 0
+    card, wall, snap = asyncio.run(timed_compaction(
+        root, "card", remote["remote"], TorchAccelerator(device=device)))
+    launches = {**F.launches, **M.launches, **LC.launches}
+    print_compaction(f"TorchAccelerator ({device})", wall, snap)
+    print(f"    launches in this compaction: {launches}", flush=True)
+    host, host_wall, host_snap = asyncio.run(timed_compaction(
+        root, "host", host_remote, HostAccelerator()))
+    print_compaction("HostAccelerator (host loop)", host_wall, host_snap)
+
+    cb, hb = card.with_state(canonical_bytes), host.with_state(canonical_bytes)
+    print(f"  compacted state bytes equal to the host loop's: {cb == hb} "
+          f"({len(cb)} bytes; cursors equal: "
+          f"{card.info().next_op_versions == host.info().next_op_versions})",
+          flush=True)
+    if cb != hb or card.info().next_op_versions != host.info().next_op_versions:
+        raise AssertionError("the device compaction disagrees with the host loop")
+
+    async def reopen():
+        from crdt_enc_tpu_torch import Core
+
+        t0 = time.perf_counter()
+        fresh = await Core.open(compaction_options(
+            root, "fresh", remote["remote"], HostAccelerator()))
+        await fresh.read_remote()
+        names = await fresh.storage.list_state_names()
+        actors_left = await fresh.storage.list_op_actors()
+        return fresh, time.perf_counter() - t0, names, actors_left
+
+    fresh, read_s, names, actors_left = asyncio.run(reopen())
+    fb = fresh.with_state(canonical_bytes)
+    print(f"  a fresh replica reads the compacted remote back in {read_s:.2f}s: "
+          f"bytes equal {fb == cb}; {len(names)} snapshot, {len(actors_left)} "
+          "op logs left", flush=True)
+    if fb != cb or len(names) != 1 or actors_left:
+        raise AssertionError("the compacted remote does not read back")
+    if launches["orset_fold"] != 1 or launches["orset_merge_many"] != 1:
+        raise AssertionError(
+            f"the compaction did not launch the fold and the merge once: {launches}")
+    return dict(launches=launches, wall_s=wall, host_wall_s=host_wall,
+                reopen_s=read_s, spans={k: v["seconds"] for k, v in
+                                        snap["spans"].items()},
+                counters=snap["counters"], remote={k: v for k, v in
+                                                    remote.items() if k != "remote"})
+
+
 # name -> (source, file:line of the TPU kernel's pallas_call, the Pallas
 # functions it stands for).  Both OR-Set entries run the bucketed kernels
 # of csrc/orset_fold.cu and differ in the range kernel's epilogue; K3
@@ -1050,6 +1287,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from crdt_enc_tpu_torch.ops import cuda_build
 
+    t_start = time.perf_counter()
     E, R, N = N_MEMBERS, N_REPLICAS, N_ROWS
     name = torch.cuda.get_device_name(0)
     print("== 1. device", flush=True)
@@ -1097,6 +1335,19 @@ def main() -> int:
 
     print(f"== 9. K3's shape (E={K3_E}, R={K3_R}, N={N_ROWS})", flush=True)
     k3_errs, k3 = phase_k3("cuda", rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"== 10. compaction end to end (config 3: N={N}, R={R}, E={E}, "
+          f"{COMPACT_OPS_PER_FILE} ops a file, S={COMPACT_SNAPSHOTS} "
+          "snapshots; encrypted FsStorage)", flush=True)
+    print(device_line(), flush=True)
+    root = tempfile.mkdtemp(prefix="crdt-compaction-")
+    print(f"  remote under {root} ({fs_type(root)})", flush=True)
+    try:
+        compaction = phase_compaction(cols, E, R, "cuda", root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     kernels = []
     for kname, (source, replaces, pallas) in KERNELS.items():
@@ -1112,7 +1363,10 @@ def main() -> int:
             entry["match"] = entry["max_abs_err"] == 0
         if kname == "orset_fold":
             entry["k3"] = k3
+        entry["compaction_launches"] = compaction["launches"][kname]
         kernels.append(entry)
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s", flush=True)
+    print(json.dumps({"compaction": compaction}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -47,6 +47,17 @@ class VClock:
             if c > self.get(a):
                 self.counters[a] = c
 
+    def dominates(self, other: "VClock") -> bool:
+        """Strictly greater: descends from ``other`` and differs."""
+        return self.descends(other) and self.counters != other.counters
+
+    def descends(self, other: "VClock") -> bool:
+        """Greater or equal on every actor ``other`` has seen."""
+        return all(self.get(a) >= c for a, c in other.counters.items())
+
+    def copy(self) -> "VClock":
+        return VClock(dict(self.counters))
+
     def is_empty(self) -> bool:
         return not self.counters
 

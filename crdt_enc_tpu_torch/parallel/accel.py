@@ -8,8 +8,13 @@ call converts sparse host state ↔ dense tensors around the device fold or
 merge; the conversion cost is amortized over whole op batches, which is
 exactly the compaction shape.  ``fold_ops`` sends ORSet, PNCounter,
 GCounter and LWWMap batches to the device, as the JAX accelerator does;
-small batches and every other type take the host loop.  ``merge_states``
-merges three or more ORSets on the device.
+small batches and every other type take the host loop.  ``fold_payloads``
+is the core's bulk route: decrypted OR-Set and counter op-file payloads
+decode natively into columns and fold on the device without per-op
+Python objects.  ``merge_states`` merges three or more ORSets on the
+device.  The fold sessions and payload streams of the JAX accelerator
+(``open_fold_session``, ``open_payload_stream``) are not ported, so the
+core takes its whole-batch bulk path.
 
 Eager PyTorch compiles nothing per shape, so the JAX package's bucket
 padding of rows and vocabularies (a bound on XLA recompiles) has no
@@ -18,14 +23,19 @@ counterpart here.
 
 from __future__ import annotations
 
+import operator
+from itertools import islice
+
 import numpy as np
 import torch
 
 from ..core.adapters import HostAccelerator
-from ..models.counters import GCounter, PNCounter
+from ..models.counters import POS, GCounter, PNCounter
 from ..models.lwwmap import LWWMap, _wins
 from ..models.orset import ORSet
 from ..ops.columnar import (
+    CounterColumns,
+    OrsetColumns,
     Vocab,
     counter_ops_to_columns,
     dense_to_vclock,
@@ -38,6 +48,10 @@ from ..ops.columnar import (
 )
 from ..ops.counters import gcounter_fold, pncounter_fold
 from ..ops.lww import lww_fold
+from ..ops.native_decode import (
+    decode_counter_payload_batch,
+    decode_orset_payload_batch,
+)
 from ..ops.orset import orset_fold, orset_merge_many
 from ..utils import trace
 
@@ -149,15 +163,109 @@ class TorchAccelerator(HostAccelerator):
         state._mut += 1
         return state
 
+    # -------------------------------------------------------- fold_payloads
+    def fold_payloads(self, state, payloads: list, actors_hint=()) -> bool:
+        """Bulk front end: decrypted op-file payloads → native columnar
+        decode → one device fold, with no per-op Python objects.  Handles
+        the OR-Set and the two counters.  Returns False — with ``state``
+        untouched — where the caller must decode per op and call
+        ``fold_ops`` instead: any other state type, a payload the native
+        decoder declines (unknown actor, counter past int32), a member
+        vocabulary that collapses as Python values, and OR-Set batches in
+        the sparse regime or past ``STREAM_CHUNK_ROWS`` (their routes are
+        not ported; ``fold_ops`` covers both)."""
+        if isinstance(state, (GCounter, PNCounter)):
+            return self._fold_counter_payloads(state, payloads, actors_hint)
+        if not isinstance(state, ORSet):
+            return False
+        actors_sorted = self._orset_actor_table(state, actors_hint)
+        with trace.span("fold.decode"):
+            decoded = decode_orset_payload_batch(payloads, actors_sorted)
+        if decoded is None:
+            return False
+        return self._fold_orset_decoded(state, decoded, actors_sorted)
+
+    @staticmethod
+    def _orset_actor_table(state: ORSet, actors_hint) -> list:
+        """Sorted, unique actor table for the native decoder: the caller's
+        hint plus every actor the state mentions.  A strictly sorted hint
+        that already covers the state is used as it is (storage listings
+        come sorted; re-sorting 100k byte strings costs more than the
+        decrypt)."""
+        hint = list(actors_hint)
+        actor_set = set(hint)
+        actor_set.update(state.clock.counters)
+        for entry in state.entries.values():
+            actor_set.update(entry)
+        for dfr in state.deferred.values():
+            actor_set.update(dfr)
+        if len(actor_set) == len(hint) and all(
+            map(operator.lt, hint, islice(hint, 1, None))
+        ):
+            return hint
+        return sorted(actor_set)
+
+    def _fold_orset_decoded(self, state: ORSet, decoded, actors_sorted) -> bool:
+        kind, member_idx, actor_idx, counter, member_objs = decoded
+        if len(kind) == 0:
+            return True
+        # members in the decoder's intern order (the state's are appended
+        # by the vocabulary scan); replicas in the decoder's sorted order
+        members = Vocab(member_objs)
+        # Vocab interning hashes member *objects*; distinct canonical bytes
+        # can still collide as Python values (1 == True, 0.0 == -0.0).  A
+        # collapsed vocab would scatter rows onto the wrong member — decline
+        if len(members) != len(member_objs):
+            return False
+        replicas = Vocab(actors_sorted)
+        with trace.span("fold.vocab"):
+            orset_scan_vocab(state, members, replicas)
+        n_rows = len(kind)
+        if (self._use_sparse(len(members), len(replicas), n_rows)
+                or n_rows > self.STREAM_CHUNK_ROWS):
+            return False
+        cols = OrsetColumns(kind, member_idx, actor_idx, counter, members, replicas)
+        self._fold_orset_columns(state, cols, members, replicas)
+        return True
+
+    def _fold_counter_payloads(self, state, payloads: list, actors_hint=()) -> bool:
+        """Counter bulk path: native decode straight to (sign, actor,
+        counter) columns, one fold.  Dots are monotone per actor, so
+        max-folding whole files at once equals per-op apply."""
+        pn = isinstance(state, PNCounter)
+        clocks = (state.p.clock, state.n.clock) if pn else (state.clock,)
+        actor_set = set(actors_hint)
+        for c in clocks:
+            actor_set.update(c.counters)
+        actors_sorted = sorted(actor_set)
+        with trace.span("fold.decode"):
+            decoded = decode_counter_payload_batch(payloads, actors_sorted)
+        if decoded is None:
+            return False
+        sign, actor_idx, counter = decoded
+        if len(sign) == 0:
+            return True
+        if not pn and np.any(sign != POS):
+            return False  # PN-shaped rows in a G-Counter state
+        self._fold_counter_columns(
+            state, CounterColumns(sign, actor_idx, counter, Vocab(actors_sorted))
+        )
+        return True
+
     # ------------------------------------------------------------- counters
     def _fold_counter(self, state, ops: list):
-        """The G- and PN-Counter fold: op columns, the replica vocabulary
-        (state actors included), the fold on the device, the dense clocks
-        written back to the sparse state.  The planes are int64 on the
-        device, so any counter the host loop takes folds exactly (the JAX
-        route narrows a prior clock to int32 there)."""
+        """The G- and PN-Counter fold of op objects: their columns, then
+        :meth:`_fold_counter_columns`."""
         with trace.span("fold.columns"):
             cols = counter_ops_to_columns(ops)
+        return self._fold_counter_columns(state, cols)
+
+    def _fold_counter_columns(self, state, cols):
+        """The replica vocabulary (state actors included), the fold on the
+        device, the dense clocks written back to the sparse state.  The
+        planes are int64 on the device, so any counter the host loop takes
+        folds exactly (the JAX route narrows a prior clock to int32
+        there)."""
         replicas = cols.replicas
         pn = isinstance(state, PNCounter)
         clocks = (state.p.clock, state.n.clock) if pn else (state.clock,)

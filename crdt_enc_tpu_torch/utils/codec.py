@@ -1,15 +1,19 @@
-"""Canonical msgpack encoding, in pure Python.
+"""Canonical msgpack encoding and decoding, in pure Python.
 
-The port's copy of ``pack`` from ``crdt_enc_tpu/utils/codec.py``: the
-same bytes for the same object, so canonical state compares byte for
-byte across the two packages.  Every map is emitted with its entries
-sorted by their packed key bytes (type-stable ordering), bytes go out
-as the bin type, lists and tuples as arrays, and every integer in its
-shortest msgpack form.
+The port's copy of ``pack`` and ``unpack`` from
+``crdt_enc_tpu/utils/codec.py``.  ``pack`` gives the same bytes for the
+same object, so canonical state compares byte for byte across the two
+packages: every map is emitted with its entries sorted by their packed
+key bytes (type-stable ordering), bytes go out as the bin type, lists and
+tuples as arrays, and every integer in its shortest msgpack form.
+``unpack`` decodes as ``msgpack.unpackb(data, raw=False,
+strict_map_key=False, use_list=False)`` does: arrays come back as tuples
+(so composite map keys such as dots stay hashable), bin as ``bytes``, str
+as ``str``; truncated or trailing input raises ``ValueError``.
 
-It is written out here rather than imported from the ``msgpack`` wheel
+Both are written out here rather than imported from the ``msgpack`` wheel
 so the port runs where that wheel is absent.  The JAX package's native
-``canon_pack`` fast path and ``unpack`` are not part of this slice.
+``canon_pack`` fast path is not copied.
 """
 
 from __future__ import annotations
@@ -129,3 +133,126 @@ def _pack_into(obj, out: list) -> None:
         out.append(b"\xcb" + _pack_f64(float(obj)))
     else:
         raise TypeError(f"can not serialize {type(obj).__name__!r} object")
+
+
+# ---- unpack -----------------------------------------------------------------
+
+_f32 = struct.Struct(">f").unpack_from
+_f64 = struct.Struct(">d").unpack_from
+_from_bytes = int.from_bytes
+
+
+def unpack(data):
+    """Decode one msgpack object that fills ``data`` exactly."""
+    buf = data if type(data) is bytes else bytes(data)
+    try:
+        obj, end = _dec(buf, 0)
+    except IndexError:
+        raise ValueError("msgpack: truncated input") from None
+    if end != len(buf):
+        raise ValueError(
+            f"msgpack: {len(buf) - end} bytes of trailing data after the object"
+        )
+    return obj
+
+
+def _take(b: bytes, p: int, n: int):
+    """``b[p:p+n]`` and its end, raising on a short buffer."""
+    e = p + n
+    if e > len(b):
+        raise ValueError("msgpack: truncated input")
+    return b[p:e], e
+
+
+def _seq(b: bytes, p: int, n: int):
+    out = []
+    append = out.append
+    for _ in range(n):
+        t = b[p]
+        if t < 0x80:  # positive fixint, inline
+            append(t)
+            p += 1
+        else:
+            x, p = _dec(b, p)
+            append(x)
+    return tuple(out), p
+
+
+def _map(b: bytes, p: int, n: int):
+    out = {}
+    for _ in range(n):
+        if b[p] == 0xC4:  # bin 8 key (an actor id), inline
+            e = p + 2 + b[p + 1]
+            if e > len(b):
+                raise ValueError("msgpack: truncated input")
+            k = b[p + 2 : e]
+            p = e
+        else:
+            k, p = _dec(b, p)
+        t = b[p]
+        if t < 0x80:  # positive fixint value, inline
+            out[k] = t
+            p += 1
+        else:
+            out[k], p = _dec(b, p)
+    return out, p
+
+
+def _dec(b: bytes, p: int):
+    """The object starting at ``b[p]`` and the offset just past it.  The
+    forms the canonical packer emits most are tested first."""
+    t = b[p]
+    p += 1
+    if t < 0x80:  # positive fixint
+        return t, p
+    if t == 0xC4:  # bin 8
+        n = b[p]
+        return _take(b, p + 1, n)
+    if 0x90 <= t < 0xA0:  # fixarray
+        return _seq(b, p, t & 0x0F)
+    if t < 0x90:  # fixmap
+        return _map(b, p, t & 0x0F)
+    if t < 0xC0:  # fixstr
+        s, e = _take(b, p, t & 0x1F)
+        return s.decode("utf-8"), e
+    if t >= 0xE0:  # negative fixint
+        return t - 0x100, p
+    if t <= 0xC3:
+        if t == 0xC0:
+            return None, p
+        if t == 0xC2:
+            return False, p
+        if t == 0xC3:
+            return True, p
+        raise ValueError("msgpack: 0xc1 is never used")
+    if t <= 0xC6:  # bin 16 / 32
+        w = 2 if t == 0xC5 else 4
+        n, p = _uint(b, p, w)
+        return _take(b, p, n)
+    if t <= 0xC9 or 0xD4 <= t <= 0xD8:
+        raise ValueError(f"msgpack: ext type 0x{t:02x} is not supported")
+    if t == 0xCA:
+        _take(b, p, 4)
+        return _f32(b, p)[0], p + 4
+    if t == 0xCB:
+        _take(b, p, 8)
+        return _f64(b, p)[0], p + 8
+    if t <= 0xCF:  # uint 8 / 16 / 32 / 64
+        return _uint(b, p, 1 << (t - 0xCC))
+    if t <= 0xD3:  # int 8 / 16 / 32 / 64
+        raw, e = _take(b, p, 1 << (t - 0xD0))
+        return _from_bytes(raw, "big", signed=True), e
+    if t <= 0xDB:  # str 8 / 16 / 32
+        n, p = _uint(b, p, 1 << (t - 0xD9))
+        s, e = _take(b, p, n)
+        return s.decode("utf-8"), e
+    if t <= 0xDD:  # array 16 / 32
+        n, p = _uint(b, p, 2 if t == 0xDC else 4)
+        return _seq(b, p, n)
+    n, p = _uint(b, p, 2 if t == 0xDE else 4)  # map 16 / 32
+    return _map(b, p, n)
+
+
+def _uint(b: bytes, p: int, w: int):
+    raw, e = _take(b, p, w)
+    return _from_bytes(raw, "big"), e

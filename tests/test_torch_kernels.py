@@ -481,3 +481,54 @@ def test_lww_wrapper_refuses_bad_inputs(dev):
         LC.lww_fold_cuda(cols[0], strided, *cols[2:], num_keys=K)
     with pytest.raises(ValueError, match="different devices"):
         LC.lww_fold_cuda(cols[0].cpu(), *cols[1:], num_keys=K)
+
+
+@pytest.mark.cuda
+def test_core_compaction_on_the_card_matches_the_host_loop(dev, tmp_path):
+    """``Core.compact()`` over a small encrypted fs remote (three
+    snapshots, 24 op files past them) with ``TorchAccelerator()`` gives
+    the host loop's bytes, through one fold launch and one merge launch."""
+    import asyncio
+    import shutil
+
+    import crdt_enc_tpu_torch as T
+    from crdt_enc_tpu_torch.utils.versions import DEFAULT_DATA_VERSION_1
+
+    def opts(local, remote, accel):
+        return T.OpenOptions(
+            storage=T.FsStorage(str(tmp_path / local), str(remote)),
+            cryptor=T.XChaChaCryptor(), key_cryptor=T.PlainKeyCryptor(),
+            adapter=T.orset_adapter(),
+            supported_data_versions=(DEFAULT_DATA_VERSION_1,),
+            current_data_version=DEFAULT_DATA_VERSION_1, create=True,
+            accelerator=accel)
+
+    async def go():
+        remote = tmp_path / "remote"
+        writers = [await T.Core.open(opts(f"w{i}", remote, T.HostAccelerator()))
+                   for i in range(3)]
+        for rnd in range(3):
+            for i in range(24):
+                w = writers[i % 3]
+                m = (rnd * 5 + i) % 11
+                await w.update(lambda s, m=m, w=w, i=i: s.rm_ctx(m)
+                               if i % 4 == 3 and s.entries.get(m)
+                               else s.add_ctx(w.actor_id, m))
+            if rnd == 1:
+                for w in writers:
+                    await w._compact_seal()
+        shutil.copytree(remote, tmp_path / "host_remote")
+        card = await T.Core.open(opts("card", remote, T.TorchAccelerator()))
+        host = await T.Core.open(opts("host", tmp_path / "host_remote",
+                                      T.HostAccelerator()))
+        before = F.launches["orset_fold"], M.launches["orset_merge_many"]
+        await card.compact()
+        after = F.launches["orset_fold"], M.launches["orset_merge_many"]
+        await host.compact()
+        assert card.with_state(T.canonical_bytes) == host.with_state(T.canonical_bytes)
+        assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+        fresh = await T.Core.open(opts("fresh", remote, T.HostAccelerator()))
+        await fresh.read_remote()
+        assert fresh.with_state(T.canonical_bytes) == card.with_state(T.canonical_bytes)
+
+    asyncio.run(go())

@@ -57,11 +57,29 @@ benchmarks/suite.py's config-4 generator), beside configs 1 and 2
    directory, plus 8 snapshots sealed by 8 other replicas over the
    version-1 files of half the actors; ``Core.compact()`` from a fresh
    replica with ``TorchAccelerator`` (the snapshot merge launches K4
-   once, the op files fold through ``fold_payloads`` and K2 once) and
-   with ``HostAccelerator`` on a byte-identical copy; the two states
+   once) and with ``HostAccelerator`` on a byte-identical copy; the two states
    byte-equal, and a third replica reads the compacted remote back; the
-   wall of each compaction and its spans and counters;
-then the kernels line and the result line.
+   wall of each compaction and its spans and counters.  The compaction
+   takes the reference's pipelined route (bounded op chunks read,
+   unwrapped and decrypted by a producer task, folded through a fold
+   session); the phase prints the session's mode, the producer width, the
+   ``ops.chunk_*`` and ``session.*`` spans and the host RSS sampled over
+   each compaction (before, peak, growth), and holds the fold kernel's
+   launches to that mode (none in HOST_REDUCE);
+11. the stream route past 2^22 rows: 10,485,760 config-3-width rows
+   (2.5 x ``STREAM_CHUNK_ROWS``) through ``TorchAccelerator().fold_payloads``
+   (in-memory op-file payloads) and ``fold_ops`` (op objects), each three
+   fold launches, both states equal to one fold launch over all rows and
+   to the plain fold on the CPU; peak device memory, chunk count, wall;
+12. fold sessions: phase 10's op files as in-memory payloads through
+   ``OrsetFoldSession`` in BUFFER, HOST_REDUCE and DEVICE_STREAM (forced
+   through the module constants), each byte-equal to the host loop, the
+   DEVICE_STREAM fold launches equal to its chunk count; then
+   ``fold_encrypted_stream`` over the same payloads encrypted;
+then the kernels line and the result line.  Phase 5 also times the merge
+at the compaction's own shape (S = 9, E = 4,096, R = 5,000) against its
+plain version, and phases 5 and 9 give the merge and K3's shape their
+back-to-back and host-enqueue times.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It needs one
 card.  Without a CUDA device, or without the package beside it, it exits
@@ -80,6 +98,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import uuid
 
@@ -113,6 +132,15 @@ COMPACT_WRITE_BATCH = 1024
 # K3's shape: 2·Ep·Rp = 2·4096·262,144 = 2^31 overflows the TPU ablk
 # layout's int32 keys, so the JAX package folds it with _fold_wide
 K3_E, K3_R, K3_SEED = 4096, 261_000, 9
+# the S-way merge at the compaction's shape: phase 10 merges 9 states
+# (its replica's empty one and 8 snapshots) over 4,096 members and the
+# 5,000 actors the snapshots saw
+K4_S, K4_R, K4_SEED = 9, 5000, 12
+# phase 11: 2.5 x STREAM_CHUNK_ROWS config-3-width rows, as op files of
+# STREAM_FILE_OPS ops
+STREAM_N, STREAM_SEED, STREAM_FILE_OPS = 10_485_760, 11, 1024
+# phase 12: op files fed to a session per chunk
+SESSION_FEED_FILES = 2048
 
 # peak device-memory rates (NVIDIA data sheets); float32 outside the
 # tensor cores is the table's nearest rate for the kernels' int32 ALU work
@@ -509,16 +537,15 @@ def phase_times(fold_inputs, stacks, skewed, E: int, R: int, rate: float):
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {lib} ms, bound {out[name]['bound_ms']:.4f} ms "
               f"({out[name]['bound_by']}: {r['bytes'] / 1e6:.1f} MB)", flush=True)
-        if name != "orset_merge_many":
-            out[name]["back_to_back_ms"] = time_stream_ms(r["kernel"])
-            line = (f"    per call over 20 back-to-back calls: kernel "
-                    f"{out[name]['back_to_back_ms']:.4f} ms")
-            if r["library"]:
-                out[name]["library_back_to_back_ms"] = time_stream_ms(
-                    r["library"])
-                line += (f", library "
-                         f"{out[name]['library_back_to_back_ms']:.4f} ms")
-            print(line, flush=True)
+        out[name]["back_to_back_ms"] = time_stream_ms(r["kernel"])
+        line = (f"    per call over 20 back-to-back calls: kernel "
+                f"{out[name]['back_to_back_ms']:.4f} ms")
+        if r["library"]:
+            out[name]["library_back_to_back_ms"] = time_stream_ms(
+                r["library"])
+            line += (f", library "
+                     f"{out[name]['library_back_to_back_ms']:.4f} ms")
+        print(line, flush=True)
 
     scatter_clock_ms = time_ms(
         lambda: F.orset_scatter(*dev, **kw, clock=clock0.clone()))
@@ -534,8 +561,6 @@ def phase_times(fold_inputs, stacks, skewed, E: int, R: int, rate: float):
     print(f"  orset_fold with one zero plane as add0 and rm0 (read once; how "
           f"earlier runs timed the fold): {same_ms:.4f} ms", flush=True)
     for name, r in rows.items():
-        if name == "orset_merge_many":
-            continue
         enqueue = host_enqueue_ms(r["kernel"])
         out[name]["host_enqueue_ms"] = enqueue
         line = f"  {name} host enqueue time per call: {enqueue:.4f} ms"
@@ -1019,10 +1044,64 @@ def phase_k3(device, rate: float):
     print("    device time per call: " + device_breakdown(
         lambda: F.orset_fold_cuda(clock0, z, z2, *dev, **kw), calls=2),
         flush=True)
+    b2b_ms = time_stream_ms(lambda: F.orset_fold_cuda(clock0, z, z2, *dev, **kw),
+                            calls=10)
+    enqueue_ms = host_enqueue_ms(
+        lambda: F.orset_fold_cuda(clock0, z, z2, *dev, **kw), calls=10)
+    print(f"    per call over 10 back-to-back calls {b2b_ms:.4f} ms; host "
+          f"enqueue time per call {enqueue_ms:.4f} ms", flush=True)
     return errs, dict(E=E, R=R, N=N, fold_ms=fold_ms, fold_plain_ms=plain_ms,
                       one_zero_plane_as_add0_and_rm0_ms=same_ms,
+                      back_to_back_ms=b2b_ms, host_enqueue_ms=enqueue_ms,
                       bound_ms=bound_ms, peak_bytes=peak,
                       match=max(errs.values()) == 0)
+
+
+def phase_k4_compaction_shape(device, rate: float):
+    """The S-way merge at the compaction's shape (S = K4_S states over
+    E = 4,096 members and R = K4_R actors, each the fold of a disjoint
+    slice of config-3-width rows): the kernel against the plain tree
+    (torch.equal), its single-call, back-to-back and host-enqueue times,
+    the plain time and the bound.  Returns (max_abs_err, the times)."""
+    import torch
+
+    from crdt_enc_tpu_torch.ops import orset as P
+    from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
+
+    E, R, S = N_MEMBERS, K4_R, K4_S
+    cols = gen_columns(N_ROWS, R, E, K4_SEED)
+    dev = [torch.from_numpy(x).to(device) for x in cols]
+    z = torch.zeros((E, R), dtype=torch.int32, device=device)
+    clock0 = torch.zeros(R, dtype=torch.int32, device=device)
+    bounds = np.linspace(0, N_ROWS, S + 1).astype(int)
+    states = [P.orset_fold(clock0, z, z, *(x[lo:hi] for x in dev),
+                           num_members=E, num_replicas=R)
+              for lo, hi in zip(bounds[:-1], bounds[1:])]
+    stacks = [torch.stack([st[i] for st in states]) for i in range(3)]
+    del states, dev
+    errs: dict = {}
+    check_equal(f"merge at the compaction's shape (S={S}, E={E}, R={R})",
+                P.orset_merge_many_tree(*stacks),
+                M.orset_merge_many_cuda(*stacks), errs, "orset_merge_many")
+    cells = E * R
+    nbytes = (S + 1) * 2 * cells * 4 + 3 * S * R * 4
+    bytes_ms = nbytes / rate * 1e3
+    ops_ms = 12 * (S - 1) * cells / CUDA_CORE_OPS_PER_S * 1e3
+    out = dict(S=S, E=E, R=R,
+               ms=time_ms(lambda: M.orset_merge_many_cuda(*stacks)),
+               plain_ms=time_ms(lambda: P.orset_merge_many_tree(*stacks)),
+               back_to_back_ms=time_stream_ms(
+                   lambda: M.orset_merge_many_cuda(*stacks)),
+               host_enqueue_ms=host_enqueue_ms(
+                   lambda: M.orset_merge_many_cuda(*stacks)),
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    print(f"  orset_merge_many at S={S}, E={E}, R={R}: kernel "
+          f"{out['ms']:.4f} ms, back to back {out['back_to_back_ms']:.4f} ms, "
+          f"host enqueue {out['host_enqueue_ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+          f"(bytes: {nbytes / 1e6:.1f} MB)", flush=True)
+    return errs["orset_merge_many"], out
 
 
 # ---- compaction end to end (phase 10) --------------------------------------
@@ -1140,11 +1219,117 @@ async def timed_compaction(root: str, local: str, remote: str, accel):
 
 COMPACTION_SPANS = (
     "states.list", "states.load", "states.decrypt_decode", "states.merge",
-    "merge.planes", "merge.device", "merge.writeback", "ops.list", "ops.load",
+    "merge.planes", "merge.device", "merge.writeback", "ops.list",
+    "ops.chunk_read", "ops.chunk_unwrap", "ops.chunk_decrypt", "ops.chunk_fold",
+    "ops.session_finish", "session.decode", "session.remap",
+    "session.host_reduce", "session.device_fold", "session.combine",
+    "session.device_finish", "session.writeback", "ops.load",
     "ops.bulk_unwrap", "ops.bulk_decrypt", "ops.bulk_fold", "fold.decode",
     "fold.vocab", "fold.planes", "fold.device", "fold.writeback",
     "compact.ingest", "compact.seal", "compact.write", "compact.gc",
 )
+
+
+def rss_bytes() -> int | None:
+    """This process's resident set in bytes, from ``/proc/self/statm``
+    (else ``VmRSS`` in ``/proc/self/status``); None where neither is
+    reported."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except (OSError, ValueError, IndexError):
+        pass
+    return None
+
+
+class RssSampler:
+    """Samples the resident set every ``interval`` seconds on a thread
+    while the block runs: ``before`` is the resident set at entry,
+    ``peak`` the largest sample (both None where the kernel reports
+    none).  The growth ``peak - before`` is the block's own host memory,
+    apart from what earlier phases left resident."""
+
+    def __init__(self, interval: float = 0.005):
+        self.interval = interval
+        self.before = self.peak = None
+        self.samples = 0
+        self._stop = threading.Event()
+        self._thread = None
+
+    def _sample(self) -> None:
+        rss = rss_bytes()
+        if rss is not None:
+            self.samples += 1
+            self.peak = rss if self.peak is None else max(self.peak, rss)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval):
+            self._sample()
+
+    def __enter__(self):
+        self.before = rss_bytes()
+        self._sample()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+        return False
+
+    def line(self) -> str:
+        if self.before is None or self.peak is None:
+            return "host RSS not reported by this kernel"
+        return (f"host RSS before {self.before / 1e9:.3f} GB, peak "
+                f"{self.peak / 1e9:.3f} GB, growth "
+                f"{(self.peak - self.before) / 1e9:.3f} GB ({self.samples} "
+                f"samples every {self.interval * 1e3:.0f} ms)")
+
+    def fields(self, prefix: str) -> dict:
+        if self.before is None or self.peak is None:
+            return {}
+        return {f"{prefix}rss_before_bytes": self.before,
+                f"{prefix}rss_peak_bytes": self.peak,
+                f"{prefix}rss_growth_bytes": self.peak - self.before}
+
+
+def session_launches(accel, session) -> int:
+    """The fold launches a finished OR-Set session's mode implies:
+    none in HOST_REDUCE, one per chunk in DEVICE_STREAM, and in BUFFER
+    the accelerator's whole-batch fold at finish (none in the sparse
+    regime, one per ``STREAM_CHUNK_ROWS`` rows otherwise)."""
+    if session.mode == "host_reduce":
+        return 0
+    if session.mode == "device_stream":
+        return session.device_chunks
+    E, R, n = len(session.members), len(session.replicas), session.rows_fed
+    if n == 0 or accel._use_sparse(E, R, n):
+        return 0
+    return -(-n // accel.STREAM_CHUNK_ROWS)
+
+
+class SessionProbe:
+    """Wraps an accelerator's ``open_fold_session`` to keep the sessions
+    it opens, so a run can report the mode each took."""
+
+    def __init__(self, accel):
+        self.sessions: list = []
+        self._open = accel.open_fold_session
+        accel.open_fold_session = self
+
+    def __call__(self, state, actors_hint=()):
+        session = self._open(state, actors_hint)
+        self.sessions.append(session)
+        return session
 
 
 def print_compaction(label: str, wall: float, snap: dict) -> None:
@@ -1157,13 +1342,18 @@ def print_compaction(label: str, wall: float, snap: dict) -> None:
             print(f"    span {name}: {v['seconds'] * 1e3:.1f} ms x{v['count']}")
     print("    counters: " + ", ".join(
         f"{k} {v}" for k, v in sorted(snap["counters"].items())), flush=True)
+    if snap.get("gauges"):
+        print("    gauges: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(snap["gauges"].items())), flush=True)
 
 
-def phase_compaction(cols, E: int, R: int, device, root: str) -> dict:
+def phase_compaction(files, E: int, R: int, device, root: str) -> dict:
     """``Core.compact()`` over an encrypted fs remote at config 3, once
     with ``TorchAccelerator`` and once with ``HostAccelerator`` on a
     byte-identical copy; the states compared byte for byte, then read back
-    by a fresh replica.  Returns the launches of the device compaction."""
+    by a fresh replica.  The device compaction takes the pipelined route;
+    its fold launches must match the mode its session reports.  Returns
+    the launches of the device compaction, the mode and the walls."""
     import asyncio
 
     from crdt_enc_tpu_torch import HostAccelerator, TorchAccelerator
@@ -1172,11 +1362,8 @@ def phase_compaction(cols, E: int, R: int, device, root: str) -> dict:
     from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
     from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
 
-    actors = actor_ids(R)
     t0 = time.perf_counter()
-    files = compaction_files(cols, actors)
     remote = asyncio.run(build_compaction_remote(root, files))
-    del files
     print(f"  remote built in {time.perf_counter() - t0:.1f}s under {root}: "
           f"{remote['op_files']} op files, {remote['ops']} ops, "
           f"{remote['op_bytes']} bytes sealed; {COMPACT_SNAPSHOTS} snapshots "
@@ -1184,17 +1371,32 @@ def phase_compaction(cols, E: int, R: int, device, root: str) -> dict:
     host_remote = os.path.join(root, "remote_host")
     shutil.copytree(remote["remote"], host_remote)
 
+    accel = TorchAccelerator(device=device)
+    probe = SessionProbe(accel)
     for counts in (F.launches, M.launches, LC.launches):
         for k in counts:
             counts[k] = 0
-    card, wall, snap = asyncio.run(timed_compaction(
-        root, "card", remote["remote"], TorchAccelerator(device=device)))
+    with RssSampler() as rss:
+        card, wall, snap = asyncio.run(timed_compaction(
+            root, "card", remote["remote"], accel))
     launches = {**F.launches, **M.launches, **LC.launches}
     print_compaction(f"TorchAccelerator ({device})", wall, snap)
     print(f"    launches in this compaction: {launches}", flush=True)
-    host, host_wall, host_snap = asyncio.run(timed_compaction(
-        root, "host", host_remote, HostAccelerator()))
+    if len(probe.sessions) != 1:
+        raise AssertionError(f"the compaction opened {len(probe.sessions)} "
+                             "fold sessions, not one: not the pipelined route")
+    session = probe.sessions[0]
+    print(f"    pipelined route: fold session mode {session.mode}, "
+          f"{session.rows_fed} rows fed, {session.device_chunks} device "
+          f"chunks; stream_producers "
+          f"{snap.get('gauges', {}).get('stream_producers')}; "
+          f"{rss.line()}", flush=True)
+    expected_fold = session_launches(accel, session)
+    with RssSampler() as host_rss:
+        host, host_wall, host_snap = asyncio.run(timed_compaction(
+            root, "host", host_remote, HostAccelerator()))
     print_compaction("HostAccelerator (host loop)", host_wall, host_snap)
+    print(f"    {host_rss.line()}", flush=True)
 
     cb, hb = card.with_state(canonical_bytes), host.with_state(canonical_bytes)
     print(f"  compacted state bytes equal to the host loop's: {cb == hb} "
@@ -1222,14 +1424,251 @@ def phase_compaction(cols, E: int, R: int, device, root: str) -> dict:
           "op logs left", flush=True)
     if fb != cb or len(names) != 1 or actors_left:
         raise AssertionError("the compacted remote does not read back")
-    if launches["orset_fold"] != 1 or launches["orset_merge_many"] != 1:
+    if (launches["orset_fold"] != expected_fold
+            or launches["orset_merge_many"] != 1):
         raise AssertionError(
-            f"the compaction did not launch the fold and the merge once: {launches}")
+            f"the compaction's launches {launches} do not match its session "
+            f"mode {session.mode} (fold {expected_fold}) and one merge")
     return dict(launches=launches, wall_s=wall, host_wall_s=host_wall,
-                reopen_s=read_s, spans={k: v["seconds"] for k, v in
-                                        snap["spans"].items()},
+                reopen_s=read_s, session_mode=session.mode,
+                session_rows=session.rows_fed,
+                stream_producers=snap.get("gauges", {}).get("stream_producers"),
+                **rss.fields(""), **host_rss.fields("host_"),
+                spans={k: v["seconds"] for k, v in snap["spans"].items()},
                 counters=snap["counters"], remote={k: v for k, v in
                                                     remote.items() if k != "remote"})
+
+
+# ---- the stream route past 2^22 rows (phase 11) ----------------------------
+
+
+def op_file_payloads(cols, actors: list, ops_per_file: int) -> list:
+    """The live rows as op-file payloads, in row order, ``ops_per_file``
+    ops a file, built with numpy: each op ``[kind, member, [actor,
+    counter]]`` (add) or ``[kind, member, {actor: counter}]`` (remove) in
+    msgpack with fixed-width ints (member uint16, counter uint32; valid
+    msgpack the decoder reads, one wire span per member), a file an
+    array16 of its ops.  Returns memoryviews of one buffer."""
+    kind, member, actor, counter = cols
+    R = len(actors)
+    live = actor < R
+    k, m, a, c = kind[live], member[live], actor[live], counter[live]
+    n = len(k)
+    rec = np.empty((n, 29), np.uint8)
+    rec[:, 0] = 0x93
+    rec[:, 1] = k
+    rec[:, 2] = 0xCD
+    rec[:, 3:5] = m.astype(">u2").view(np.uint8).reshape(n, 2)
+    rec[:, 5] = np.where(k == 0, 0x92, 0x81)
+    rec[:, 6] = 0xC4
+    rec[:, 7] = 0x10
+    rec[:, 8:24] = np.frombuffer(b"".join(actors), np.uint8).reshape(R, 16)[a]
+    rec[:, 24] = 0xCE
+    rec[:, 25:29] = c.astype(">u4").view(np.uint8).reshape(n, 4)
+    parts, bounds = [], [0]
+    for lo in range(0, n, ops_per_file):
+        hi = min(lo + ops_per_file, n)
+        cnt = hi - lo
+        head = bytes([0x90 | cnt]) if cnt < 16 else bytes([0xDC, cnt >> 8, cnt & 0xFF])
+        parts.append(head)
+        parts.append(rec[lo:hi].tobytes())
+        bounds.append(bounds[-1] + len(head) + 29 * cnt)
+    view = memoryview(b"".join(parts))
+    return [view[bounds[i] : bounds[i + 1]] for i in range(len(bounds) - 1)]
+
+
+def planes_bytes(planes, E: int, actors: list) -> bytes:
+    """Canonical bytes of the OR-Set whose planes these are (members are
+    the ints 0..E-1, replicas the actor ids)."""
+    from crdt_enc_tpu_torch import canonical_bytes
+    from crdt_enc_tpu_torch.ops.columnar import Vocab, orset_planes_to_state
+
+    clock, add, rm = (x.cpu().numpy() for x in planes)
+    return canonical_bytes(orset_planes_to_state(
+        clock, add, rm, Vocab(range(E)), Vocab(actors)))
+
+
+def phase_stream(device) -> dict:
+    """STREAM_N config-3-width rows, 2.5 x ``STREAM_CHUNK_ROWS``, through
+    ``TorchAccelerator().fold_payloads`` and ``fold_ops``: each three fold
+    launches (the counts reset just before each route and read just
+    after), each state equal to one fold launch over all rows and to the
+    plain fold on the CPU.  Returns the launches, walls and peaks."""
+    import torch
+
+    from crdt_enc_tpu_torch import ORSet, TorchAccelerator, canonical_bytes
+    from crdt_enc_tpu_torch.ops import orset as P
+    from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
+
+    E, R, N = N_MEMBERS, N_REPLICAS, STREAM_N
+    actors = actor_ids(R)
+    t0 = time.perf_counter()
+    cols = gen_columns(N, R, E, STREAM_SEED)
+    payloads = op_file_payloads(cols, actors, STREAM_FILE_OPS)
+    live = int((cols[2] < R).sum())
+    print(f"  {N} rows ({live} live) as {len(payloads)} op-file payloads in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    accel = TorchAccelerator(device=device)
+    chunks = -(-live // accel.STREAM_CHUNK_ROWS)
+    out: dict = {"N": N, "live_rows": live, "chunk_rows": accel.STREAM_CHUNK_ROWS,
+                 "chunks": chunks}
+    states = {}
+
+    def route(name, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        F.launches["orset_fold"] = 0
+        t0 = time.perf_counter()
+        state = fn()
+        wall = time.perf_counter() - t0
+        n = F.launches["orset_fold"]
+        peak = torch.cuda.max_memory_allocated()
+        out[name] = dict(launches=n, wall_s=wall, peak_device_bytes=peak)
+        states[name] = canonical_bytes(state)
+        print(f"  {name}: {n} orset_fold launches for {chunks} chunks of "
+              f"{accel.STREAM_CHUNK_ROWS} rows; wall {wall:.2f}s; peak device "
+              f"memory {peak / 1e9:.3f} GB", flush=True)
+        if n != chunks:
+            raise AssertionError(f"{name}: {n} launches, not one per chunk")
+
+    def by_payloads():
+        state = ORSet()
+        if not accel.fold_payloads(state, payloads, actors_hint=actors):
+            raise AssertionError("fold_payloads declined past STREAM_CHUNK_ROWS")
+        return state
+
+    route("fold_payloads", by_payloads)
+    del payloads
+    t0 = time.perf_counter()
+    ops = ops_from_columns(*cols, actors)
+    print(f"  {len(ops)} op objects built in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    route("fold_ops", lambda: accel.fold_ops(ORSet(), ops))
+    del ops
+
+    F.launches["orset_fold"] = 0
+    dev = [torch.from_numpy(x).to(device) for x in cols]
+    z = [torch.zeros(R, dtype=torch.int32, device=device),
+         torch.zeros((E, R), dtype=torch.int32, device=device),
+         torch.zeros((E, R), dtype=torch.int32, device=device)]
+    one = F.orset_fold_cuda(*z, *dev, num_members=E, num_replicas=R)
+    one_bytes = planes_bytes(one, E, actors)
+    del one, dev, z
+    t0 = time.perf_counter()
+    cpu = [torch.from_numpy(x) for x in cols]
+    plain = P.orset_fold_plain(torch.zeros(R, dtype=torch.int32),
+                               torch.zeros((E, R), dtype=torch.int32),
+                               torch.zeros((E, R), dtype=torch.int32), *cpu,
+                               num_members=E, num_replicas=R)
+    plain_bytes = planes_bytes(plain, E, actors)
+    print(f"  one fold launch over all {N} rows: {F.launches['orset_fold']} "
+          f"launch; plain fold on the CPU in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    same = (states["fold_payloads"] == states["fold_ops"] == one_bytes
+            == plain_bytes)
+    print(f"  states equal (fold_payloads, fold_ops, one launch, plain on the "
+          f"CPU): {same} ({len(one_bytes)} bytes)", flush=True)
+    if not same:
+        raise AssertionError("the stream route disagrees with the whole fold")
+    out["state_bytes"] = len(one_bytes)
+    return out
+
+
+# ---- fold sessions (phase 12) -----------------------------------------------
+
+
+SESSION_MODES = {
+    "buffer": {"BUFFER_BYTES": 1 << 62},
+    "host_reduce": {"BUFFER_BYTES": 0},
+    "device_stream": {"BUFFER_BYTES": 0, "HOST_PLANE_CELLS": -1},
+}
+
+
+def phase_sessions(files, actors: list, device) -> dict:
+    """Phase 10's op files as in-memory payloads, fed SESSION_FEED_FILES at
+    a time through ``OrsetFoldSession`` in each mode (forced through the
+    module constants), each byte-equal to the host loop, the fold
+    launches of each mode read from its run alone; then
+    ``fold_encrypted_stream`` over the same payloads encrypted."""
+    import secrets
+
+    from crdt_enc_tpu_torch import (
+        HostAccelerator, ORSet, TorchAccelerator, canonical_bytes, orset_adapter,
+    )
+    from crdt_enc_tpu_torch.backends.xchacha import encrypt_blob
+    from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
+    from crdt_enc_tpu_torch.parallel import session as PS
+    from crdt_enc_tpu_torch.utils import codec, trace
+
+    t0 = time.perf_counter()
+    payloads = [codec.pack(ops) for *_, ops in files]
+    adapter = orset_adapter()
+    ops = [adapter.op_from_obj(o) for *_, wire in files for o in wire]
+    t1 = time.perf_counter()
+    host = canonical_bytes(HostAccelerator().fold_ops(ORSet(), ops))
+    host_s = time.perf_counter() - t1
+    del ops
+    print(f"  {len(payloads)} payloads packed in {t1 - t0:.1f}s; host loop "
+          f"{host_s:.2f}s ({len(host)} bytes)", flush=True)
+    accel = TorchAccelerator(device=device)
+    out: dict = {"host_loop_s": host_s}
+    for mode, patch in SESSION_MODES.items():
+        saved = {k: getattr(PS, k) for k in patch}
+        for k, v in patch.items():
+            setattr(PS, k, v)
+        try:
+            trace.reset()
+            F.launches["orset_fold"] = 0
+            t0 = time.perf_counter()
+            session = accel.open_fold_session(ORSet(), actors_hint=actors)
+            for lo in range(0, len(payloads), SESSION_FEED_FILES):
+                session.feed(payloads[lo : lo + SESSION_FEED_FILES])
+            got = canonical_bytes(session.finish())
+            wall = time.perf_counter() - t0
+            n = F.launches["orset_fold"]
+        finally:
+            for k, v in saved.items():
+                setattr(PS, k, v)
+        spans = {k: v["seconds"] for k, v in trace.snapshot()["spans"].items()
+                 if k.startswith(("session.", "fold.", "stream."))}
+        expected = session_launches(accel, session)
+        out[mode] = dict(wall_s=wall, launches=n, rows=session.rows_fed,
+                         device_chunks=session.device_chunks, spans=spans)
+        print(f"  {mode}: session mode {session.mode}, wall {wall:.3f}s, "
+              f"{n} orset_fold launches ({session.device_chunks} device "
+              f"chunks), bytes equal to the host loop: {got == host}",
+              flush=True)
+        for k, v in sorted(spans.items()):
+            print(f"    span {k}: {v * 1e3:.1f} ms", flush=True)
+        if session.mode != mode or got != host or n != expected:
+            raise AssertionError(f"session mode {mode}: mode {session.mode}, "
+                                 f"bytes equal {got == host}, launches {n} "
+                                 f"(expected {expected})")
+    key = secrets.token_bytes(32)
+    blobs = [encrypt_blob(key, p) for p in payloads]
+    trace.reset()
+    F.launches["orset_fold"] = 0
+    t0 = time.perf_counter()
+    state = ORSet()
+    if not accel.fold_encrypted_stream(state, key, blobs, actors_hint=actors):
+        raise AssertionError("fold_encrypted_stream declined")
+    wall = time.perf_counter() - t0
+    got = canonical_bytes(state)
+    snap = trace.snapshot()
+    out["fold_encrypted_stream"] = dict(
+        wall_s=wall, launches=F.launches["orset_fold"],
+        stream_producers=snap["gauges"].get("stream_producers"),
+        spans={k: v["seconds"] for k, v in snap["spans"].items()})
+    print(f"  fold_encrypted_stream over {len(blobs)} encrypted payloads: wall "
+          f"{wall:.3f}s, {snap['gauges'].get('stream_producers')} producers, "
+          f"bytes equal to the host loop: {got == host}", flush=True)
+    for k, v in sorted(snap["spans"].items()):
+        print(f"    span {k}: {v['seconds'] * 1e3:.1f} ms x{v['count']}",
+              flush=True)
+    if got != host:
+        raise AssertionError("fold_encrypted_stream disagrees with the host loop")
+    return out
 
 
 # name -> (source, file:line of the TPU kernel's pallas_call, the Pallas
@@ -1317,6 +1756,11 @@ def main() -> int:
     rate = memory_rate(name)
     times = phase_times(fold_inputs, stacks, skewed, E, R, rate)
     del fold_inputs, stacks, skewed
+    gc.collect()
+    torch.cuda.empty_cache()
+    k4_err, k4_shape = phase_k4_compaction_shape("cuda", rate)
+    errs["orset_merge_many"] = max(errs["orset_merge_many"], k4_err)
+    times["orset_merge_many"]["compaction_shape"] = k4_shape
 
     print(f"== 6. LWW kernel against plain (config 4: N={LWW_N}, K={LWW_K}, "
           f"R={LWW_R}, V={LWW_V}; heavy ties; saturated; {PAST_N} rows; "
@@ -1344,10 +1788,27 @@ def main() -> int:
     print(device_line(), flush=True)
     root = tempfile.mkdtemp(prefix="crdt-compaction-")
     print(f"  remote under {root} ({fs_type(root)})", flush=True)
+    files = compaction_files(cols, actor_ids(R))
     try:
-        compaction = phase_compaction(cols, E, R, "cuda", root)
+        compaction = phase_compaction(files, E, R, "cuda", root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    del cols, cols2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"== 11. the stream route past 2^22 rows (N={STREAM_N}, E={E}, "
+          f"R={R})", flush=True)
+    print(device_line(), flush=True)
+    stream = phase_stream("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"== 12. fold sessions ({len(files)} op files of phase 10, "
+          f"{SESSION_FEED_FILES} a feed)", flush=True)
+    print(device_line(), flush=True)
+    sessions = phase_sessions(files, actor_ids(R), "cuda")
+    del files
 
     kernels = []
     for kname, (source, replaces, pallas) in KERNELS.items():
@@ -1363,10 +1824,14 @@ def main() -> int:
             entry["match"] = entry["max_abs_err"] == 0
         if kname == "orset_fold":
             entry["k3"] = k3
+            entry["stream_launches"] = {
+                r: stream[r]["launches"] for r in ("fold_payloads", "fold_ops")}
+            entry["session_launches"] = sessions["device_stream"]["launches"]
         entry["compaction_launches"] = compaction["launches"][kname]
         kernels.append(entry)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"compaction": compaction}), flush=True)
+    print(json.dumps({"stream": stream, "sessions": sessions}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

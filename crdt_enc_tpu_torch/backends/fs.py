@@ -1,8 +1,7 @@
 """Filesystem storage backend — the production port over a synced directory.
 
 The port's copy of ``crdt_enc_tpu/backends/fs.py``, without the local
-checkpoint slot, the chunked reader of the pipelined ingest and the delta
-family.  The op-log scans run through the port's own native library
+checkpoint slot and the delta family.  The op-log scans run through the port's own native library
 (``native/io.cpp``); a failed build raises — there is no per-file Python
 scan standing in for it.
 
@@ -254,6 +253,15 @@ class FsStorage(Storage):
     # the loop continues where the previous round stopped.
     NATIVE_SCAN_BATCH = 65_536
     NATIVE_SCAN_BYTES = 256 << 20
+    # Chunk budget of the pipelined ingest (iter_op_chunks): small enough
+    # that a few chunks in flight bound host memory and the read, decrypt
+    # and fold stages overlap, large enough that the batched decrypt and
+    # decode amortize.
+    CHUNK_BYTES = 24 << 20
+    # how many actors scan concurrently ahead of the emitter; in-flight
+    # memory is bounded by ~window × 2 × CHUNK_BYTES (one queued and one
+    # in-progress round per actor)
+    CHUNK_SCAN_WINDOW = 4
 
     class _ScanRace(Exception):
         """A file in the round shrank/vanished/errored between the two
@@ -341,6 +349,28 @@ class FsStorage(Storage):
             out.append((actor, v, raw))
             v += 1
 
+    def _chunk_round(self, actor: Actor, v: int, max_bytes: int):
+        """One bounded round of the chunk iterator: the native round, or,
+        after a mid-round race, the same round re-read file by file.
+        Returns ``(files, next_v, done)``."""
+        lib = native.load()
+        d = self._ops_dir(actor).encode()
+        try:
+            return self._scan_round_native(lib, d, actor, v, max_bytes)
+        except self._ScanRace:
+            pass
+        files: list[tuple[Actor, int, bytes]] = []
+        size = 0
+        dd = self._ops_dir(actor)
+        while size < max_bytes:
+            raw = _read_file(os.path.join(dd, str(v)))
+            if raw is None:
+                return files, v, True
+            files.append((actor, v, raw))
+            size += len(raw)
+            v += 1
+        return files, v, False
+
     def _probe_actors(
         self, actor_first_versions: list[tuple[Actor, int]]
     ) -> list[tuple[Actor, int]]:
@@ -373,6 +403,71 @@ class FsStorage(Storage):
             *(self._run(self._scan, a, f) for a, f in actor_first_versions)
         )
         return [item for chunk in per_actor for item in chunk]
+
+    async def iter_op_chunks(
+        self,
+        actor_first_versions: list[tuple[Actor, int]],
+        max_bytes: int | None = None,
+    ):
+        """Bounded-memory op reading for the pipelined ingest: yields
+        ``(actor, version, raw)`` lists of about ``max_bytes``
+        (``CHUNK_BYTES`` by default), per-actor version order preserved
+        across chunks (a chunk may end mid-actor).
+
+        Actors scan concurrently (a window of ``CHUNK_SCAN_WINDOW``,
+        first in first out) while emission stays in actor order.  A
+        scanner's exception is delivered in its actor's position and
+        re-raised here, never left for the emitter to wait on."""
+        max_bytes = max_bytes if max_bytes is not None else self.CHUNK_BYTES
+        actor_first_versions = await self._run(
+            self._probe_actors, actor_first_versions
+        )
+        window = asyncio.Semaphore(self.CHUNK_SCAN_WINDOW)
+
+        async def scan_actor(actor: Actor, first: int, out_q: asyncio.Queue):
+            # the semaphore is held for the actor's whole scan; waiters
+            # are FIFO, so the window always covers the actor being
+            # emitted — no deadlock against the bounded queues
+            try:
+                async with window:
+                    v, done = first, False
+                    while not done:
+                        files, v, done = await self._run(
+                            self._chunk_round, actor, v, max_bytes
+                        )
+                        if files:
+                            await out_q.put(files)
+                    await out_q.put(None)
+            except Exception as e:
+                await out_q.put(e)
+
+        queues: list[asyncio.Queue] = []
+        tasks: list[asyncio.Task] = []
+        for actor, first in actor_first_versions:
+            out_q: asyncio.Queue = asyncio.Queue(maxsize=1)
+            queues.append(out_q)
+            tasks.append(asyncio.create_task(scan_actor(actor, first, out_q)))
+        chunk: list[tuple[Actor, int, bytes]] = []
+        size = 0
+        try:
+            for out_q in queues:
+                while True:
+                    files = await out_q.get()
+                    if files is None:
+                        break
+                    if isinstance(files, Exception):
+                        raise files
+                    for item in files:
+                        chunk.append(item)
+                        size += len(item[2])
+                        if size >= max_bytes:
+                            yield chunk
+                            chunk, size = [], 0
+            if chunk:
+                yield chunk
+        finally:
+            for t in tasks:
+                t.cancel()
 
     async def stat_ops(
         self, actor_first_versions: list[tuple[Actor, int]]

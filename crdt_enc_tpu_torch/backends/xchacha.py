@@ -9,8 +9,10 @@ inside a version-tagged envelope.  Crypto runs off the event loop in the
 default thread pool; the C calls hold no Python state.
 
 The bulk open joins the blobs in Python into one buffer and parses and
-decrypts them natively in two calls; the JAX package's C-API lengths pass
-and its pointer-array route for large blobs are not copied.
+decrypts them natively in two calls, into one packed cleartext buffer
+(``decrypt_blobs_packed``; ``decrypt_blobs`` slices it into views).  The
+JAX package's C-API lengths pass and its pointer-array route for large
+blobs are not copied.
 """
 
 from __future__ import annotations
@@ -81,20 +83,22 @@ def decrypt_blob(key: bytes, blob: bytes) -> bytes:
     return out.tobytes()
 
 
-def decrypt_blobs(key: bytes, blobs: list) -> list:
-    """Bulk open: parse every EncBox envelope and decrypt, all natively,
-    into one cleartext buffer.
-
-    Returns a list of **memoryviews**: zero-copy slices of that shared
-    buffer.  Treat them as transient — each view pins the whole buffer,
-    and they are unhashable — and ``bytes(view)`` anything you keep.
-    Raises AeadError when any envelope is malformed or fails to
+def decrypt_blobs_packed(key: bytes, blobs: list, n_threads: int = 0):
+    """Bulk open to ONE cleartext buffer: ``(buffer, offsets)``, with
+    ``offsets`` a ``(n + 1,)`` uint64 array (blob i's cleartext is
+    ``buffer[offsets[i]:offsets[i + 1]]``).  The columnar decoders take
+    the pair as it is, so nothing builds one Python object per blob
+    between decrypt and decode.  Every envelope is parsed and decrypted
+    natively on ``n_threads`` threads (0 = from the core count, at most
+    32).  Raises AeadError when any envelope is malformed or fails to
     authenticate (callers isolate the file per blob)."""
     _check_key(key)
     lib = native.load()
     n = len(blobs)
     if n == 0:
-        return []
+        return np.zeros(0, np.uint8), np.zeros(1, np.uint64)
+    if n_threads <= 0:
+        n_threads = min(32, os.cpu_count() or 1)
     big = b"".join(blobs)
     boffs = np.zeros(n + 1, np.uint64)
     np.cumsum(np.fromiter((len(b) for b in blobs), np.uint64, count=n),
@@ -124,16 +128,26 @@ def decrypt_blobs(key: bytes, blobs: list) -> list:
         ct_lens.ctypes.data_as(native.u64p),
         n, op,
         out_offs.ctypes.data_as(native.u64p),
-        ok.ctypes.data_as(native.u8p), min(32, os.cpu_count() or 1),
+        ok.ctypes.data_as(native.u8p), n_threads,
     )
     if failures:
         bad = int(np.flatnonzero(ok == 0)[0])
         raise AeadError(
             f"authentication failed on {failures}/{n} blobs (first: #{bad})"
         )
+    return out, out_offs
+
+
+def decrypt_blobs(key: bytes, blobs: list) -> list:
+    """Bulk open (:func:`decrypt_blobs_packed`) as a list of
+    **memoryviews**: zero-copy slices of the one cleartext buffer.  Treat
+    them as transient — each view pins the whole buffer, and they are
+    unhashable — and ``bytes(view)`` anything you keep.  Raises AeadError
+    when any envelope is malformed or fails to authenticate."""
+    out, out_offs = decrypt_blobs_packed(key, blobs)
     view = memoryview(out)
     lo_hi = out_offs.tolist()
-    return [view[lo_hi[i] : lo_hi[i + 1]] for i in range(n)]
+    return [view[lo_hi[i] : lo_hi[i + 1]] for i in range(len(blobs))]
 
 
 class XChaChaCryptor(Cryptor):

@@ -19,17 +19,26 @@ back to the same canonical bytes in the other:
   old files are removed, in compact and metadata rewrite;
 * **complete op GC**: compaction removes every op file the snapshot covers.
 
-Op files are read whole-batch: below ``BULK_MIN_FILES`` per file through
-the accelerator's ``fold_ops``; from there on the bulk path unwraps every
-outer envelope, opens each sealing key's files in one native batch and
-hands the payloads to ``fold_payloads`` (native decode, one device fold),
+Op files are read through the reference's route.  With an accelerator
+that opens fold sessions (``TorchAccelerator``), ``_read_remote_ops``
+first takes the pipelined ingest: ``storage.iter_op_chunks`` reads
+bounded chunks, a producer task unwraps and batch-decrypts each one, and
+this task validates, decodes and reduces it through a fold session
+(parallel/session.py) while the next chunk is read and decrypted; once
+``BULK_MIN_FILES`` files are pending the session starts, a declined chunk
+flips the rest to per-op folds in version order, and fewer files fold per
+op.  Without a session (the host loop, the LWW map) the whole batch
+loads: below ``BULK_MIN_FILES`` per file through ``fold_ops``; from there
+on the bulk path unwraps every outer envelope, opens each sealing key's
+files in one native batch and hands the payloads to ``fold_payloads``,
 decoding per op only where the accelerator declines.
 
 Not copied (each still to port): local fold checkpoints, delta-state
 replication, strong reads and the stable prefix, replication sampling and
-the metrics sink, the pipelined session ingest and the payload-stream
-branch of the bulk path, and the serving front end ``load_sealed_ops``.
-A reader of either package full-loads a snapshot that carries no delta
+the metrics sink, the payload-stream branch of the bulk path (no
+accelerator of the port reaches it: OR-Sets take the session), and the
+serving front end ``load_sealed_ops``.  A
+reader of either package full-loads a snapshot that carries no delta
 chain, so dropping the delta seal changes nothing on the wire.
 """
 
@@ -678,6 +687,10 @@ class Core:
         ]
         if not wanted:
             return
+        if await self._read_remote_ops_pipelined(wanted, actors):
+            return
+        # whole-batch flow: no fold session for this state type (the
+        # pipelined route declines before it reads anything)
         with trace.span("ops.load"):
             files = await self.storage.load_ops(wanted)
         trace.add("op_files_loaded", len(files))
@@ -738,16 +751,21 @@ class Core:
                 self.accel.fold_ops(self._data.state, batch)
             trace.add("ops_folded", len(batch))
 
-    def _validate_chunk(self, files: list, clears: list, blocked: set):
-        """Sync section: ordered version bookkeeping WITHOUT advancing the
-        cursors (the caller advances only after the fold lands).
-        ``blocked`` carries quarantine cuts: an actor whose run hit a
-        damaged file folds nothing past the hole.  Returns ``(payloads,
-        metas)``; skew tolerance and gap errors as lib.rs:519-531."""
+    def _validate_chunk(self, files: list, clears: list, overlay=None,
+                        blocked: set | None = None):
+        """Sync section: ordered version bookkeeping for one chunk WITHOUT
+        advancing the cursors (the caller advances only after the chunk's
+        fold is accepted — a declined or failed chunk stays re-readable).
+        ``overlay`` carries validated-but-not-yet-advanced versions across
+        chunks in flight; ``blocked`` carries quarantine cuts (an actor
+        whose run hit a damaged file folds nothing past the hole, and its
+        cursor holds there).  Returns ``(payloads, metas)``; skew
+        tolerance and gap errors as lib.rs:519-531."""
         payloads, metas = [], []
-        local: dict[Actor, int] = {}
+        local: dict[Actor, int] = overlay if overlay is not None else {}
+        cut: set = blocked if blocked is not None else set()
         for (actor, version, _), clear in zip(files, clears):
-            if actor in blocked:
+            if actor in cut:
                 continue
             expected = (
                 max(self._data.next_op_versions.get(actor), local.get(actor, 0))
@@ -756,7 +774,7 @@ class Core:
             if version < expected:
                 continue  # concurrent-read tolerance (lib.rs:521-525)
             if clear is _QUARANTINED:
-                blocked.add(actor)  # already counted at the decrypt site
+                cut.add(actor)  # already counted at the decrypt site
                 continue
             if version > expected:
                 raise OpOrderError(
@@ -771,7 +789,7 @@ class Core:
                 # decrypted fine but the cleartext framing is damaged (or
                 # a data version this build cannot read): quarantine
                 self._note_quarantine("op", f"{actor.hex()}:v{version}", e)
-                blocked.add(actor)
+                cut.add(actor)
                 continue
             payloads.append(inner.content)
             metas.append((actor, version))
@@ -781,6 +799,248 @@ class Core:
     def _advance_cursors(self, metas: list) -> None:
         for actor, version in metas:
             self._data.next_op_versions.apply(Dot(actor, version))
+
+    async def _fold_chunk_python(self, files: list, clears: list,
+                                 blocked: set | None = None) -> None:
+        """Per-op fold of one decrypted chunk (a state type without a
+        session, or a session decline), bounded by the chunk size."""
+        payloads, metas = self._validate_chunk(files, clears, blocked=blocked)
+        if not payloads:
+            return
+        batch = []
+        for p in payloads:
+            batch.extend(self.adapter.op_from_obj(o) for o in codec.unpack(p))
+        if batch:
+            with trace.span("ops.fold"):
+                self.accel.fold_ops(self._data.state, batch)
+            trace.add("ops_folded", len(batch))
+        self._advance_cursors(metas)
+
+    async def _read_remote_ops_pipelined(self, wanted, actors) -> bool:
+        """Bounded-memory overlapped ingest: a producer task streams chunks
+        (``storage.iter_op_chunks`` → outer unwrap → batched native
+        decrypt) through a small queue while this task validates, decodes
+        and reduces them through a fold session — the read of chunk i+1
+        overlaps the decrypt of chunk i and the fold of chunk i-1, and
+        host memory is bounded by chunk size × queue depth (restructures
+        the reference's lib.rs:471-547).
+
+        Returns True when the stream was consumed; False hands the whole
+        read to the whole-batch flow (no session for this state type)."""
+        open_session = getattr(self.accel, "open_fold_session", None)
+        if open_session is None:
+            return False
+        # cheap type gate BEFORE any pipeline machinery: a session-less
+        # state type must not pay the producer's storage scan
+        can_open = getattr(self.accel, "can_open_fold_session", None)
+        if can_open is not None and not can_open(self._data.state):
+            return False
+
+        q: asyncio.Queue = asyncio.Queue(maxsize=2)
+
+        async def produce():
+            ci = 0  # chunk index: span meta
+            cut: set = set()  # actors ended by an unwrap quarantine
+            chunks = self.storage.iter_op_chunks(wanted).__aiter__()
+            try:
+                while True:
+                    # the storage read of this chunk (the whole-batch
+                    # flow's ``ops.load``)
+                    with trace.span("ops.chunk_read", meta=ci):
+                        try:
+                            files = await chunks.__anext__()
+                        except StopAsyncIteration:
+                            break
+                    trace.add("op_files_loaded", len(files))
+                    with trace.span("ops.chunk_unwrap", meta=ci):
+                        kept, key_ids, middles = [], [], []
+                        for f in files:
+                            actor, version, raw = f
+                            if actor in cut:
+                                continue
+                            try:
+                                outer = VersionBytes.deserialize(
+                                    raw
+                                ).ensure_versions(SUPPORTED_CONTAINER_VERSIONS)
+                                kid, middle = codec.unpack(outer.content)
+                            except Exception as e:
+                                # torn outer envelope: quarantine the file
+                                # and end this actor's dense run (the
+                                # cursor holds at the hole)
+                                self._note_quarantine(
+                                    "op", f"{actor.hex()}:v{version}", e
+                                )
+                                cut.add(actor)
+                                continue
+                            kept.append(f)
+                            key_ids.append(bytes(kid))
+                            middles.append(bytes(middle))
+                    files = kept
+                    groups: dict[bytes, list[int]] = {}
+                    for i, kid in enumerate(key_ids):
+                        groups.setdefault(kid, []).append(i)
+                    clears: list = [None] * len(files)
+                    with trace.span("ops.chunk_decrypt", meta=ci):
+                        for kid, idxs in groups.items():
+                            key = self._data.keys.get_key(kid)
+                            if key is None:
+                                raise MissingKeyError(
+                                    "ops sealed with unknown key "
+                                    f"{uuid.UUID(bytes=kid)}; key metadata "
+                                    "may not have synced yet"
+                                )
+                            outs = await self._decrypt_tolerant(
+                                key,
+                                [files[i] for i in idxs],
+                                [middles[i] for i in idxs],
+                            )
+                            for i, clear in zip(idxs, outs):
+                                clears[i] = clear
+                    trace.add("bytes_decrypted", sum(len(m) for m in middles))
+                    if files:
+                        await q.put(("chunk", files, clears))
+                        ci += 1
+                await q.put(("end",))
+            except Exception as e:
+                await q.put(("error", e))
+
+        from ..ops.stream import stream_producer_count
+        from ..parallel.session import SessionDeclined
+
+        producer = asyncio.create_task(produce())
+        # one tick steps the producer into its first storage scan (a
+        # worker thread), so the session's state walk below runs
+        # concurrently with it
+        await asyncio.sleep(0)
+        try:
+            session = open_session(self._data.state, actors_hint=actors)
+        except BaseException:
+            producer.cancel()
+            raise
+        if session is None:
+            producer.cancel()
+            try:
+                await producer
+            except (asyncio.CancelledError, Exception):
+                pass
+            return False
+        session_done = False
+        python_mode = False
+        pending: list[tuple[list, list]] = []  # buffered below BULK_MIN_FILES
+        pending_files = 0
+        session_started = False
+        fed_files = 0
+        overlay: dict[Actor, int] = {}  # validated-but-unadvanced versions
+        blocked: set[Actor] = set()  # actors cut at a quarantined file
+        # decodes run in worker threads (the native calls release the
+        # interpreter lock); reduces drain strictly first in, first out,
+        # so per-actor cursors advance in version order even under a
+        # mid-stream failure.  The in-flight width follows the
+        # core count (the ingest fan-out), at least 2 (one decode of
+        # lookahead).
+        inflight: list[tuple] = []  # (decode_task, metas, files, clears)
+        n_producers = stream_producer_count()
+        max_decodes = max(2, n_producers)
+        trace.gauge("stream_producers", n_producers)
+
+        async def finish_session():
+            # the state mutates ONLY here, and before any per-op fold (the
+            # session's plane capture would clobber a direct fold).
+            # Synchronous on purpose: in a worker thread an update()
+            # landing between finish's read and its writeback would be
+            # lost; one event-loop stall buys atomicity
+            nonlocal session_done
+            if not session_done:
+                session_done = True
+                with trace.span("ops.session_finish"):
+                    session.finish()
+
+        async def drain_one() -> None:
+            """Complete the oldest in-flight chunk: await its decode,
+            reduce it, advance its cursors.  A decline flips to per-op
+            folds for it and everything after it."""
+            nonlocal python_mode, fed_files
+            task, metas, files, clears = inflight.pop(0)
+            try:
+                decoded = await task
+                if python_mode:
+                    raise SessionDeclined("session already degraded")
+                with trace.span("ops.chunk_fold"):
+                    await asyncio.to_thread(session.reduce_chunk, decoded)
+            except SessionDeclined:
+                if not python_mode:
+                    await finish_session()
+                    python_mode = True
+                await self._fold_chunk_python(files, clears, blocked)
+                # later chunks in flight were validated ahead of this one:
+                # fold them NOW, in order, or a newer chunk would fold
+                # first and trip the version-gap check
+                while inflight:
+                    t2, _m2, f2, c2 = inflight.pop(0)
+                    t2.cancel()
+                    try:
+                        await t2
+                    except (asyncio.CancelledError, Exception):
+                        pass
+                    await self._fold_chunk_python(f2, c2, blocked)
+                return
+            self._advance_cursors(metas)
+            fed_files += len(files)
+
+        async def dispatch(files, clears) -> None:
+            if python_mode:
+                await self._fold_chunk_python(files, clears, blocked)
+                return
+            payloads, metas = self._validate_chunk(
+                files, clears, overlay, blocked
+            )
+            if not payloads:
+                return
+            task = asyncio.create_task(
+                asyncio.to_thread(session.decode_chunk, payloads)
+            )
+            inflight.append((task, metas, files, clears))
+            if len(inflight) >= max_decodes:
+                await drain_one()
+
+        try:
+            while True:
+                item = await q.get()
+                tag = item[0]
+                if tag == "end":
+                    break
+                if tag == "error":
+                    raise item[1]
+                _, files, clears = item
+                if not session_started and not python_mode:
+                    pending.append((files, clears))
+                    pending_files += len(files)
+                    if pending_files < BULK_MIN_FILES:
+                        continue
+                    session_started = True
+                    backlog, pending = pending, []
+                    for f, c in backlog:
+                        await dispatch(f, c)
+                    continue
+                await dispatch(files, clears)
+            # stream consumed; a never-started tiny ingest folds per op,
+            # the shape of the whole-batch small path
+            while inflight:
+                await drain_one()
+            await finish_session()
+            for files, clears in pending:
+                await self._fold_chunk_python(files, clears, blocked)
+            pending = []
+            return True
+        finally:
+            producer.cancel()
+            for task, *_ in inflight:
+                task.cancel()
+            # fold whatever was fed: chunks whose cursors advanced must
+            # land in the state even on an exceptional exit
+            await finish_session()
+            if fed_files:
+                trace.add("op_files_bulk_folded", fed_files)
 
     async def _read_remote_ops_bulk(self, files: list, actors) -> None:
         """Bulk ingestion: unwrap all outer envelopes, one batched decrypt
@@ -798,7 +1058,7 @@ class Core:
                 )
                 for i, clear in zip(idxs, outs):
                     clears[i] = clear
-            payloads, metas = self._validate_chunk(files, clears, set())
+            payloads, metas = self._validate_chunk(files, clears)
         trace.add(
             "bytes_decrypted",
             sum(len(m) for _, _, mids in groups for m in mids),
@@ -812,8 +1072,8 @@ class Core:
                 self._advance_cursors(metas)
                 trace.add("op_files_bulk_folded", len(payloads))
                 return
-            # accelerator declined (non-columnar CRDT, vocab collision,
-            # sparse regime): decode per op, still fold as one batch
+            # the accelerator declined (non-columnar state, vocabulary
+            # collision, sparse regime): decode per op, fold as one batch
             batch = []
             for p in payloads:
                 batch.extend(

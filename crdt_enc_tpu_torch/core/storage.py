@@ -1,8 +1,8 @@
 """Storage port: abstract persistence over four object families.
 
 The port's copy of ``crdt_enc_tpu/core/storage.py`` without the local
-fold-checkpoint slot, the chunked op reader of the pipelined ingest and
-the delta-snapshot family (the port's ``Core`` uses none of them).
+fold-checkpoint slot and the delta-snapshot family (the port's ``Core``
+uses neither).
 
 Mirrors the reference Storage trait (crdt-enc/src/storage.rs:8-43): local
 meta (one mutable blob), remote metas / states (immutable content-addressed
@@ -74,6 +74,24 @@ class Storage(ABC):
         """For each (actor, first), every stored op file with
         version ≥ first, in version order per actor (scan until the first
         missing version, tolerating none at all)."""
+
+    async def iter_op_chunks(
+        self,
+        actor_first_versions: list[tuple[Actor, int]],
+        max_bytes: int = 64 << 20,
+    ):
+        """Async-iterate op files in bounded chunks — the feed of the
+        core's pipelined ingest (the read of chunk i+1 overlaps the
+        decrypt and fold of chunk i).
+
+        Yields lists of ``(actor, version, raw)``; concatenated, the lists
+        equal ``load_ops`` of the same request (per-actor version order
+        holds ACROSS chunks; a chunk may end mid-actor).  This base version
+        yields one ``load_ops`` chunk; backends with real IO (fs) override
+        it with incremental scans."""
+        chunk = await self.load_ops(actor_first_versions)
+        if chunk:
+            yield chunk
 
     async def stat_ops(
         self, actor_first_versions: list[tuple[Actor, int]]

@@ -121,6 +121,27 @@ def orset_ops_to_columns(
     )
 
 
+def orset_rows_to_ops(kind, member, actor, counter, members: Vocab,
+                      replicas: Vocab) -> list:
+    """Op objects for flat row columns, in row order: an add per add row,
+    a single-actor remove per remove row; sentinel rows (``actor >=
+    len(replicas)``) drop.  The host apply treats a remove's context actor
+    by actor, so folding these equals folding the ops the rows came
+    from."""
+    R = len(replicas)
+    mitems, ritems = members.items, replicas.items
+    ops = []
+    for k, m, a, c in zip(np.asarray(kind).tolist(), np.asarray(member).tolist(),
+                          np.asarray(actor).tolist(), np.asarray(counter).tolist()):
+        if a >= R:
+            continue
+        if k == KIND_ADD:
+            ops.append(AddOp(mitems[m], Dot(ritems[a], c)))
+        else:
+            ops.append(RmOp(mitems[m], VClock({ritems[a]: c})))
+    return ops
+
+
 def orset_scan_vocab(state: ORSet, members: Vocab, replicas: Vocab) -> None:
     """Grow the vocabularies with everything the state mentions, without
     building planes — the cheap first pass when densifying many states to

@@ -61,14 +61,19 @@ def decode_orset_payload_batch(payloads: list, actors_sorted: list):
     int arrays over all payloads' rows plus the interned member-object
     list (first-appearance order) — or None to request the per-op path.
     """
-    if not payloads:
-        z32 = np.zeros(0, np.int32)
-        return np.zeros(0, np.int8), z32, z32, z32, []
-    lib = native.load()
-    buf, bases, lens = _payload_spans(payloads)
+    part = decode_orset_payload_spans(payloads, actors_sorted)
+    if part is None:
+        return None
+    return combine_orset_spans([part])
+
+
+def _actor_index(lib, actors_sorted: list, cache):
+    """The flattened actor table and its native hash index (one probe per
+    op instead of a 17-deep binary search at 100k actors), from
+    ``cache`` when the caller keeps one for this table."""
+    if cache is not None and "actors" in cache:
+        return cache["actors"]
     actors_flat = b"".join(actors_sorted)
-    # hash index over the actor table: one probe per op instead of a
-    # 17-deep binary search at 100k actors
     n_slots = 8
     while n_slots < 2 * max(len(actors_sorted), 1):
         n_slots *= 2
@@ -76,14 +81,54 @@ def decode_orset_payload_batch(payloads: list, actors_sorted: list):
     ap, _a = native.in_ptr(actors_flat)
     lib.actor_hash_build(ap, len(actors_sorted),
                          slots.ctypes.data_as(native.i32p), n_slots)
+    if cache is not None:
+        # entries never change: concurrent decodes may share them, and a
+        # racing double build writes the same value twice
+        cache["actors"] = (actors_flat, slots)
+    return actors_flat, slots
+
+
+def decode_orset_payload_spans(payloads, actors_sorted: list, cache=None):
+    """Native single-pass decode of one payload chunk to raw span columns.
+
+    ``payloads`` is a list of payload bytes (or views), or a packed
+    ``(buffer, offsets)`` pair straight from ``decrypt_blobs_packed``
+    (``offsets`` holds n + 1 bounds), which skips building per-blob Python
+    objects.  ``cache`` (a dict the caller owns for the life of one actor
+    table, e.g. a payload stream or a fold session) keeps the flattened
+    table and its hash index across chunks.
+
+    Returns ``(buf, kind, moff, mlen, actor, counter)`` — member values
+    stay (offset, length) spans into ``buf``, so chunks decoded at
+    different times combine and intern once (:func:`combine_orset_spans`)
+    — or None to request the per-op path."""
+    lib = native.load()
+    if isinstance(payloads, tuple):
+        big, offs = payloads
+        n_payloads = len(offs) - 1
+    else:
+        n_payloads = len(payloads)
+    if n_payloads == 0:
+        return (np.zeros(0, np.uint8), np.zeros(0, np.int8),
+                np.zeros(0, np.uint64), np.zeros(0, np.uint64),
+                np.zeros(0, np.int32), np.zeros(0, np.int32))
+    if isinstance(payloads, tuple):
+        offs = np.asarray(offs, np.uint64)
+        bases = offs[:-1].copy()
+        lens = np.diff(offs).astype(np.uint64)
+        buf = np.frombuffer(big, np.uint8)
+    else:
+        buf, bases, lens = _payload_spans(payloads)
+    actors_flat, slots = _actor_index(lib, actors_sorted, cache)
+    ap, _a = native.in_ptr(actors_flat)
 
     # single-pass growable decode: validates framing and emits rows in
     # one msgpack walk; the handle is freed by take (or drop)
     n_rows = np.zeros(1, np.int64)
     handle = lib.orset_decode_batch_grow(
         buf.ctypes.data_as(native.u8p), bases.ctypes.data_as(native.u64p),
-        lens.ctypes.data_as(native.u64p), len(payloads),
-        ap, len(actors_sorted), slots.ctypes.data_as(native.i32p), n_slots,
+        lens.ctypes.data_as(native.u64p), n_payloads,
+        ap, len(actors_sorted), slots.ctypes.data_as(native.i32p), len(slots),
         n_rows.ctypes.data_as(native.i64p),
     )
     if not handle:
@@ -108,18 +153,48 @@ def decode_orset_payload_batch(payloads: list, actors_sorted: list):
     finally:
         if not taken:  # e.g. MemoryError sizing the output arrays
             lib.orset_decode_drop(handle)
-    member_idx, members = intern_spans(buf, moff, mlen)
-    return kind, member_idx, actor, counter, members
+    return buf, kind, moff, mlen, actor, counter
 
 
-def intern_spans(buf: np.ndarray, off: np.ndarray, length: np.ndarray):
+def combine_orset_spans(parts: list, *, with_bytes: bool = False):
+    """Concatenate span chunks from :func:`decode_orset_payload_spans` and
+    intern the member spans once.  Returns the tuple of
+    :func:`decode_orset_payload_batch`; with ``with_bytes`` a sixth
+    element carries each unique member's wire bytes (the interning key),
+    so a session can recognize a member it has seen with one bytes-dict
+    hit."""
+    z32 = np.zeros(0, np.int32)
+    empty = (np.zeros(0, np.int8), z32, z32, z32, [])
+    if not parts:
+        return (*empty, []) if with_bytes else empty
+    if len(parts) == 1:
+        buf, kind, moff, mlen, actor, counter = parts[0]
+    else:
+        base = np.zeros(len(parts), np.uint64)
+        np.cumsum([len(p[0]) for p in parts[:-1]], out=base[1:])
+        buf = np.concatenate([p[0] for p in parts])
+        kind = np.concatenate([p[1] for p in parts])
+        moff = np.concatenate([p[2] + b for p, b in zip(parts, base)])
+        mlen = np.concatenate([p[3] for p in parts])
+        actor = np.concatenate([p[4] for p in parts])
+        counter = np.concatenate([p[5] for p in parts])
+    if len(kind) == 0:
+        return (*empty, []) if with_bytes else empty
+    interned = intern_spans(buf, moff, mlen, return_bytes=with_bytes)
+    return (kind, interned[0], actor, counter, *interned[1:])
+
+
+def intern_spans(buf: np.ndarray, off: np.ndarray, length: np.ndarray,
+                 *, return_bytes: bool = False):
     """Span interning: rows → dense member indices (first-appearance
     order) + the decoded unique member objects.  One native
     open-addressing hash pass; the unique spans — a few thousand at
-    most — decode through ``codec.unpack``."""
+    most — decode through ``codec.unpack``.  ``return_bytes`` adds the
+    unique spans' wire bytes as a third element."""
     n = len(off)
     if n == 0:
-        return np.zeros(0, np.int32), []
+        return (np.zeros(0, np.int32), [], []) if return_bytes else (
+            np.zeros(0, np.int32), [])
     if (np.asarray(length) == 0).any():
         raise ValueError("empty member span")
     lib = native.load()
@@ -141,10 +216,11 @@ def intern_spans(buf: np.ndarray, off: np.ndarray, length: np.ndarray):
     if got < 0:  # cannot happen: table and unique capacity cover n rows
         raise RuntimeError("intern_spans_native ran out of capacity")
     mv = memoryview(np.ascontiguousarray(buf))
-    members = [
-        codec.unpack(mv[o : o + ln])
-        for o, ln in zip(uniq_off[:got].tolist(), uniq_len[:got].tolist())
-    ]
+    spans = [mv[o : o + ln] for o, ln in
+             zip(uniq_off[:got].tolist(), uniq_len[:got].tolist())]
+    members = [codec.unpack(sp) for sp in spans]
+    if return_bytes:
+        return idx, members, [bytes(sp) for sp in spans]
     return idx, members
 
 

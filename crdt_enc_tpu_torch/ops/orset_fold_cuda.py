@@ -164,26 +164,47 @@ def orset_scatter(kind, member, actor, counter, *, num_members: int,
 
 def orset_fold_cuda(clock0, add0, rm0, kind, member, actor, counter, *,
                     num_members: int, num_replicas: int,
-                    retire_rm: bool = True):
+                    retire_rm: bool = True, out=None):
     """``orset_fold`` through the bucketed kernels: the bin pass finishes
     the clock (seeded with ``clock0``), the range kernel applies the rows
     and the normalize tail and writes ``add`` and ``rm`` once.  Same
-    contract and output as the plain fold; returns ``(clock, add, rm)``."""
+    contract and output as the plain fold; returns ``(clock, add, rm)``.
+
+    ``out`` (optional) is a ``(clock, add, rm)`` triple of the output
+    shapes, on the same device, that none of the inputs shares memory
+    with; the fold writes into it and returns it instead of allocating.
+    The blockwise stream ping-pongs two plane triples this way, so its
+    plane memory does not grow with the chunk count."""
     E, R = num_members, num_replicas
     args = (clock0, add0, rm0, kind, member, actor, counter)
     kw = dict(num_members=E, num_replicas=R, retire_rm=retire_rm)
     dev = common_device(*args)
     if dev.type != "cuda":
-        return orset_fold_plain(*args, **kw)
+        res = orset_fold_plain(*args, **kw)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return tuple(out)
     _check_rows(kind, member, actor, counter)
     expect(clock0, "clock0", torch.int32, (R,))
     expect(add0, "add0", torch.int32, (E, R))
     expect(rm0, "rm0", torch.int32, (E, R))
-    add = torch.empty((E, R), dtype=torch.int32, device=dev)
-    rm = torch.empty((E, R), dtype=torch.int32, device=dev)
+    if out is None:
+        clock = torch.empty(R, dtype=torch.int32, device=dev)
+        add = torch.empty((E, R), dtype=torch.int32, device=dev)
+        rm = torch.empty((E, R), dtype=torch.int32, device=dev)
+    else:
+        clock, add, rm = out
+        expect(clock, "out clock", torch.int32, (R,))
+        expect(add, "out add", torch.int32, (E, R))
+        expect(rm, "out rm", torch.int32, (E, R))
+        ins = {t.data_ptr() for t in args if t.numel()}
+        if any(t.numel() and t.data_ptr() in ins for t in out):
+            raise ValueError("orset_fold_cuda: out shares memory with an input")
     if not (E and R):  # no row is valid: the clock stays clock0
-        return clock0.clone(), add, rm
-    clock = torch.empty(R, dtype=torch.int32, device=dev)
+        clock.copy_(clock0)
+        return clock, add, rm
     _launch("orset_fold", (kind, member, actor, counter), E, R,
             clock0=clock0, clock=clock, add0=add0, rm0=rm0,
             retire_rm=retire_rm, add=add, rm=rm)

@@ -9,12 +9,14 @@ merge; the conversion cost is amortized over whole op batches, which is
 exactly the compaction shape.  ``fold_ops`` sends ORSet, PNCounter,
 GCounter and LWWMap batches to the device, as the JAX accelerator does;
 small batches and every other type take the host loop.  ``fold_payloads``
-is the core's bulk route: decrypted OR-Set and counter op-file payloads
-decode natively into columns and fold on the device without per-op
-Python objects.  ``merge_states`` merges three or more ORSets on the
-device.  The fold sessions and payload streams of the JAX accelerator
-(``open_fold_session``, ``open_payload_stream``) are not ported, so the
-core takes its whole-batch bulk path.
+is the core's whole-batch bulk route: decrypted OR-Set and counter
+op-file payloads decode natively into columns and fold on the device
+without per-op Python objects.  OR-Set batches past ``STREAM_CHUNK_ROWS``
+rows fold blockwise (ops/stream.py), whichever entry point they come
+through.  ``merge_states`` merges three or more ORSets on the device.
+``open_fold_session`` (parallel/session.py) feeds the core's pipelined
+ingest chunk by chunk; ``fold_encrypted_stream`` runs decrypt, decode and
+fold as one overlapped pipeline.
 
 Eager PyTorch compiles nothing per shape, so the JAX package's bucket
 padding of rows and vocabularies (a bound on XLA recompiles) has no
@@ -42,6 +44,7 @@ from ..ops.columnar import (
     lww_ops_to_columns,
     orset_ops_to_columns,
     orset_planes_to_state,
+    orset_rows_to_ops,
     orset_scan_vocab,
     orset_state_to_planes,
     vclock_to_dense,
@@ -53,9 +56,11 @@ from ..ops.native_decode import (
     decode_orset_payload_batch,
 )
 from ..ops.orset import orset_fold, orset_merge_many
+from ..ops.stream import ChunkPool, iter_orset_chunks, orset_fold_stream
 from ..utils import trace
 
 MIN_DEVICE_BATCH = 256  # below this the host loop wins
+ENCRYPTED_STREAM_CHUNKS = 8  # fold_encrypted_stream's pipeline chunks
 
 
 class TorchAccelerator(HostAccelerator):
@@ -73,8 +78,8 @@ class TorchAccelerator(HostAccelerator):
     # sweep dominate the fold; below SPARSE_MIN_CELLS they are cheap.
     SPARSE_CELLS_PER_ROW = 64
     SPARSE_MIN_CELLS = 1 << 22
-    # Dense batches beyond this many rows fold blockwise in the JAX
-    # package (ops/stream.py); that route is not ported yet.
+    # Dense batches beyond this many rows fold blockwise, one chunk of
+    # this many rows per launch (ops/stream.py), as in the JAX package
     STREAM_CHUNK_ROWS = 1 << 22
 
     def __init__(self, device=None, min_device_batch: int = MIN_DEVICE_BATCH):
@@ -133,28 +138,40 @@ class TorchAccelerator(HostAccelerator):
             # JAX package runs this regime on the host too (its
             # vectorized orset_fold_sparse_host, not yet copied here).
             return super().fold_ops(state, ops)
-        if n_rows > self.STREAM_CHUNK_ROWS:
-            raise NotImplementedError(
-                f"a batch of {n_rows} rows exceeds STREAM_CHUNK_ROWS="
-                f"{self.STREAM_CHUNK_ROWS}; the blockwise stream fold comes "
-                "in a later slice of the port"
-            )
         return self._fold_orset_columns(state, cols, members, replicas)
 
     def _fold_orset_columns(self, state: ORSet, cols, members: Vocab,
                             replicas: Vocab) -> ORSet:
         """The dense route: state → planes, upload, fold, download,
         planes → state.  The vocabularies already hold every member and
-        actor of the state and the batch."""
+        actor of the state and the batch.  Past ``STREAM_CHUNK_ROWS``
+        rows the fold runs blockwise: fixed-shape chunks staged in a
+        depth-2 pool, each chunk one fold launch into planes that stay on
+        the device (the JAX package's branch, accel.py:396-428)."""
         E, R = len(members), len(replicas)
         with trace.span("fold.planes"):
             planes = orset_state_to_planes(state, members, replicas, scanned=True)
         with trace.span("fold.device"):
-            dev = self._upload(
-                (*planes, cols.kind, cols.member, cols.actor, cols.counter)
-            )
-            out = orset_fold(*dev, num_members=E, num_replicas=R)
+            if len(cols.kind) > self.STREAM_CHUNK_ROWS:
+                rows = self.STREAM_CHUNK_ROWS
+                pool = ChunkPool(rows, depth=2,
+                                 pin=self.device.type == "cuda")
+                out = orset_fold_stream(
+                    *planes,
+                    iter_orset_chunks(cols.kind, cols.member, cols.actor,
+                                      cols.counter, rows, R, pool=pool),
+                    num_members=E, num_replicas=R, device=self.device,
+                    pool=pool,
+                )
+                del planes
+            else:
+                dev = self._upload(
+                    (*planes, cols.kind, cols.member, cols.actor, cols.counter)
+                )
+                del planes
+                out = orset_fold(*dev, num_members=E, num_replicas=R)
             clock, add, rm = (x.cpu().numpy() for x in out)
+            del out
         with trace.span("fold.writeback"):
             folded = orset_planes_to_state(clock, add, rm, members, replicas)
         state.clock = folded.clock
@@ -167,13 +184,14 @@ class TorchAccelerator(HostAccelerator):
     def fold_payloads(self, state, payloads: list, actors_hint=()) -> bool:
         """Bulk front end: decrypted op-file payloads → native columnar
         decode → one device fold, with no per-op Python objects.  Handles
-        the OR-Set and the two counters.  Returns False — with ``state``
-        untouched — where the caller must decode per op and call
+        the OR-Set and the two counters; OR-Set batches past
+        ``STREAM_CHUNK_ROWS`` rows fold blockwise.  Returns False — with
+        ``state`` untouched — where the caller must decode per op and call
         ``fold_ops`` instead: any other state type, a payload the native
         decoder declines (unknown actor, counter past int32), a member
         vocabulary that collapses as Python values, and OR-Set batches in
-        the sparse regime or past ``STREAM_CHUNK_ROWS`` (their routes are
-        not ported; ``fold_ops`` covers both)."""
+        the sparse regime (its vectorized host fold is not ported;
+        ``fold_ops`` takes the host loop there)."""
         if isinstance(state, (GCounter, PNCounter)):
             return self._fold_counter_payloads(state, payloads, actors_hint)
         if not isinstance(state, ORSet):
@@ -220,12 +238,144 @@ class TorchAccelerator(HostAccelerator):
         replicas = Vocab(actors_sorted)
         with trace.span("fold.vocab"):
             orset_scan_vocab(state, members, replicas)
-        n_rows = len(kind)
-        if (self._use_sparse(len(members), len(replicas), n_rows)
-                or n_rows > self.STREAM_CHUNK_ROWS):
+        if self._use_sparse(len(members), len(replicas), len(kind)):
             return False
         cols = OrsetColumns(kind, member_idx, actor_idx, counter, members, replicas)
         self._fold_orset_columns(state, cols, members, replicas)
+        return True
+
+    def _fold_orset_rows(self, state: ORSet, kind, member, actor, counter,
+                         members: Vocab, replicas: Vocab) -> ORSet:
+        """The JAX ``_fold_orset_columns`` contract over row columns whose
+        member and actor indices point into ``members`` and ``replicas``
+        (a fold session's buffered rows): the state's vocabulary scanned
+        in, then the dense or blockwise fold, or — in the sparse regime —
+        the host loop over the rows as op objects (one single-actor
+        remove per remove row, which the host apply treats actor by
+        actor, so the state is the same)."""
+        orset_scan_vocab(state, members, replicas)
+        E, R = len(members), len(replicas)
+        if E == 0 or R == 0:
+            return state
+        if self._use_sparse(E, R, len(kind)):
+            ops = orset_rows_to_ops(kind, member, actor, counter, members,
+                                    replicas)
+            return super().fold_ops(state, ops)
+        cols = OrsetColumns(kind, member, actor, counter, members, replicas)
+        return self._fold_orset_columns(state, cols, members, replicas)
+
+    # ------------------------------------------------------- fold sessions
+    def can_open_fold_session(self, state) -> bool:
+        """Cheap predicate twin of :meth:`open_fold_session`: the core
+        checks it before it starts any pipeline machinery."""
+        from .session import session_supported
+
+        return session_supported(state)
+
+    def open_fold_session(self, state, actors_hint=()):
+        """A chunked fold session for the core's pipelined ingest
+        (parallel/session.py), or None for state types without one — the
+        core then takes its whole-batch flow."""
+        from .session import open_fold_session
+
+        return open_fold_session(self, state, actors_hint)
+
+    def fold_encrypted_stream(self, state, key: bytes, blobs: list, *,
+                              actors_hint=()) -> bool:
+        """Encrypted op-file blobs in, folded ``state`` out, with decrypt,
+        decode and fold overlapped (the JAX accelerator's config-5 entry).
+
+        The blobs split into ``ENCRYPTED_STREAM_CHUNKS`` chunks.  Worker
+        threads, one per core but one (ops/stream.py
+        ``stream_producer_count``), claim file-granular stripes of each
+        chunk off one work queue (``run_striped_ingest_pipeline``) and
+        decrypt them natively; the worker landing a chunk's last stripe
+        decodes it, and this thread reduces the chunks in order through a
+        fold session (BUFFER, HOST_REDUCE or DEVICE_STREAM by regime), so
+        the bytes do not depend on the producer count or the stripe
+        split.
+
+        Returns False — with ``state`` untouched, since sessions mutate
+        only at finish — when no session exists for this state type or
+        the native decoder declines; the caller replays its own copy of
+        the blobs down another path.  Crypto failures (``AeadError``) and
+        pipeline faults raise."""
+        from ..backends.xchacha import decrypt_blobs_packed
+        from ..ops.stream import (
+            PipelineError,
+            run_striped_ingest_pipeline,
+            stream_producer_count,
+        )
+        from .session import SessionDeclined
+
+        session = self.open_fold_session(state, actors_hint=actors_hint)
+        if session is None:
+            return False
+        n = len(blobs)
+        if n == 0:
+            return True
+        chunk_blobs = -(-n // ENCRYPTED_STREAM_CHUNKS)
+        spans = [blobs[i : i + chunk_blobs] for i in range(0, n, chunk_blobs)]
+        producers = stream_producer_count()
+        # several producers: each stripe decrypts single-threaded and the
+        # pool is the parallelism; one producer keeps the native call's
+        # own threads (0 = from the core count)
+        stripe_threads = 0 if producers == 1 else 1
+
+        def split(span, k):
+            """Byte-bounded stripes, so one giant op file forms its own
+            stripe while the other workers decrypt the rest."""
+            if producers == 1 or len(span) <= 1:
+                return [span] if span else []
+            budget = max(1, sum(len(b) for b in span) // producers)
+            stripes, cur, cur_bytes = [], [], 0
+            for b in span:
+                cur.append(b)
+                cur_bytes += len(b)
+                if cur_bytes >= budget:
+                    stripes.append(cur)
+                    cur, cur_bytes = [], 0
+            if cur:
+                stripes.append(cur)
+            return stripes
+
+        def stripe(files, k, s):
+            with trace.span("stream.decrypt", meta=k):
+                packed = decrypt_blobs_packed(key, files, stripe_threads)
+                # counted only once the stripe's decrypt succeeded
+                trace.add("bytes_decrypted", sum(len(b) for b in files))
+                return packed
+
+        def assemble(parts, span, k):
+            with trace.span("stream.decode", meta=k):
+                if session.accepts_packed:
+                    # decode never mutates the session: thread-safe
+                    return session.decode_chunk_parts(parts)
+                # sessions without span decoders (counters) take per-blob
+                # views of the shared cleartext buffers
+                payloads: list = []
+                for out, offs in parts:
+                    view = memoryview(out)
+                    lo_hi = offs.tolist()
+                    payloads.extend(view[lo_hi[i] : lo_hi[i + 1]]
+                                    for i in range(len(lo_hi) - 1))
+                return session.decode_chunk(payloads)
+
+        def reduce(decoded, k):
+            session.reduce_chunk(decoded)
+
+        try:
+            run_striped_ingest_pipeline(
+                spans, split, stripe, assemble, reduce, producers=producers,
+            )
+            with trace.span("stream.finish"):
+                session.finish()
+        except SessionDeclined:
+            return False
+        except PipelineError as e:
+            if isinstance(e.__cause__, SessionDeclined):
+                return False
+            raise e.__cause__ from None
         return True
 
     def _fold_counter_payloads(self, state, payloads: list, actors_hint=()) -> bool:

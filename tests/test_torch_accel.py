@@ -212,13 +212,37 @@ def test_sparse_regime_takes_the_host_loop():
 
 
 def test_batches_past_the_stream_bound_raise():
-    accel = cpu_accel()
-    accel.STREAM_CHUNK_ROWS = 16
-    _, ops = jax_script(100, 10, 10)
-    state = ORSet()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        accel.fold_ops(state, port_ops(ops))
-    assert canonical_bytes(state) == canonical_bytes(ORSet())
+    """Batches past ``STREAM_CHUNK_ROWS`` (16 here) once raised; they now
+    fold blockwise, through ``fold_ops`` and through ``fold_payloads``,
+    into a fresh state and onto a prior history, each byte-equal to the
+    host loop and to the JAX accelerator's stream route (its
+    ``orset_fold_stream``, at the same chunk size)."""
+    from crdt_enc_tpu.utils import codec as jcodec
+
+    base, _ = jax_script(60, 10, 3)
+    _, ops = jax_script(100, 10, 10, state=JORSet.from_obj(base.to_obj()))
+    payloads = [jcodec.pack([op.to_obj() for op in ops[lo : lo + 7]])
+                for lo in range(0, len(ops), 7)]
+    hint = sorted(ACTORS)
+    for prior in (JORSet(), base):
+        jaccel = TpuAccelerator(min_device_batch=1)
+        jaccel.STREAM_CHUNK_ROWS = 16
+        j_ops = jaccel.fold_ops(JORSet.from_obj(prior.to_obj()), list(ops))
+        j_pay = JORSet.from_obj(prior.to_obj())
+        assert jaccel.fold_payloads(j_pay, payloads, actors_hint=hint)
+        h = HostAccelerator().fold_ops(port_state(prior), port_ops(ops))
+        accel = cpu_accel()
+        accel.STREAM_CHUNK_ROWS = 16
+        trace.reset()
+        t_ops = accel.fold_ops(port_state(prior), port_ops(ops))
+        assert trace.snapshot()["spans"]["stream.fold"]["count"] > 1
+        t_pay = port_state(prior)
+        mut = t_pay._mut
+        assert accel.fold_payloads(t_pay, payloads, actors_hint=hint)
+        assert t_pay._mut == mut + 1
+        assert (canonical_bytes(t_ops) == canonical_bytes(t_pay)
+                == canonical_bytes(h) == j_canonical_bytes(j_ops)
+                == j_canonical_bytes(j_pay))
 
 
 def test_other_state_types_take_the_host_loop():

@@ -10,10 +10,15 @@ against the JAX package's.
   compacted by the port's ``Core`` (``TorchAccelerator`` on the CPU) and
   by the JAX ``Core`` with ``HostAccelerator`` and ``TpuAccelerator``;
   the three states are byte-equal, and each compacted remote reads back
-  the same bytes in a fresh replica of the other package.  OR-Set on the
-  bulk path (≥ 16 files, 3 snapshots, so the port's merge takes its
-  ≥ 3-state device route) and on the per-file path, G-Counter, PN-Counter
-  and LWW map.
+  the same bytes in a fresh replica of the other package.  OR-Set through
+  a fold session (≥ 16 files, 3 snapshots, so the port's merge takes its
+  ≥ 3-state device route) and per op (fewer files), G-Counter,
+  PN-Counter and LWW map (no session: the whole-batch bulk path).
+* The pipelined route in both directions (JAX writer → port compactor →
+  JAX reader, and port writer → JAX compactor → port reader), with the
+  fold session forced into each mode and the op files read in small
+  chunks.
+* ``fold_payloads`` past ``STREAM_CHUNK_ROWS`` folds blockwise.
 * A torn op file is quarantined with its cursor held, the same way in
   both packages.
 
@@ -352,13 +357,9 @@ def decline_cases():
         acc.SPARSE_MIN_CELLS = 0
         acc.SPARSE_CELLS_PER_ROW = 0
 
-    def stream(acc):
-        acc.STREAM_CHUNK_ROWS = 2
-
     return {
         "member collision (1 and True)": (ORSet, collide, None),
         "sparse regime": (ORSet, orset_files(2), sparse),
-        "past STREAM_CHUNK_ROWS": (ORSet, orset_files(2), stream),
         "unknown actor": (ORSet, [jcodec.pack([[0, 1, [uuid.UUID(int=99).bytes, 1]]])], None),
         "G-Counter dot past int32": (GCounter, [jcodec.pack([[a, 2**31 + 5]])], None),
         "PN-Counter dot past int32": (PNCounter, [jcodec.pack([[1, [a, 2**32 + 1]]])], None),
@@ -387,14 +388,31 @@ def test_fold_payloads_declines_leave_the_state_untouched(name):
     if name == "PN rows in a G-Counter":
         return
     ops = [adapter.op_from_obj(o) for p in payloads for o in jcodec.unpack(p)]
-    if name == "past STREAM_CHUNK_ROWS":
-        # the blockwise stream fold is still to port: fold_ops says so
-        with pytest.raises(NotImplementedError):
-            acc.fold_ops(new(), list(ops))
-        return
     got = acc.fold_ops(new(), list(ops))
     host = HostAccelerator().fold_ops(new(), list(ops))
     assert canonical_bytes(got) == canonical_bytes(host)
+
+
+@pytest.mark.parametrize("chunk_rows", [2, 16])
+def test_fold_payloads_past_the_stream_bound_matches_the_host_loop(chunk_rows):
+    """Past ``STREAM_CHUNK_ROWS`` the bulk route no longer declines: it
+    folds blockwise, returns True, bumps the epoch once and gives the host
+    loop's bytes and the JAX accelerator's (its stream route, same chunk
+    size)."""
+    payloads = orset_files(2)
+    acc = torch_accel()
+    acc.STREAM_CHUNK_ROWS = chunk_rows
+    state = ORSet()
+    assert acc.fold_payloads(state, payloads, actors_hint=ACTORS) is True
+    assert state._mut == 1
+    adapter = orset_adapter()
+    host = HostAccelerator().fold_ops(ORSet(), [
+        adapter.op_from_obj(o) for p in payloads for o in jcodec.unpack(p)])
+    jacc = TpuAccelerator(min_device_batch=1)
+    jacc.STREAM_CHUNK_ROWS = chunk_rows
+    ref = jadapters.orset_adapter().new()
+    assert jacc.fold_payloads(ref, payloads, actors_hint=ACTORS)
+    assert canonical_bytes(state) == canonical_bytes(host) == j_canonical_bytes(ref)
 
 
 # ---- cross-package compaction ----------------------------------------------
@@ -498,18 +516,22 @@ def test_cross_package_compaction(case, tmp_path):
             kind, remote, tmp_path)
         assert bp == bh == bt
         assert port.info().next_op_versions.to_obj() == jh.info().next_op_versions.to_obj()
-        # the route the port took
+        # the route the port took: the pipelined ingest through a fold
+        # session where the state type has one, else the whole batch
         assert snap["counters"].get("states_merged") == 3
-        if tail >= core_mod.BULK_MIN_FILES:
-            assert snap["counters"]["op_files_loaded"] == tail
+        assert snap["counters"]["op_files_loaded"] == tail
+        if kind == "lwwmap":
+            assert "ops.chunk_decrypt" not in snap["spans"]
             assert "ops.bulk_decrypt" in snap["spans"]
-            if kind in ("orset", "gcounter", "pncounter"):
-                assert snap["counters"]["op_files_bulk_folded"] == tail
-                assert "fold.decode" in snap["spans"]
-            else:
-                assert "fold.decode" not in snap["spans"]
+            assert "fold.decode" not in snap["spans"]
+        elif tail >= core_mod.BULK_MIN_FILES:
+            assert "ops.chunk_decrypt" in snap["spans"]
+            assert "session.decode" in snap["spans"]
+            assert snap["counters"]["op_files_bulk_folded"] == tail
         else:
-            assert "ops.decrypt_decode" in snap["spans"]
+            assert "ops.chunk_decrypt" in snap["spans"]
+            assert "session.decode" not in snap["spans"]
+            assert "ops.fold" in snap["spans"]
         # the port's compaction collected every op file and snapshot
         ps = FsStorage(str(tmp_path / "check"), rp)
         assert await ps.list_op_actors() == []
@@ -547,8 +569,8 @@ def test_torn_op_file_is_quarantined_in_both_packages(tail, damage, tmp_path):
         assert bp == bh == bt
         assert snap["counters"]["ingest_quarantined"] == 1
         loaded = snap["counters"]["op_files_loaded"]
-        bulk = "ops.bulk_decrypt" in snap["spans"]
-        assert bulk == (loaded >= core_mod.BULK_MIN_FILES) == (tail > 0)
+        session = "ops.chunk_fold" in snap["spans"]
+        assert session == (loaded >= core_mod.BULK_MIN_FILES) == (tail > 0)
         for core in (port, jh):
             assert core.info().next_op_versions.get(actor) == versions[0]
         # the torn file and the rest of its actor's run stay for a retry
@@ -585,3 +607,116 @@ def test_clock_only_snapshots_merge_like_the_host_loop(tmp_path):
         assert len(port.with_state(lambda s: s.clock.counters)) == 3
 
     run(go())
+
+
+PIPELINE_MODES = {
+    "buffer": {},
+    "host_reduce": {"BUFFER_BYTES": 0},
+    "device_stream": {"BUFFER_BYTES": 0, "HOST_PLANE_CELLS": -1},
+}
+
+
+@pytest.mark.parametrize("mode", list(PIPELINE_MODES))
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_pipelined_compaction_across_packages(writer, mode, tmp_path, monkeypatch):
+    """``Core.compact()`` through the pipelined route, in both directions:
+    a remote written by one package (three replicas, three snapshots, then
+    a tail of op files read in small chunks) is compacted by the other
+    package's pipelined ingest with its fold session forced into ``mode``,
+    and by the host loop on a copy; both agree, and each compacted remote
+    reads back the same bytes in a fresh replica of the writing package."""
+    import crdt_enc_tpu.parallel.session as JS
+    from crdt_enc_tpu.backends import fs as jfs
+
+    from crdt_enc_tpu_torch.backends import fs as pfs
+    from crdt_enc_tpu_torch.parallel import session as PS
+
+    for name, value in PIPELINE_MODES[mode].items():
+        monkeypatch.setattr(PS, name, value)
+        monkeypatch.setattr(JS, name, value)
+    monkeypatch.setattr(pfs.FsStorage, "CHUNK_BYTES", 600)
+    monkeypatch.setattr(jfs.FsStorage, "CHUNK_BYTES", 600)
+
+    async def go():
+        remote = str(tmp_path / "remote")
+        if writer == "jax":
+            await build_remote("orset", remote, tmp_path, tail_files=24)
+        else:
+            ws = [await Core.open(popts(FsStorage(str(tmp_path / f"pw{i}"), remote),
+                                        orset_adapter(), HostAccelerator()))
+                  for i in range(3)]
+            await write_round("orset", ws, 0, 9)
+            for w in ws:
+                await w.read_remote()
+            await write_round("orset", ws, 1, 6)
+            for w in ws:
+                await w._compact_seal()
+            await write_round("orset", ws, 2, 24)
+        r_dev = copy_remote(remote, tmp_path / "r_dev")
+        r_host = copy_remote(remote, tmp_path / "r_host")
+        trace.reset()
+        if writer == "jax":
+            dev = await Core.open(popts(FsStorage(str(tmp_path / "ld"), r_dev),
+                                        orset_adapter()))
+            await dev.compact()
+            snap = trace.snapshot()
+            assert snap["spans"]["ops.chunk_decrypt"]["count"] > 1
+            assert snap["counters"]["op_files_bulk_folded"] == 24
+            reduce_spans = {"session.host_reduce", "session.device_fold"}
+            assert reduce_spans & set(snap["spans"]) == {
+                "buffer": set(), "host_reduce": {"session.host_reduce"},
+                "device_stream": {"session.device_fold"}}[mode]
+            host = await Core.open(popts(FsStorage(str(tmp_path / "lh"), r_host),
+                                         orset_adapter(), HostAccelerator()))
+            await host.compact()
+            got, ref = dev.with_state(canonical_bytes), host.with_state(canonical_bytes)
+            jr = await JCore.open(jopts(JFsStorage(str(tmp_path / "lj"), r_dev),
+                                        jadapters.orset_adapter()))
+            await jr.read_remote()
+            assert jr.with_state(j_canonical_bytes) == got
+        else:
+            dev = await JCore.open(jopts(JFsStorage(str(tmp_path / "ld"), r_dev),
+                                         jadapters.orset_adapter(),
+                                         TpuAccelerator(min_device_batch=1)))
+            await dev.compact()
+            host = await Core.open(popts(FsStorage(str(tmp_path / "lh"), r_host),
+                                         orset_adapter(), HostAccelerator()))
+            await host.compact()
+            got, ref = dev.with_state(j_canonical_bytes), host.with_state(canonical_bytes)
+            pr = await Core.open(popts(FsStorage(str(tmp_path / "lp"), r_dev),
+                                       orset_adapter()))
+            await pr.read_remote()
+            assert pr.with_state(canonical_bytes) == got
+        assert got == ref
+        assert (dev.info().next_op_versions.to_obj()
+                == host.info().next_op_versions.to_obj())
+
+    asyncio.run(asyncio.wait_for(go(), timeout=120))
+
+
+def test_bulk_path_without_a_session_folds_payloads_whole(tmp_path):
+    """Without a fold session (an accelerator that opens none), a bulk
+    read decrypts the whole batch and hands it to ``fold_payloads``; the
+    state equals the host loop's and the JAX package's."""
+
+    class NoSessions(TorchAccelerator):
+        def can_open_fold_session(self, state):
+            return False
+
+    async def go():
+        remote = str(tmp_path / "remote")
+        await build_remote("orset", remote, tmp_path, tail_files=20)
+        r_dev = copy_remote(remote, tmp_path / "r_dev")
+        (_, bh, bt), *_ = await compact_three_ways("orset", remote, tmp_path)
+        core = await Core.open(popts(FsStorage(str(tmp_path / "ld"), r_dev),
+                                     orset_adapter(),
+                                     NoSessions(device="cpu", min_device_batch=1)))
+        trace.reset()
+        await core.compact()
+        snap = trace.snapshot()
+        assert "ops.chunk_decrypt" not in snap["spans"]
+        assert {"ops.bulk_decrypt", "ops.bulk_fold"} <= set(snap["spans"])
+        assert snap["counters"]["op_files_bulk_folded"] > 0
+        assert core.with_state(canonical_bytes) == bh == bt
+
+    asyncio.run(asyncio.wait_for(go(), timeout=120))

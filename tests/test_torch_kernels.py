@@ -532,3 +532,176 @@ def test_core_compaction_on_the_card_matches_the_host_loop(dev, tmp_path):
         assert fresh.with_state(T.canonical_bytes) == card.with_state(T.canonical_bytes)
 
     asyncio.run(go())
+
+
+# ---- the blockwise stream and the fold sessions ---------------------------
+
+
+def ordered_rows(N, E, R, seed):
+    """An op history in per-actor version order (the contract of the
+    chunked folds): adds take each actor's next dot, removes the horizon
+    seen so far, removes before an actor's first add become sentinel rows
+    (``actor == R``); numpy columns."""
+    rng = np.random.default_rng(seed)
+    kind = (rng.random(N) < 0.1).astype(np.int8)
+    member = rng.integers(0, E, N, dtype=np.int32)
+    actor = rng.integers(0, R, N, dtype=np.int32)
+    is_add = (kind == 0).astype(np.int64)
+    counter = np.zeros(N, np.int64)
+    for a in range(R):  # running add count per actor, in row order
+        idx = np.flatnonzero(actor == a)
+        counter[idx] = np.cumsum(is_add[idx])
+    actor = np.where(counter == 0, R, actor).astype(np.int32)
+    return kind, member, actor, counter.astype(np.int32)
+
+
+def test_out_planes_on_the_cpu():
+    """``orset_fold_cuda(out=...)`` writes the plain fold into the given
+    triple on the CPU too, and returns it."""
+    E, R = 6, 11
+    planes = state(E, R, 2)
+    cols = rows(90, E, R, 2)
+    out = tuple(torch.empty_like(p) for p in planes)
+    got = F.orset_fold_cuda(*planes, *cols, num_members=E, num_replicas=R,
+                            out=out)
+    assert all(g is o for g, o in zip(got, out))
+    assert_equal(P.orset_fold_plain(*planes, *cols, num_members=E,
+                                    num_replicas=R), got)
+
+
+@pytest.mark.cuda
+def test_out_planes_on_the_card(dev):
+    E, R = 257, 1000
+    planes = state(E, R, 3, device=dev)
+    cols = rows(20000, E, R, 3, device=dev)
+    ref = F.orset_fold_cuda(*planes, *cols, num_members=E, num_replicas=R)
+    out = tuple(torch.full_like(p, -7) for p in planes)
+    got = F.orset_fold_cuda(*planes, *cols, num_members=E, num_replicas=R,
+                            out=out)
+    torch.cuda.synchronize()
+    assert all(g is o for g, o in zip(got, out))
+    assert_equal(ref, got)
+    with pytest.raises(ValueError, match="shares memory"):
+        F.orset_fold_cuda(*planes, *cols, num_members=E, num_replicas=R,
+                          out=planes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_rows", [4096, 1 << 16])
+def test_stream_fold_pool_reuse_under_a_side_stream(dev, chunk_rows):
+    """Many pinned-pool chunks through the overlapped loop (uploads on a
+    side stream, buffers recycled on the copy's event): equal to the
+    plain fold of each chunk in turn on the CPU, one launch per chunk,
+    repeated so a buffer recycled too early would show."""
+    from crdt_enc_tpu_torch.ops import stream as S
+
+    E, R, N = 300, 700, 200_000
+    cols = ordered_rows(N, E, R, 5)
+    z = [np.zeros(R, np.int32), np.zeros((E, R), np.int32),
+         np.zeros((E, R), np.int32)]
+    ref = S.planes_to_host(S.orset_fold_stream(
+        *z, S.iter_orset_chunks(*cols, chunk_rows, R), num_members=E,
+        num_replicas=R, device="cpu"))
+    n_chunks = -(-N // chunk_rows)
+    for _ in range(3):
+        pool = S.ChunkPool(chunk_rows, depth=2, pin=True)
+        before = F.launches["orset_fold"]
+        got = S.planes_to_host(S.orset_fold_stream(
+            *z, S.iter_orset_chunks(*cols, chunk_rows, R, pool=pool),
+            num_members=E, num_replicas=R, device=dev, pool=pool))
+        assert F.launches["orset_fold"] - before == n_chunks
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.cuda
+def test_stream_upload_rides_under_the_previous_fold(dev):
+    """Chunk k+1's upload is issued before chunk k's fold is enqueued."""
+    from crdt_enc_tpu_torch.ops import stream as S
+    from crdt_enc_tpu_torch.utils import trace
+
+    E, R, rows_ = 64, 300, 8192
+    cols = ordered_rows(5 * rows_, E, R, 6)
+    pool = S.ChunkPool(rows_, depth=2, pin=True)
+    trace.reset()
+    trace.enable_events()
+    try:
+        S.planes_to_host(S.orset_fold_stream(
+            np.zeros(R, np.int32), np.zeros((E, R), np.int32),
+            np.zeros((E, R), np.int32),
+            S.iter_orset_chunks(*cols, rows_, R, pool=pool), num_members=E,
+            num_replicas=R, device=dev, pool=pool))
+    finally:
+        trace.enable_events(False)
+    ev = trace.events()
+    h2d = sorted((e for e in ev if e["name"] == "stream.h2d"), key=lambda e: e["meta"])
+    folds = sorted((e for e in ev if e["name"] == "stream.fold"), key=lambda e: e["meta"])
+    assert len(h2d) == len(folds) == 5
+    for k in range(4):
+        assert h2d[k + 1]["t1"] <= folds[k]["t0"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fold_ops", "fold_payloads"])
+def test_accelerator_past_the_stream_bound_on_the_card(dev, route):
+    """``TorchAccelerator()`` past ``STREAM_CHUNK_ROWS`` folds blockwise on
+    the card, one launch per chunk, equal to the host loop."""
+    import crdt_enc_tpu_torch as T
+    from crdt_enc_tpu_torch.models.orset import AddOp, RmOp
+    from crdt_enc_tpu_torch.models.vclock import Dot, VClock
+    from crdt_enc_tpu_torch.utils import codec
+
+    E, R, N = 50, 40, 6000
+    kind, member, actor, counter = ordered_rows(N, E, R, 7)
+    actors = sorted(bytes([a + 1]) * 16 for a in range(R))
+    ops = [AddOp(int(m), Dot(actors[a], int(c))) if k == 0
+           else RmOp(int(m), VClock({actors[a]: int(c)}))
+           for k, m, a, c in zip(kind, member, actor, counter) if a < R]
+    accel = T.TorchAccelerator(min_device_batch=1)
+    accel.STREAM_CHUNK_ROWS = 1000
+    host = T.HostAccelerator().fold_ops(T.ORSet(), list(ops))
+    before = F.launches["orset_fold"]
+    if route == "fold_ops":
+        got = accel.fold_ops(T.ORSet(), list(ops))
+    else:
+        got = T.ORSet()
+        payloads = [codec.pack([op.to_obj() for op in ops[lo : lo + 50]])
+                    for lo in range(0, len(ops), 50)]
+        assert accel.fold_payloads(got, payloads, actors_hint=actors)
+    assert F.launches["orset_fold"] - before == -(-len(ops) // 1000)
+    assert T.canonical_bytes(got) == T.canonical_bytes(host)
+
+
+@pytest.mark.cuda
+def test_device_stream_session_on_the_card(dev, monkeypatch):
+    """A DEVICE_STREAM session on the card equals the same session on the
+    CPU and the host loop; its launches equal its chunk count."""
+    import crdt_enc_tpu_torch as T
+    from crdt_enc_tpu_torch.models.orset import AddOp, RmOp
+    from crdt_enc_tpu_torch.models.vclock import Dot, VClock
+    from crdt_enc_tpu_torch.parallel import session as PS
+    from crdt_enc_tpu_torch.utils import codec
+
+    monkeypatch.setattr(PS, "BUFFER_BYTES", 0)
+    monkeypatch.setattr(PS, "HOST_PLANE_CELLS", -1)
+    E, R, N = 70, 30, 8000
+    kind, member, actor, counter = ordered_rows(N, E, R, 8)
+    actors = sorted(bytes([a + 1]) * 16 for a in range(R))
+    ops = [AddOp(int(m), Dot(actors[a], int(c))) if k == 0
+           else RmOp(int(m), VClock({actors[a]: int(c)}))
+           for k, m, a, c in zip(kind, member, actor, counter) if a < R]
+    payloads = [codec.pack([op.to_obj() for op in ops[lo : lo + 40]])
+                for lo in range(0, len(ops), 40)]
+    host = T.HostAccelerator().fold_ops(T.ORSet(), list(ops))
+    out = {}
+    for device in ("cpu", "cuda"):
+        s = PS.OrsetFoldSession(T.TorchAccelerator(device=device), T.ORSet(),
+                                actors_hint=actors)
+        before = F.launches["orset_fold"]
+        for lo in range(0, len(payloads), 7):
+            s.feed(payloads[lo : lo + 7])
+        assert s.mode == "device_stream"
+        out[device] = T.canonical_bytes(s.finish())
+        if device == "cuda":
+            assert F.launches["orset_fold"] - before == s.device_chunks > 0
+    assert out["cpu"] == out["cuda"] == T.canonical_bytes(host)

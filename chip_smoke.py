@@ -7,11 +7,16 @@ members, made from a seed by a copy of bench.py's ``gen_columns``: about
 10% removes, dead removes as ``actor = R`` sentinel rows) and the LWW-map
 fold (1,000,000 writes over 1,000,000 keys and 10,000 actors, a copy of
 benchmarks/suite.py's config-4 generator), beside configs 1 and 2
-(G-Counter 4 x 1k, PN-Counter 1k x 100k).  Phases:
+(G-Counter 4 x 1k, PN-Counter 1k x 100k), and BASELINE config 5 (200k
+OR-Set ops over 100k replicas and 1,024 members), the sparse regime.
+Phases:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
 2. build: every CUDA kernel from the sources in the checkout, with each
-   kernel's registers, shared memory and spills from ``-Xptxas -v``;
+   kernel's registers, shared memory and spills from ``-Xptxas -v``, then
+   the two native libraries (``native/``: crypto, codec and io; and the
+   state library ``statebuild.cpp``, built against this interpreter's
+   headers), each with its build time;
 3. OR-Set kernels against their plain PyTorch versions on the card at
    config-3 width (torch.equal: the planes are int32, the tolerance is
    exact) — both entries of the bucketed fold (``orset_scatter``, with and
@@ -65,7 +70,11 @@ benchmarks/suite.py's config-4 generator), beside configs 1 and 2
    session); the phase prints the session's mode, the producer width, the
    ``ops.chunk_*`` and ``session.*`` spans and the host RSS sampled over
    each compaction (before, peak, growth), and holds the fold kernel's
-   launches to that mode (none in HOST_REDUCE);
+   launches to that mode (none in HOST_REDUCE).  Each compaction ends by
+   sealing its local checkpoint (``checkpoint.save``, inside the wall):
+   the phase prints its format and size, then reopens the device replica
+   from its own local directory, which must open from the checkpoint with
+   the cold state's bytes and fold nothing more;
 11. the stream route past 2^22 rows: 10,485,760 config-3-width rows
    (2.5 x ``STREAM_CHUNK_ROWS``) through ``TorchAccelerator().fold_payloads``
    (in-memory op-file payloads) and ``fold_ops`` (op objects), each three
@@ -76,6 +85,14 @@ benchmarks/suite.py's config-4 generator), beside configs 1 and 2
    through the module constants), each byte-equal to the host loop, the
    DEVICE_STREAM fold launches equal to its chunk count; then
    ``fold_encrypted_stream`` over the same payloads encrypted;
+13. config 5 in the sparse regime: its ~86k op files (up to 48 ops a file
+   within one actor) through a BUFFER fold session (whose finish runs the
+   native fresh sparse fold), ``fold_encrypted_stream``, ``fold_payloads``
+   (which must fold, not decline), ``fold_ops`` and ``Core.compact()`` of
+   a fresh replica over an encrypted ``MemoryStorage`` remote (in memory
+   so the phase does not time ~86k file reads); each state byte-equal to
+   the host loop's with no fold kernel launched; the compaction's
+   checkpoint must be packed from the fold's stashed rows and reopen warm;
 then the kernels line and the result line.  Phase 5 also times the merge
 at the compaction's own shape (S = 9, E = 4,096, R = 5,000) against its
 plain version, and phases 5 and 9 give the merge and K3's shape their
@@ -141,6 +158,10 @@ K4_S, K4_R, K4_SEED = 9, 5000, 12
 STREAM_N, STREAM_SEED, STREAM_FILE_OPS = 10_485_760, 11, 1024
 # phase 12: op files fed to a session per chunk
 SESSION_FEED_FILES = 2048
+# phase 13: BASELINE config 5 (benchmarks/suite.py bench_streaming, bench.py
+# e2e): 200k ops over 100k replicas and 1,024 members, up to 48 ops a file
+# within one actor, from gen_columns' seed 5
+CFG5_N, CFG5_R, CFG5_E, CFG5_SEED = 200_000, 100_000, 1024, 5
 
 # peak device-memory rates (NVIDIA data sheets); float32 outside the
 # tensor cores is the table's nearest rate for the kernels' int32 ALU work
@@ -1223,10 +1244,12 @@ COMPACTION_SPANS = (
     "ops.chunk_read", "ops.chunk_unwrap", "ops.chunk_decrypt", "ops.chunk_fold",
     "ops.session_finish", "session.decode", "session.remap",
     "session.host_reduce", "session.device_fold", "session.combine",
-    "session.device_finish", "session.writeback", "ops.load",
+    "session.device_finish", "session.sparse_fold", "session.writeback",
+    "ops.load",
     "ops.bulk_unwrap", "ops.bulk_decrypt", "ops.bulk_fold", "fold.decode",
     "fold.vocab", "fold.planes", "fold.device", "fold.writeback",
     "compact.ingest", "compact.seal", "compact.write", "compact.gc",
+    "checkpoint.save", "checkpoint.load", "checkpoint.verify",
 )
 
 
@@ -1347,6 +1370,64 @@ def print_compaction(label: str, wall: float, snap: dict) -> None:
             f"{k} {v}" for k, v in sorted(snap["gauges"].items())), flush=True)
 
 
+def checkpoint_format(core) -> str:
+    """The format of the checkpoint ``core`` sealed last, read back from
+    its local slot."""
+    import asyncio
+
+    from crdt_enc_tpu_torch.core import core as core_mod
+
+    async def read():
+        raw = await core.storage.load_local_checkpoint()
+        return None if raw is None else (await core._open_sealed(raw))[b"fmt"]
+
+    fmt = asyncio.run(read())
+    return {core_mod.CHECKPOINT_FMT_ORSET: "orset columnar",
+            core_mod.CHECKPOINT_FMT_OBJ: "adapter object",
+            None: "none sealed"}.get(fmt, f"unknown {fmt!r}")
+
+
+def warm_reopen(make_options, sealer, cold_bytes: bytes) -> dict:
+    """Reopen a compacted replica from its own local state: it must open
+    from its checkpoint, with the sealer's state bytes, and a read of the
+    remote must fold nothing more.  Prints the sealer's checkpoint and the
+    reopen's spans; returns its walls and sizes."""
+    import asyncio
+
+    from crdt_enc_tpu_torch import Core, canonical_bytes
+    from crdt_enc_tpu_torch.utils import trace
+
+    fmt = checkpoint_format(sealer)
+
+    async def reopen():
+        trace.reset()
+        t0 = time.perf_counter()
+        core = await Core.open(make_options())
+        t_open = time.perf_counter() - t0
+        await core.read_remote()
+        return core, t_open, time.perf_counter() - t0, trace.snapshot()
+
+    core, open_s, read_s, snap = asyncio.run(reopen())
+    wb = core.with_state(canonical_bytes)
+    spans = {k: v["seconds"] for k, v in snap["spans"].items()}
+    folded = (snap["counters"].get("ops_folded", 0)
+              + snap["counters"].get("op_files_bulk_folded", 0))
+    print(f"  warm reopen from the checkpoint ({fmt}): opened_from_checkpoint "
+          f"{core.opened_from_checkpoint} (fallback "
+          f"{core.checkpoint_fallback_reason}); open {open_s:.3f}s, open and "
+          f"read_remote {read_s:.3f}s; checkpoint.load "
+          f"{spans.get('checkpoint.load', 0) * 1e3:.1f} ms, checkpoint.verify "
+          f"{spans.get('checkpoint.verify', 0) * 1e3:.1f} ms; bytes equal to "
+          f"the cold state's: {wb == cold_bytes}; {folded} files or ops "
+          "folded after it", flush=True)
+    if not core.opened_from_checkpoint or wb != cold_bytes or folded:
+        raise AssertionError("the warm reopen did not restore the compacted "
+                             "state from its checkpoint")
+    return dict(format=fmt, open_s=open_s, open_read_s=read_s,
+                checkpoint_load_s=spans.get("checkpoint.load"),
+                checkpoint_verify_s=spans.get("checkpoint.verify"))
+
+
 def phase_compaction(files, E: int, R: int, device, root: str) -> dict:
     """``Core.compact()`` over an encrypted fs remote at config 3, once
     with ``TorchAccelerator`` and once with ``HostAccelerator`` on a
@@ -1392,6 +1473,10 @@ def phase_compaction(files, E: int, R: int, device, root: str) -> dict:
           f"{snap.get('gauges', {}).get('stream_producers')}; "
           f"{rss.line()}", flush=True)
     expected_fold = session_launches(accel, session)
+    print(f"    checkpoint sealed by the compaction: {checkpoint_format(card)}, "
+          f"{snap['counters'].get('checkpoint_bytes')} bytes, checkpoint.save "
+          f"{snap['spans'].get('checkpoint.save', {}).get('seconds', 0) * 1e3:.1f}"
+          " ms (part of the compaction wall)", flush=True)
     with RssSampler() as host_rss:
         host, host_wall, host_snap = asyncio.run(timed_compaction(
             root, "host", host_remote, HostAccelerator()))
@@ -1419,18 +1504,20 @@ def phase_compaction(files, E: int, R: int, device, root: str) -> dict:
 
     fresh, read_s, names, actors_left = asyncio.run(reopen())
     fb = fresh.with_state(canonical_bytes)
-    print(f"  a fresh replica reads the compacted remote back in {read_s:.2f}s: "
-          f"bytes equal {fb == cb}; {len(names)} snapshot, {len(actors_left)} "
-          "op logs left", flush=True)
+    print(f"  a fresh replica reads the compacted remote back in {read_s:.2f}s "
+          f"(the cold open): bytes equal {fb == cb}; {len(names)} snapshot, "
+          f"{len(actors_left)} op logs left", flush=True)
     if fb != cb or len(names) != 1 or actors_left:
         raise AssertionError("the compacted remote does not read back")
+    warm = warm_reopen(lambda: compaction_options(root, "card", remote["remote"],
+                                                  accel), card, cb)
     if (launches["orset_fold"] != expected_fold
             or launches["orset_merge_many"] != 1):
         raise AssertionError(
             f"the compaction's launches {launches} do not match its session "
             f"mode {session.mode} (fold {expected_fold}) and one merge")
     return dict(launches=launches, wall_s=wall, host_wall_s=host_wall,
-                reopen_s=read_s, session_mode=session.mode,
+                reopen_s=read_s, warm=warm, session_mode=session.mode,
                 session_rows=session.rows_fed,
                 stream_producers=snap.get("gauges", {}).get("stream_producers"),
                 **rss.fields(""), **host_rss.fields("host_"),
@@ -1671,6 +1758,197 @@ def phase_sessions(files, actors: list, device) -> dict:
     return out
 
 
+# ---- config 5: the sparse regime (phase 13) --------------------------------
+
+
+def config5_options(storage, accel):
+    from crdt_enc_tpu_torch import (
+        OpenOptions, PlainKeyCryptor, XChaChaCryptor, orset_adapter,
+    )
+
+    version = uuid.UUID("c3b80d17-42fe-4e95-b7a8-2d50c61e9f07").bytes
+    return OpenOptions(
+        storage=storage, cryptor=XChaChaCryptor(),
+        key_cryptor=PlainKeyCryptor(), adapter=orset_adapter(),
+        supported_data_versions=(version,), current_data_version=version,
+        create=True, accelerator=accel,
+    )
+
+
+async def build_config5_remote(files: list):
+    """An encrypted in-memory remote holding the op files, every file
+    sealed by one writer ``Core`` (``_seal``) under its actor and
+    version."""
+    import asyncio
+
+    from crdt_enc_tpu_torch import Core, HostAccelerator, MemoryRemote, MemoryStorage
+
+    remote = MemoryRemote()
+    writer = await Core.open(config5_options(MemoryStorage(remote),
+                                             HostAccelerator()))
+    store = MemoryStorage(remote)
+    for b in range(0, len(files), COMPACT_WRITE_BATCH):
+        batch = files[b : b + COMPACT_WRITE_BATCH]
+        blobs = await asyncio.gather(*(writer._seal(ops) for *_, ops in batch))
+        await asyncio.gather(*(store.store_ops(ab, v, blob) for (_, ab, v, _), blob
+                               in zip(batch, blobs)))
+    return remote
+
+
+def phase_config5(device) -> dict:
+    """BASELINE config 5 at full width, in the sparse regime (E·R = 102.4M
+    cells against 64 x 200k rows): the op files through a fold session
+    (BUFFER, its finish the native fresh sparse fold), through
+    ``fold_encrypted_stream``, through ``fold_payloads`` (which must fold,
+    not decline), through ``fold_ops`` (all four the vectorized host
+    sparse fold), and ``Core.compact()`` of a fresh
+    replica over an encrypted in-memory remote, whose checkpoint must be
+    packed from the fold's stashed rows and reopen warm.  Each state
+    byte-equal to the host loop's; the fold kernels' launches are read
+    from each route alone and must be 0."""
+    import asyncio
+    import secrets
+
+    from crdt_enc_tpu_torch import (
+        Core, HostAccelerator, MemoryStorage, ORSet, TorchAccelerator,
+        canonical_bytes, orset_adapter,
+    )
+    from crdt_enc_tpu_torch.backends.xchacha import encrypt_blob
+    from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
+    from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
+    from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
+    from crdt_enc_tpu_torch.utils import codec, trace
+
+    N, R, E = CFG5_N, CFG5_R, CFG5_E
+    actors = actor_ids(R)
+    t0 = time.perf_counter()
+    cols = gen_columns(N, R, E, CFG5_SEED)
+    files = compaction_files(cols, actors)
+    payloads = [codec.pack(ops) for *_, ops in files]
+    adapter = orset_adapter()
+    ops = [adapter.op_from_obj(o) for *_, wire in files for o in wire]
+    t1 = time.perf_counter()
+    host = canonical_bytes(HostAccelerator().fold_ops(ORSet(), ops))
+    host_s = time.perf_counter() - t1
+    print(f"  {len(files)} op files of {len(ops)} ops ({int((cols[2] < R).sum())}"
+          f" live rows) built in {t1 - t0:.1f}s; host loop {host_s:.2f}s "
+          f"({len(host)} bytes)", flush=True)
+    out: dict = {"N": N, "R": R, "E": E, "op_files": len(files),
+                 "ops": len(ops), "host_loop_s": host_s, "state_bytes": len(host)}
+    counts = (F.launches, M.launches, LC.launches)
+
+    def route(name, fn):
+        for c in counts:
+            for k in c:
+                c[k] = 0
+        trace.reset()
+        with RssSampler() as rss:
+            t0 = time.perf_counter()
+            got = fn()
+            wall = time.perf_counter() - t0
+        snap = trace.snapshot()
+        launches = {k: v for c in counts for k, v in c.items()}
+        spans = {k: v["seconds"] for k, v in snap["spans"].items()}
+        out[name] = dict(wall_s=wall, launches=launches, spans=spans,
+                         counters=snap["counters"], **rss.fields(""))
+        same = canonical_bytes(got) == host
+        print(f"  {name}: wall {wall:.3f}s; bytes equal to the host loop: "
+              f"{same}; launches {launches}; {rss.line()}", flush=True)
+        for k, v in sorted(spans.items()):
+            print(f"    span {k}: {v * 1e3:.1f} ms x{snap['spans'][k]['count']}",
+                  flush=True)
+        if snap["counters"]:
+            print("    counters: " + ", ".join(
+                f"{k} {v}" for k, v in sorted(snap["counters"].items())),
+                flush=True)
+        if not same or any(launches.values()):
+            raise AssertionError(f"config 5 {name}: bytes equal {same}, "
+                                 f"launches {launches}")
+        return snap
+
+    accel = TorchAccelerator(device=device)
+
+    def session_route():
+        session = accel.open_fold_session(ORSet(), actors_hint=actors)
+        for lo in range(0, len(payloads), SESSION_FEED_FILES):
+            session.feed(payloads[lo : lo + SESSION_FEED_FILES])
+        if session.mode != "buffer":
+            raise AssertionError(f"config 5 session left BUFFER: {session.mode}")
+        return session.finish()
+
+    snap = route("session", session_route)
+    if "session.sparse_fold" not in snap["spans"]:
+        raise AssertionError("the session's finish did not take the native "
+                             "sparse fold")
+
+    key = secrets.token_bytes(32)
+    blobs = [encrypt_blob(key, p) for p in payloads]
+
+    def stream_route():
+        state = ORSet()
+        if not accel.fold_encrypted_stream(state, key, blobs, actors_hint=actors):
+            raise AssertionError("fold_encrypted_stream declined config 5")
+        return state
+
+    route("fold_encrypted_stream", stream_route)
+    del blobs
+
+    def payloads_route():
+        state = ORSet()
+        if accel.fold_payloads(state, payloads, actors_hint=actors) is not True:
+            raise AssertionError("fold_payloads declined config 5")
+        return state
+
+    route("fold_payloads", payloads_route)
+    snap = route("fold_ops", lambda: accel.fold_ops(ORSet(), list(ops)))
+    if "session.sparse_fold" not in snap["spans"]:
+        raise AssertionError("fold_ops did not take the native sparse fold")
+    del ops
+
+    t0 = time.perf_counter()
+    remote = asyncio.run(build_config5_remote(files))
+    print(f"  encrypted in-memory remote of {len(files)} op files sealed in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    storage = MemoryStorage(remote)
+    compactor = {}
+
+    def compaction_route():
+        async def go():
+            core = await Core.open(config5_options(storage, accel))
+            await core.compact()
+            return core
+
+        compactor["core"] = asyncio.run(go())
+        return compactor["core"].with_state(lambda s: ORSet.from_obj(s.to_obj()))
+
+    snap = route("Core.compact()", compaction_route)
+    print(f"    checkpoint sealed: {checkpoint_format(compactor['core'])}, "
+          f"{snap['counters'].get('checkpoint_bytes')} bytes, packed from the "
+          f"fold's rows: {snap['counters'].get('checkpoint_from_rows', 0) == 1}",
+          flush=True)
+    if snap["counters"].get("checkpoint_from_rows") != 1:
+        raise AssertionError("the compaction's checkpoint was not packed from "
+                             "the fold's stashed rows")
+
+    async def cold():
+        t0 = time.perf_counter()
+        core = await Core.open(config5_options(MemoryStorage(remote),
+                                               HostAccelerator()))
+        await core.read_remote()
+        return core, time.perf_counter() - t0
+
+    fresh, cold_s = asyncio.run(cold())
+    same = fresh.with_state(canonical_bytes) == host
+    print(f"  cold open of a fresh replica over the compacted remote: "
+          f"{cold_s:.3f}s, bytes equal to the host loop: {same}", flush=True)
+    if not same:
+        raise AssertionError("config 5: the compacted remote does not read back")
+    out["cold_open_s"] = cold_s
+    out["warm"] = warm_reopen(lambda: config5_options(storage, accel),
+                              compactor["core"], host)
+    return out
+
+
 # name -> (source, file:line of the TPU kernel's pallas_call, the Pallas
 # functions it stands for).  Both OR-Set entries run the bucketed kernels
 # of csrc/orset_fold.cu and differ in the range kernel's epilogue; K3
@@ -1738,6 +2016,14 @@ def main() -> int:
     build_s = cuda_build.build()
     print(f"  kernels built in {build_s:.2f}s", flush=True)
     print_build_log()
+    from crdt_enc_tpu_torch import native
+
+    for label, load in (("native library (crypto, codec, io)", native.load),
+                        ("state library (statebuild.cpp)", native.load_state)):
+        t0 = time.perf_counter()
+        load()
+        print(f"  {label} built and loaded in {time.perf_counter() - t0:.2f}s",
+              flush=True)
 
     print(f"== 3. kernels against plain (N={N}, E={E}, R={R}, S={MERGE_S})",
           flush=True)
@@ -1809,6 +2095,13 @@ def main() -> int:
     print(device_line(), flush=True)
     sessions = phase_sessions(files, actor_ids(R), "cuda")
     del files
+    gc.collect()
+
+    print(f"== 13. config 5 in the sparse regime (N={CFG5_N}, R={CFG5_R}, "
+          f"E={CFG5_E}, {COMPACT_OPS_PER_FILE} ops a file; encrypted "
+          "MemoryStorage)", flush=True)
+    print(device_line(), flush=True)
+    config5 = phase_config5("cuda")
 
     kernels = []
     for kname, (source, replaces, pallas) in KERNELS.items():
@@ -1828,10 +2121,15 @@ def main() -> int:
                 r: stream[r]["launches"] for r in ("fold_payloads", "fold_ops")}
             entry["session_launches"] = sessions["device_stream"]["launches"]
         entry["compaction_launches"] = compaction["launches"][kname]
+        entry["config5_launches"] = {
+            r: config5[r]["launches"][kname]
+            for r in ("session", "fold_encrypted_stream", "fold_payloads",
+                      "fold_ops", "Core.compact()")}
         kernels.append(entry)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"compaction": compaction}), flush=True)
     print(json.dumps({"stream": stream, "sessions": sessions}), flush=True)
+    print(json.dumps({"config5": config5}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

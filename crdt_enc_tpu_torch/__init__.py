@@ -5,12 +5,14 @@ module it needs is its own copy, and every Pallas kernel on its path is a
 hand-written CUDA kernel for Hopper (``csrc/``), built on first use.
 
 The port covers the compaction front end: ``Core`` (open, apply_ops,
-read_remote, compact) over the ``FsStorage`` / ``MemoryStorage``,
+read_remote, compact, and the local fold checkpoint that lets a
+replica reopen warm) over the ``FsStorage`` / ``MemoryStorage``,
 ``XChaChaCryptor`` and ``PlainKeyCryptor`` plugins, with the native
-decrypt and payload decode (``native/``), and the accelerator boundary
-``Core`` uses: ``TorchAccelerator.fold_ops`` and ``fold_payloads`` for
-OR-Set, G-/PN-Counter (and, per op, LWW-map) batches, and
-``TorchAccelerator.merge_states`` for OR-Sets.  Importing the package
+decrypt and payload decode and the native state assembly and canonical
+packer (``native/``), and the accelerator boundary ``Core`` uses:
+``TorchAccelerator.fold_ops`` and ``fold_payloads`` for OR-Set (the
+sparse regime included), G-/PN-Counter (and, per op, LWW-map) batches,
+and ``TorchAccelerator.merge_states`` for OR-Sets.  Importing the package
 loads torch and numpy only when a name below is first touched (PEP 562),
 so ``import crdt_enc_tpu_torch`` stays cheap and never needs a GPU.
 """

@@ -1,14 +1,15 @@
 """Filesystem storage backend — the production port over a synced directory.
 
-The port's copy of ``crdt_enc_tpu/backends/fs.py``, without the local
-checkpoint slot and the delta family.  The op-log scans run through the port's own native library
+The port's copy of ``crdt_enc_tpu/backends/fs.py``, without the delta
+family.  The op-log scans run through the port's own native library
 (``native/io.cpp``); a failed build raises — there is no per-file Python
 scan standing in for it.
 
 Rebuilds crdt-enc-tokio (crdt-enc-tokio/src/lib.rs) on asyncio + thread
 offload:
 
-* layout: ``local/meta-data.msgpack`` (lib.rs:51), ``remote/meta/<hash>``
+* layout: ``local/meta-data.msgpack`` (lib.rs:51), the warm-open
+  checkpoint ``local/checkpoint.msgpack``, ``remote/meta/<hash>``
   (lib.rs:79), ``remote/states/<hash>`` (lib.rs:139),
   ``remote/ops/<actor-hex>/<N>`` (lib.rs:247-257);
 * immutable content-addressed writes: SHA3-256 of the blob, base32-nopad
@@ -172,6 +173,9 @@ class FsStorage(Storage):
     def _local_meta_path(self) -> str:
         return os.path.join(self.local, "meta-data.msgpack")
 
+    def _local_checkpoint_path(self) -> str:
+        return os.path.join(self.local, "checkpoint.msgpack")
+
     def _meta_dir(self) -> str:
         return os.path.join(self.remote, "meta")
 
@@ -188,6 +192,21 @@ class FsStorage(Storage):
 
     async def store_local_meta(self, data: bytes) -> None:
         await self._run(_write_file_atomic, self._local_meta_path(), bytes(data))
+
+    # -- local fold checkpoint ---------------------------------------------
+    # The local meta's durability discipline: tmp + fsync + atomic rename,
+    # so a crash mid-write leaves the previous checkpoint (or none), never
+    # a torn blob.
+    async def load_local_checkpoint(self) -> bytes | None:
+        return await self._run(_read_file, self._local_checkpoint_path())
+
+    async def store_local_checkpoint(self, data: bytes) -> None:
+        await self._run(
+            _write_file_atomic, self._local_checkpoint_path(), bytes(data)
+        )
+
+    async def remove_local_checkpoint(self) -> None:
+        await self._run(_remove_quiet, self._local_checkpoint_path())
 
     # -- content-addressed families ---------------------------------------
     async def _list_ca(self, d: str) -> list[str]:

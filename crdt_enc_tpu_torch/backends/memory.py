@@ -1,6 +1,5 @@
 """In-memory storage backend: the port's copy of
-``crdt_enc_tpu/backends/memory.py`` without the checkpoint slot and the
-delta family.  Multi-replica tests share one ``MemoryRemote`` the way real
+``crdt_enc_tpu/backends/memory.py`` without the delta family.  Multi-replica tests share one ``MemoryRemote`` the way real
 replicas share a synced directory."""
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ class MemoryStorage(Storage):
     def __init__(self, remote: MemoryRemote | None = None):
         self.remote = remote if remote is not None else MemoryRemote()
         self._local_meta: bytes | None = None
+        self._local_checkpoint: bytes | None = None
 
     # -- local meta --------------------------------------------------------
     async def load_local_meta(self) -> bytes | None:
@@ -40,6 +40,16 @@ class MemoryStorage(Storage):
 
     async def store_local_meta(self, data: bytes) -> None:
         self._local_meta = bytes(data)
+
+    # -- local fold checkpoint ---------------------------------------------
+    async def load_local_checkpoint(self) -> bytes | None:
+        return self._local_checkpoint
+
+    async def store_local_checkpoint(self, data: bytes) -> None:
+        self._local_checkpoint = bytes(data)
+
+    async def remove_local_checkpoint(self) -> None:
+        self._local_checkpoint = None
 
     # -- remote metas ------------------------------------------------------
     async def list_remote_meta_names(self) -> list[str]:

@@ -33,11 +33,24 @@ on the bulk path unwraps every outer envelope, opens each sealing key's
 files in one native batch and hands the payloads to ``fold_payloads``,
 decoding per op only where the accelerator declines.
 
-Not copied (each still to port): local fold checkpoints, delta-state
-replication, strong reads and the stable prefix, replication sampling and
-the metrics sink, the payload-stream branch of the bulk path (no
-accelerator of the port reaches it: OR-Sets take the session), and the
-serving front end ``load_sealed_ops``.  A
+Local fold checkpoints: with ``OpenOptions.checkpoint`` on (the
+default), ``compact()`` ends by sealing the state, the ingest cursor and
+the read snapshots into the storage's local-checkpoint slot
+(``save_checkpoint``), and ``open`` restores them after verifying the
+fingerprint (adapter, actor, data version, latest key, remote-meta hash),
+so a reopen ingests only the op tails past the cursor; any doubt falls
+back to the cold refold with the reason recorded.  The payload keys are
+the JAX package's (``fmt``, ``state``, ``cursor``, ``rs``, ``fp``), so a
+checkpoint sealed by either package opens warm in the other; the slots of
+subsystems the port lacks (``cm``, ``rd``, ``snap``, ``sp``) are neither
+written nor read.
+
+Not copied (each still to port): the ``checkpoint_on_read`` reseal of
+consumer replicas, delta-state replication, strong reads
+and the stable prefix, replication sampling and the metrics sink, the
+payload-stream branch of the bulk path (no accelerator of the port
+reaches it: OR-Sets take the session), the fold service's pre-packed
+checkpoint payload, and the serving front end ``load_sealed_ops``.  A
 reader of either package full-loads a snapshot that carries no delta
 chain, so dropping the delta seal changes nothing on the wire.
 """
@@ -45,6 +58,7 @@ chain, so dropping the delta seal changes nothing on the wire.
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import logging
 import uuid
 from dataclasses import dataclass, field
@@ -65,6 +79,10 @@ from .storage import Storage
 
 IO_CONCURRENCY = 16  # bounded pipeline width (reference lib.rs:452,512)
 BULK_MIN_FILES = 16  # below this the per-file asyncio path is cheaper
+
+# local fold-checkpoint payload formats (the JAX package's)
+CHECKPOINT_FMT_OBJ = 0  # adapter.state_to_obj (any CRDT type)
+CHECKPOINT_FMT_ORSET = 1  # ops/columnar.py orset_pack_checkpoint
 
 logger = logging.getLogger("crdt_enc_tpu_torch.core")
 
@@ -218,6 +236,23 @@ class OpenOptions:
     # ``TorchAccelerator(device="cpu")`` or ``HostAccelerator()`` to stay
     # on the host
     accelerator: object = field(default_factory=lambda: _default_accelerator())
+    # local fold checkpoints: with ``checkpoint`` on, compact() seals a
+    # warm-open resume point through the storage's local-checkpoint slot
+    # and open() restores it after verification (falling back to the
+    # cold refold on any mismatch).
+    checkpoint: bool = True
+
+
+def unpack_checkpoint_state(adapter, fmt: int, st):
+    """Decode a checkpoint's state payload: the one implementation of the
+    format dispatch."""
+    if fmt == CHECKPOINT_FMT_ORSET:
+        from ..ops.columnar import orset_unpack_checkpoint
+
+        return orset_unpack_checkpoint(st)
+    if fmt == CHECKPOINT_FMT_OBJ:
+        return adapter.state_from_obj(st)
+    raise CoreError(f"unknown checkpoint format {fmt!r}")
 
 
 def _default_accelerator():
@@ -266,16 +301,25 @@ class Core:
         # writer-side dot-reuse guard (_ensure_own_history): the first
         # write of this incarnation probes for un-refolded own history
         self._own_history_checked = False
+        self._checkpoint_enabled = opts.checkpoint
+        # warm-open outcome: whether open() restored the local checkpoint,
+        # and why a present one was rejected
+        self.opened_from_checkpoint = False
+        self.checkpoint_fallback_reason: str | None = None
+        # SHA3 of the canonical converged RemoteMeta; dropped at every
+        # meta merge
+        self._remote_id_cache: bytes | None = None
 
     # ------------------------------------------------------------------ open
     @classmethod
     async def open(cls, opts: OpenOptions) -> "Core":
         core = cls(opts)
-        # build the native library off the event loop before the first
-        # seal or scan needs it (a failed build raises here)
+        # build the native libraries off the event loop before the first
+        # pack, seal or scan needs them (a failed build raises here)
         from .. import native
 
         await asyncio.to_thread(native.load)
+        await asyncio.to_thread(native.load_state)
         raw = await core.storage.load_local_meta()
         if raw is None:
             if not opts.create:
@@ -307,6 +351,8 @@ class Core:
                 raise MissingKeyError(
                     "key cryptor did not install a latest key at open"
                 )
+        if opts.checkpoint:
+            await core._open_from_checkpoint()
         return core
 
     async def _store_local_meta(self) -> None:
@@ -414,6 +460,172 @@ class Core:
         Rotation never re-encrypts data: every blob's outer layer records
         its sealing key id, and old keys stay in the Keys CRDT."""
         return await self._install_new_key()
+
+    # ------------------------------------------------------ fold checkpoints
+    def _checkpoint_fingerprint(self) -> dict:
+        """The warm-open validity seal: a checkpoint is only installable
+        into a replica whose adapter, identity, data version, key
+        generation (the latest data-key id: rotation invalidates) and
+        converged remote metadata all match the sealing replica's.  The
+        meta hash covers the canonical packed RemoteMeta, so a plugin
+        config or key-register change on the remote (a wiped and
+        recreated remote included) forces a cold refold."""
+        latest = self._data.keys.latest_key()
+        return {
+            b"a": self.adapter.name,
+            b"id": self.actor_id,
+            b"dv": self.current_data_version,
+            b"key": latest.id if latest is not None else b"",
+            b"meta": self._remote_id(),
+        }
+
+    def _remote_id(self) -> bytes:
+        """SHA3 of the canonical converged RemoteMeta: the identity of the
+        remote this replica is attached to.  Cached; every meta merge
+        drops the cache."""
+        if self._remote_id_cache is None:
+            self._remote_id_cache = hashlib.sha3_256(
+                codec.pack(self._data.remote_meta.to_obj())
+            ).digest()
+        return self._remote_id_cache
+
+    def _pack_checkpoint_state(self):
+        """``(fmt, obj)`` for the current state: the columnar ORSet
+        encoding when it applies losslessly, else the adapter's object
+        form (the compacted snapshot's payload).
+
+        A fresh sparse fold stashes its surviving rows on the state
+        (``_ckpt_rows``, ops/columnar.py ``_orset_fresh_fold_native``);
+        while the state's epoch still equals the one recorded there, the
+        checkpoint packs straight from those rows with no dict walk, and
+        ``checkpoint_from_rows`` counts it."""
+        from ..models.orset import ORSet
+
+        state = self._data.state
+        if type(state) is ORSet:
+            from ..ops.columnar import (
+                orset_pack_checkpoint,
+                orset_pack_checkpoint_rows,
+            )
+
+            stash = getattr(state, "_ckpt_rows", None)
+            if stash is not None:
+                # consumed either way: a stale stash is dead weight, and a
+                # used one has served its purpose
+                state._ckpt_rows = None
+                if stash[0] == state._mut:
+                    trace.add("checkpoint_from_rows", 1)
+                    return (CHECKPOINT_FMT_ORSET,
+                            orset_pack_checkpoint_rows(*stash[1]))
+            obj = orset_pack_checkpoint(state)
+            if obj is not None:
+                return CHECKPOINT_FMT_ORSET, obj
+        return CHECKPOINT_FMT_OBJ, self.adapter.state_to_obj(state)
+
+    async def save_checkpoint(self) -> bool:
+        """Seal the materialized state, the ingest cursor and the
+        read-snapshot set as this replica's local warm-open checkpoint
+        (sealed with the data-key cryptor, stored through the storage's
+        atomic local-checkpoint slot).  A later ``open`` restores it and
+        ingests only the op tails past the cursor.  Returns False when
+        checkpointing is off on this core."""
+        if not self._checkpoint_enabled:
+            return False
+        with trace.span("checkpoint.save"):
+            # sync section: every mutable input is materialized before the
+            # first await, so a concurrent apply cannot tear the (state,
+            # cursor) pair
+            d = self._data
+            fmt, st = self._pack_checkpoint_state()
+            payload = {
+                b"fmt": fmt,
+                b"state": st,
+                b"cursor": d.next_op_versions.to_obj(),
+                b"rs": sorted(d.read_states),
+                b"fp": self._checkpoint_fingerprint(),
+            }
+            blob = await self._seal(payload)
+            await self.storage.store_local_checkpoint(blob)
+            trace.add("checkpoint_bytes", len(blob))
+        return True
+
+    async def _checkpoint_fallback(self, reason: str) -> bool:
+        """Record why a present checkpoint was rejected (the
+        ``checkpoint_fallbacks`` counter and ``checkpoint_fallback_reason``),
+        drop the rejected blob, and signal the cold path."""
+        self.checkpoint_fallback_reason = reason
+        trace.add("checkpoint_fallbacks", 1)
+        logger.info("local checkpoint rejected (%s); opening cold", reason)
+        await self.storage.remove_local_checkpoint()
+        return False
+
+    @staticmethod
+    def _fp_bytes(v) -> bytes | None:
+        return bytes(v) if isinstance(v, (bytes, bytearray, memoryview)) else None
+
+    async def _open_from_checkpoint(self) -> bool:
+        """Restore the local fold checkpoint if one exists and verifies:
+        it decrypts under a known key, its fingerprint is current, and its
+        cursor is still traceable against the remote listing.  A torn
+        file, a decrypt failure or any mismatch falls back to the cold
+        refold with the reason recorded — a checkpoint is a cache, never a
+        source of truth.  Slots the port does not read (``cm``, ``rd``,
+        ``snap``, ``sp`` of a JAX-sealed checkpoint) are ignored."""
+        raw = await self.storage.load_local_checkpoint()
+        if raw is None:
+            return False
+        with trace.span("checkpoint.load"):
+            try:
+                obj = await self._open_sealed(raw)
+            except Exception:
+                logger.debug("checkpoint undecryptable", exc_info=True)
+                return await self._checkpoint_fallback("unreadable")
+            with trace.span("checkpoint.verify"):
+                try:
+                    fp = dict(obj[b"fp"])
+                    fmt = int(obj[b"fmt"])
+                    cursor = VClock.from_obj(obj[b"cursor"])
+                    read_states = {str(n) for n in obj[b"rs"]}
+                except Exception:
+                    logger.debug("checkpoint malformed", exc_info=True)
+                    return await self._checkpoint_fallback("malformed")
+                expected = self._checkpoint_fingerprint()
+                for field_key, reason in (
+                    (b"a", "adapter"),
+                    (b"id", "actor"),
+                    (b"dv", "data_version"),
+                    (b"key", "key_rotation"),
+                    (b"meta", "remote_meta"),
+                ):
+                    if self._fp_bytes(fp.get(field_key)) != expected[field_key]:
+                        return await self._checkpoint_fallback(reason)
+                # cursor ⊆ remote listing: every actor the checkpoint
+                # claims folded must still have its op log listed, or a
+                # snapshot must exist (compaction GCs op logs into
+                # snapshots; the CvRDT merge of read_remote converges
+                # either way).  A remote with neither is not the remote
+                # this checkpoint came from.
+                if cursor.counters:
+                    op_actors = set(await self.storage.list_op_actors())
+                    covered = set(cursor.counters) <= op_actors or bool(
+                        await self.storage.list_state_names()
+                    )
+                    if not covered:
+                        return await self._checkpoint_fallback("cursor")
+                try:
+                    state = unpack_checkpoint_state(
+                        self.adapter, fmt, obj[b"state"])
+                except Exception:
+                    logger.debug("checkpoint state undecodable", exc_info=True)
+                    return await self._checkpoint_fallback("malformed")
+            # sync install section: the resume point becomes the live
+            # replica state; read_remote ingests only past the cursor
+            d = self._data
+            d.state = state
+            d.next_op_versions = cursor
+            d.read_states = read_states
+        self.opened_from_checkpoint = True
+        return True
 
     # ------------------------------------------------------- wire (3 layers)
     def _latest_key(self) -> Key:
@@ -1073,7 +1285,7 @@ class Core:
                 trace.add("op_files_bulk_folded", len(payloads))
                 return
             # the accelerator declined (non-columnar state, vocabulary
-            # collision, sparse regime): decode per op, fold as one batch
+            # collision): decode per op, fold as one batch
             batch = []
             for p in payloads:
                 batch.extend(
@@ -1174,6 +1386,10 @@ class Core:
         # sync bookkeeping section
         d.read_states.difference_update(stale_states)
         d.read_states.add(name)
+        if self._checkpoint_enabled:
+            # the freshly compacted state is the ideal warm-open resume
+            # point: everything folded, op logs collected to the cursor
+            await self.save_checkpoint()
 
     # ------------------------------------------------- remote meta lifecycle
     async def _read_remote_meta(self, force_notify: bool = False) -> None:
@@ -1193,6 +1409,7 @@ class Core:
                 self._data.remote_meta.merge(
                     RemoteMeta.from_obj(codec.unpack(vb.content))
                 )
+                self._remote_id_cache = None
                 self._data.read_metas.add(name)
             if loaded or force_notify:
                 rm = self._data.remote_meta
@@ -1227,14 +1444,17 @@ class Core:
     async def set_remote_meta_storage(self, reg: MVReg) -> None:
         async with self._meta_lock:
             self._data.remote_meta.storage.merge(reg)
+            self._remote_id_cache = None
             await self._store_remote_meta()
 
     async def set_remote_meta_cryptor(self, reg: MVReg) -> None:
         async with self._meta_lock:
             self._data.remote_meta.cryptor.merge(reg)
+            self._remote_id_cache = None
             await self._store_remote_meta()
 
     async def set_remote_meta_key_cryptor(self, reg: MVReg) -> None:
         async with self._meta_lock:
             self._data.remote_meta.key_cryptor.merge(reg)
+            self._remote_id_cache = None
             await self._store_remote_meta()

@@ -1,8 +1,7 @@
 """Storage port: abstract persistence over four object families.
 
-The port's copy of ``crdt_enc_tpu/core/storage.py`` without the local
-fold-checkpoint slot and the delta-snapshot family (the port's ``Core``
-uses neither).
+The port's copy of ``crdt_enc_tpu/core/storage.py`` without the
+delta-snapshot family (the port's ``Core`` seals no deltas).
 
 Mirrors the reference Storage trait (crdt-enc/src/storage.rs:8-43): local
 meta (one mutable blob), remote metas / states (immutable content-addressed
@@ -34,6 +33,24 @@ class Storage(ABC):
 
     @abstractmethod
     async def store_local_meta(self, data: bytes) -> None: ...
+
+    # -- local fold checkpoint (mutable, private, a pure CACHE) ------------
+    # The warm-open resume point (core.py save_checkpoint): one sealed
+    # blob per replica holding the materialized state + ingest cursor.
+    # Contract: strictly local (never synced, never GC'd by remote
+    # compaction), atomic (readers see the old blob or the new one, never
+    # a torn mix — fs backends write tmp + fsync + rename), and DISPOSABLE
+    # — the core verifies every load and falls back to a cold refold on
+    # any mismatch, so a backend may drop the blob at any time.  These
+    # defaults implement "no local cache": loads miss, stores are no-ops.
+    async def load_local_checkpoint(self) -> bytes | None:
+        return None
+
+    async def store_local_checkpoint(self, data: bytes) -> None:
+        pass
+
+    async def remove_local_checkpoint(self) -> None:
+        pass
 
     # -- remote metas (immutable, content-addressed) -----------------------
     @abstractmethod

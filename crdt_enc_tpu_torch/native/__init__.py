@@ -1,4 +1,4 @@
-"""ctypes loader for the port's native library.
+"""ctypes loaders for the port's two native libraries.
 
 ``crypto.cpp``, ``codec.cpp`` and ``io.cpp`` are the port's copies of the
 JAX package's native sources (the XChaCha20-Poly1305 AEAD, the columnar
@@ -7,8 +7,17 @@ with ``c++`` into ``build/libcrdtnative-<hash>.so`` inside the package at
 first use — the hash covers the sources, the flags and what
 ``-march=native`` means on this host, so an edited source or another CPU
 rebuilds and a stale library is never loaded — and binds the entry points
-the port calls.  A failed build raises, every time it is asked for: no
-caller of this module carries on without the library.
+the port calls.  Its calls release the GIL (``ctypes.CDLL``).
+
+``statebuild.cpp`` (the fresh sparse fold, the dict assembly and the
+canonical packer) builds the same way into ``build/libcrdtstate-<hash>.so``
+through :func:`load_state`, against this interpreter's own headers — the
+hash also covers their directory and the interpreter's ABI tag, so
+another Python rebuilds.  It creates Python objects, so it is a library of
+its own loaded with ``ctypes.PyDLL``, whose calls hold the GIL.
+
+A failed build raises, every time it is asked for: no caller of this
+module carries on without a library.
 """
 
 from __future__ import annotations
@@ -18,16 +27,19 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 BUILD = HERE.parent / "build"
 SOURCES = ("crypto.cpp", "codec.cpp", "io.cpp")
+STATE_SOURCES = ("statebuild.cpp",)
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_state_lib: ctypes.PyDLL | None = None
 
 u8p = ctypes.POINTER(ctypes.c_uint8)
 u64p = ctypes.POINTER(ctypes.c_uint64)
@@ -57,21 +69,39 @@ def _target() -> bytes:
     return proc.stdout.encode()
 
 
-def lib_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+def _lib_path(stem: str, sources, flags, extra: str = "") -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(extra.encode())
     h.update(_target())
-    for name in SOURCES:
+    for name in sources:
         h.update((HERE / name).read_bytes())
-    return BUILD / f"libcrdtnative-{h.hexdigest()[:16]}.so"
+    return BUILD / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
-def _compile(out: Path) -> None:
+def lib_path() -> Path:
+    return _lib_path("libcrdtnative", SOURCES, CXX_FLAGS)
+
+
+def state_flags() -> tuple:
+    """The state library's flags: the common ones and this interpreter's
+    header directory."""
+    return (*CXX_FLAGS, f"-I{sysconfig.get_paths()['include']}")
+
+
+def state_lib_path() -> Path:
+    """The name hashes the flags (so the header directory) and the
+    interpreter's ABI tag besides what :func:`lib_path` hashes."""
+    return _lib_path("libcrdtstate", STATE_SOURCES, state_flags(),
+                     sysconfig.get_config_var("SOABI") or "")
+
+
+def _compile(out: Path, sources=SOURCES, flags=CXX_FLAGS) -> None:
     cxx = _cxx()
     BUILD.mkdir(parents=True, exist_ok=True)
     # a private temporary, renamed into place: concurrent processes each
     # build their own and the last rename wins with identical bytes
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), *(str(HERE / s) for s in SOURCES)]
+    cmd = [cxx, *flags, "-o", str(tmp), *(str(HERE / s) for s in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -95,6 +125,48 @@ def load() -> ctypes.CDLL:
             _bind(lib)
             _lib = lib
         return _lib
+
+
+def load_state() -> ctypes.PyDLL:
+    """The C-API state-assembly library (``statebuild.cpp``), compiled
+    first if its build is missing.  Raises with the compiler's output if
+    the build fails — a missing ``Python.h`` included."""
+    global _state_lib
+    with _lock:
+        if _state_lib is None:
+            path = state_lib_path()
+            if not path.exists():
+                _compile(path, STATE_SOURCES, state_flags())
+            lib = ctypes.PyDLL(str(path))
+            _bind_state(lib)
+            _state_lib = lib
+        return _state_lib
+
+
+def _bind_state(lib) -> None:
+    # split fresh fold: a rows handle out (counts = the capacities of the
+    # later take), then a sized copy-out that frees it
+    lib.orset_fold_rows.argtypes = [
+        i8p, i32p, i32p, i32p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, i32p, i64p,
+    ]
+    lib.orset_fold_rows.restype = ctypes.c_void_p
+    lib.orset_fold_rows_take.argtypes = [
+        ctypes.c_void_p, i32p, i32p, i64p, ctypes.c_int64,
+        i32p, i32p, i64p, ctypes.c_int64,
+    ]
+    lib.orset_fold_rows_take.restype = ctypes.c_int
+    lib.orset_fold_rows_drop.argtypes = [ctypes.c_void_p]
+    lib.orset_fold_rows_drop.restype = None
+    lib.dense_clock_dict.argtypes = [i32p, ctypes.c_int64, ctypes.py_object]
+    lib.dense_clock_dict.restype = ctypes.py_object
+    lib.grouped_rows_dicts.argtypes = [
+        i32p, i32p, i64p, ctypes.c_int64,
+        ctypes.py_object, ctypes.py_object, ctypes.py_object,
+    ]
+    lib.grouped_rows_dicts.restype = ctypes.c_int
+    lib.canon_pack.argtypes = [ctypes.py_object]
+    lib.canon_pack.restype = ctypes.py_object
 
 
 def _bind(lib) -> None:

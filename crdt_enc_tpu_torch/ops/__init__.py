@@ -1,7 +1,8 @@
-"""Dense ops of the port: host↔tensor conversion (``columnar``), the
-OR-Set fold and merge (``orset``), the counter folds (``counters``), the
-LWW-map fold (``lww``), and their CUDA kernels (``orset_fold_cuda``,
-``orset_merge_cuda``, ``lww_fold_cuda``, built by ``cuda_build``)."""
+"""Dense ops of the port: host↔tensor conversion and the sparse host fold
+(``columnar``), the OR-Set fold and merge (``orset``), the
+counter folds (``counters``), the LWW-map fold (``lww``), and their CUDA
+kernels (``orset_fold_cuda``, ``orset_merge_cuda``, ``lww_fold_cuda``,
+built by ``cuda_build``)."""
 
 from .columnar import (
     KIND_ADD,
@@ -13,6 +14,8 @@ from .columnar import (
     counter_ops_to_columns,
     dense_to_vclock,
     lww_ops_to_columns,
+    orset_apply_coo,
+    orset_fold_sparse_host,
     orset_ops_to_columns,
     orset_planes_to_state,
     orset_scan_vocab,
@@ -54,7 +57,9 @@ __all__ = [
     "lww_table_wins",
     "merge_rule",
     "orset_apply_batch_planes",
+    "orset_apply_coo",
     "orset_fold",
+    "orset_fold_sparse_host",
     "orset_merge",
     "orset_merge_many",
     "orset_ops_to_columns",

@@ -12,8 +12,10 @@ small batches and every other type take the host loop.  ``fold_payloads``
 is the core's whole-batch bulk route: decrypted OR-Set and counter
 op-file payloads decode natively into columns and fold on the device
 without per-op Python objects.  OR-Set batches past ``STREAM_CHUNK_ROWS``
-rows fold blockwise (ops/stream.py), whichever entry point they come
-through.  ``merge_states`` merges three or more ORSets on the device.
+rows fold blockwise (ops/stream.py), and OR-Set batches in the sparse
+regime (few rows over a huge vocabulary) fold by one sort on the host
+(``orset_fold_sparse_host``), whichever entry point they come through.
+``merge_states`` merges three or more ORSets on the device.
 ``open_fold_session`` (parallel/session.py) feeds the core's pipelined
 ingest chunk by chunk; ``fold_encrypted_stream`` runs decrypt, decode and
 fold as one overlapped pipeline.
@@ -42,9 +44,9 @@ from ..ops.columnar import (
     counter_ops_to_columns,
     dense_to_vclock,
     lww_ops_to_columns,
+    orset_fold_sparse_host,
     orset_ops_to_columns,
     orset_planes_to_state,
-    orset_rows_to_ops,
     orset_scan_vocab,
     orset_state_to_planes,
     vclock_to_dense,
@@ -65,9 +67,10 @@ ENCRYPTED_STREAM_CHUNKS = 8  # fold_encrypted_stream's pipeline chunks
 
 class TorchAccelerator(HostAccelerator):
     """Folds ORSet, PNCounter, GCounter and LWWMap op batches and merges
-    three or more ORSet states on the device; anything else — other state
-    types, batches below ``min_device_batch``, sparse OR-Set batches over
-    huge vocabularies — takes the host loops.
+    three or more ORSet states on the device; other state types and
+    batches below ``min_device_batch`` take the host loops.  Sparse
+    OR-Set batches over huge vocabularies fold with the vectorized host
+    fold, as in the JAX package.
 
     ``device``: ``None`` means ``"cuda"``, and then CUDA must be
     available: the accelerator raises rather than carry on silently on
@@ -132,12 +135,10 @@ class TorchAccelerator(HostAccelerator):
         E, R = len(members), len(replicas)
         if E == 0 or R == 0:
             return state
-        n_rows = len(cols.kind)
-        if self._use_sparse(E, R, n_rows):
-            # N ≪ E·R: dense planes would be mostly zeros to ship.  The
-            # JAX package runs this regime on the host too (its
-            # vectorized orset_fold_sparse_host, not yet copied here).
-            return super().fold_ops(state, ops)
+        if self._use_sparse(E, R, len(cols.kind)):
+            return orset_fold_sparse_host(
+                state, cols.kind, cols.member, cols.actor, cols.counter,
+                members, replicas)
         return self._fold_orset_columns(state, cols, members, replicas)
 
     def _fold_orset_columns(self, state: ORSet, cols, members: Vocab,
@@ -188,10 +189,9 @@ class TorchAccelerator(HostAccelerator):
         ``STREAM_CHUNK_ROWS`` rows fold blockwise.  Returns False — with
         ``state`` untouched — where the caller must decode per op and call
         ``fold_ops`` instead: any other state type, a payload the native
-        decoder declines (unknown actor, counter past int32), a member
-        vocabulary that collapses as Python values, and OR-Set batches in
-        the sparse regime (its vectorized host fold is not ported;
-        ``fold_ops`` takes the host loop there)."""
+        decoder declines (unknown actor, counter past int32), and a member
+        vocabulary that collapses as Python values.  OR-Set batches in the
+        sparse regime fold through the sparse route."""
         if isinstance(state, (GCounter, PNCounter)):
             return self._fold_counter_payloads(state, payloads, actors_hint)
         if not isinstance(state, ORSet):
@@ -239,7 +239,9 @@ class TorchAccelerator(HostAccelerator):
         with trace.span("fold.vocab"):
             orset_scan_vocab(state, members, replicas)
         if self._use_sparse(len(members), len(replicas), len(kind)):
-            return False
+            orset_fold_sparse_host(state, kind, member_idx, actor_idx,
+                                   counter, members, replicas)
+            return True
         cols = OrsetColumns(kind, member_idx, actor_idx, counter, members, replicas)
         self._fold_orset_columns(state, cols, members, replicas)
         return True
@@ -249,18 +251,14 @@ class TorchAccelerator(HostAccelerator):
         """The JAX ``_fold_orset_columns`` contract over row columns whose
         member and actor indices point into ``members`` and ``replicas``
         (a fold session's buffered rows): the state's vocabulary scanned
-        in, then the dense or blockwise fold, or — in the sparse regime —
-        the host loop over the rows as op objects (one single-actor
-        remove per remove row, which the host apply treats actor by
-        actor, so the state is the same)."""
+        in, then the dense or blockwise fold, or the sparse route."""
         orset_scan_vocab(state, members, replicas)
         E, R = len(members), len(replicas)
         if E == 0 or R == 0:
             return state
         if self._use_sparse(E, R, len(kind)):
-            ops = orset_rows_to_ops(kind, member, actor, counter, members,
-                                    replicas)
-            return super().fold_ops(state, ops)
+            return orset_fold_sparse_host(state, kind, member, actor,
+                                          counter, members, replicas)
         cols = OrsetColumns(kind, member, actor, counter, members, replicas)
         return self._fold_orset_columns(state, cols, members, replicas)
 

@@ -4,13 +4,16 @@ The port's copy of ``crdt_enc_tpu/parallel/session.py``.  A session takes
 decrypted op-file payloads chunk by chunk (fed by the core's pipelined
 reader, ``Core._read_remote_ops_pipelined``) and folds them into one CRDT
 state with memory bounded by the chunk size.  Only ``finish()`` mutates
-the state, and it bumps the state's epoch once.
+the state, and it bumps the state's epoch.
 
 Three modes for the OR-Set, chosen by regime:
 
 * **BUFFER** — small ingests accumulate columns and fold once at finish
-  through the accelerator's regime-picking tail (the host loop in the
-  sparse regime, else the dense or blockwise device fold).  The session
+  through the accelerator's regime-picking tail (the vectorized sparse
+  fold in the sparse regime — natively, stashing its rows for the
+  checkpoint, into an empty state — else the dense or blockwise device
+  fold); the fold bumps the state's epoch itself and nothing after it
+  does, so the stash stays valid.  The session
   leaves BUFFER as soon as the buffered column bytes pass
   ``BUFFER_BYTES``.
 * **HOST_REDUCE** — while the dense planes are small against the row

@@ -1,4 +1,4 @@
-"""Canonical msgpack encoding and decoding, in pure Python.
+"""Canonical msgpack encoding and decoding.
 
 The port's copy of ``pack`` and ``unpack`` from
 ``crdt_enc_tpu/utils/codec.py``.  ``pack`` gives the same bytes for the
@@ -11,9 +11,13 @@ strict_map_key=False, use_list=False)`` does: arrays come back as tuples
 (so composite map keys such as dots stay hashable), bin as ``bytes``, str
 as ``str``; truncated or trailing input raises ``ValueError``.
 
-Both are written out here rather than imported from the ``msgpack`` wheel
-so the port runs where that wheel is absent.  The JAX package's native
-``canon_pack`` fast path is not copied.
+``pack`` runs the native canonical packer (``canon_pack`` of
+``native/statebuild.cpp``) and falls back to :func:`pack_py`, the plain
+Python walk, only where the packer declines an object it does not handle
+(sets, numpy scalars, subclasses, integers past 64 bits).  A failed build
+of the native library raises.  Both are written out here rather than
+imported from the ``msgpack`` wheel so the port runs where that wheel is
+absent.
 """
 
 from __future__ import annotations
@@ -31,8 +35,24 @@ _pack_i64 = struct.Struct(">q").pack
 _pack_f64 = struct.Struct(">d").pack
 
 
+_native_pack = None  # the bound canon_pack, resolved at first use
+
+
 def pack(obj) -> bytes:
-    """Deterministic msgpack: sorted map keys, bin type for bytes."""
+    """Deterministic msgpack: sorted map keys, bin type for bytes.  The
+    native packer first; :func:`pack_py` where it declines."""
+    global _native_pack
+    if _native_pack is None:
+        from .. import native
+
+        _native_pack = native.load_state().canon_pack
+    out = _native_pack(obj)
+    return out if out is not None else pack_py(obj)
+
+
+def pack_py(obj) -> bytes:
+    """The plain Python packer: the same bytes as the native one on every
+    object that one takes, and the only packer of what it declines."""
     out: list[bytes] = []
     _pack_into(obj, out)
     return b"".join(out)

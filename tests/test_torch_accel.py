@@ -200,15 +200,25 @@ def test_small_batch_takes_the_host_loop():
 
 
 def test_sparse_regime_takes_the_host_loop():
+    """The sparse regime stays on the host, through the vectorized sparse
+    fold (natively into an empty state), not the device and not the
+    per-op loop; equal to the host loop and to ``TpuAccelerator`` in the
+    same regime."""
     accel = cpu_accel()
     accel.SPARSE_MIN_CELLS = 0
     accel.SPARSE_CELLS_PER_ROW = 0
     _, ops = jax_script(200, 10, 9)
     trace.reset()
     t = accel.fold_ops(ORSet(), port_ops(ops))
-    assert "fold.device" not in trace.snapshot()["spans"]
+    spans = trace.snapshot()["spans"]
+    assert "fold.device" not in spans
+    assert spans["session.sparse_fold"]["count"] == 1
     h = HostAccelerator().fold_ops(ORSet(), port_ops(ops))
-    assert canonical_bytes(t) == canonical_bytes(h)
+    jacc = TpuAccelerator(min_device_batch=1)
+    jacc.SPARSE_MIN_CELLS = 0
+    jacc.SPARSE_CELLS_PER_ROW = 0
+    j = jacc.fold_ops(JORSet(), list(ops))
+    assert canonical_bytes(t) == canonical_bytes(h) == j_canonical_bytes(j)
 
 
 def test_batches_past_the_stream_bound_raise():

@@ -348,18 +348,41 @@ def test_fold_payloads_counters_match_the_jax_accelerator(kind):
     assert canonical_bytes(state) == j_canonical_bytes(ref)
 
 
+@pytest.mark.parametrize("prior", [False, True])
+def test_fold_payloads_sparse_regime_matches_the_jax_accelerator(prior):
+    """The sparse regime (once a decline) folds: ``fold_payloads`` returns
+    True through the vectorized sparse fold, equal to the JAX accelerator
+    in the same regime and to the host loop, with no device fold."""
+    adapter = orset_adapter()
+    state = ORSet()
+    if prior:
+        HostAccelerator().fold_ops(state, [
+            adapter.op_from_obj(o) for p in orset_files(9, 8) for o in jcodec.unpack(p)
+        ])
+    payloads = orset_files(2)
+    ref = jstate(state, jadapters.orset_adapter())
+    host = ORSet.from_obj(state.to_obj())
+    acc, jacc = torch_accel(), TpuAccelerator(min_device_batch=1)
+    for a in (acc, jacc):
+        a.SPARSE_MIN_CELLS = 0
+        a.SPARSE_CELLS_PER_ROW = 0
+    trace.reset()
+    assert acc.fold_payloads(state, payloads, actors_hint=ACTORS) is True
+    assert "fold.device" not in trace.snapshot()["spans"]
+    assert jacc.fold_payloads(ref, payloads, actors_hint=ACTORS)
+    HostAccelerator().fold_ops(host, [
+        adapter.op_from_obj(o) for p in payloads for o in jcodec.unpack(p)
+    ])
+    assert canonical_bytes(state) == j_canonical_bytes(ref) == canonical_bytes(host)
+
+
 def decline_cases():
     """name -> (state factory, payloads, accelerator tweak)."""
     a = ACTORS[0]
     collide = [jcodec.pack([[0, 1, [a, 1]], [0, True, [a, 2]], [0, b"x", [a, 3]]])]
 
-    def sparse(acc):
-        acc.SPARSE_MIN_CELLS = 0
-        acc.SPARSE_CELLS_PER_ROW = 0
-
     return {
         "member collision (1 and True)": (ORSet, collide, None),
-        "sparse regime": (ORSet, orset_files(2), sparse),
         "unknown actor": (ORSet, [jcodec.pack([[0, 1, [uuid.UUID(int=99).bytes, 1]]])], None),
         "G-Counter dot past int32": (GCounter, [jcodec.pack([[a, 2**31 + 5]])], None),
         "PN-Counter dot past int32": (PNCounter, [jcodec.pack([[1, [a, 2**32 + 1]]])], None),

@@ -162,6 +162,17 @@ SESSION_FEED_FILES = 2048
 # e2e): 200k ops over 100k replicas and 1,024 members, up to 48 ops a file
 # within one actor, from gen_columns' seed 5
 CFG5_N, CFG5_R, CFG5_E, CFG5_SEED = 200_000, 100_000, 1024, 5
+# phase 14: the plane cache's three config-3 batches (the first is phase
+# 3's), and the incremental compaction's 1% tails (10,000 ops a round, as
+# COMPACT_OPS_PER_FILE-op files)
+CACHE_SEEDS = (SEED, SEED2, 13)
+TAIL_OPS, TAIL_SEED = 10_000, 14
+# phase 14c: the plane cache through Core.compact() where the dense route
+# takes the tails: config 3's 4,096 members over config 2's 1,000
+# replicas (E*R = 4,096,000 cells, below SPARSE_MIN_CELLS = 2^22), a
+# 100,000-op history (config 2's count) and 1% tails
+CC_E, CC_R, CC_N, CC_SEED = 4096, PN_R, PN_N, 15
+CC_TAIL_OPS, CC_ROUNDS, CC_TAIL_SEED = 1_000, 4, 16
 
 # peak device-memory rates (NVIDIA data sheets); float32 outside the
 # tensor cores is the table's nearest rate for the kernels' int32 ALU work
@@ -218,6 +229,30 @@ def ops_from_columns(kind, member, actor, counter, actors: list):
         else:
             ops.append(RmOp(m, VClock({actors[a]: c})))
     return ops
+
+
+_LOOP = None
+
+
+def run_async(coro):
+    """Run ``coro`` to its end on the script's one event loop: phase 14
+    compacts again with phase 10's cores, whose storages' semaphores are
+    bound to the loop they first waited on."""
+    import asyncio
+
+    global _LOOP
+    if _LOOP is None:
+        _LOOP = asyncio.new_event_loop()
+    return _LOOP.run_until_complete(coro)
+
+
+def close_loop() -> None:
+    """Stop the script's event loop and its worker threads."""
+    global _LOOP
+    if _LOOP is not None:
+        _LOOP.run_until_complete(_LOOP.shutdown_default_executor())
+        _LOOP.close()
+        _LOOP = None
 
 
 def device_line() -> str:
@@ -1157,7 +1192,7 @@ def compaction_files(cols, actors: list) -> list:
     return out
 
 
-def compaction_options(root, local: str, remote, accel):
+def compaction_options(root, local: str, remote, accel, **kw):
     from crdt_enc_tpu_torch import (
         FsStorage, OpenOptions, PlainKeyCryptor, XChaChaCryptor, orset_adapter,
     )
@@ -1167,7 +1202,7 @@ def compaction_options(root, local: str, remote, accel):
         storage=FsStorage(os.path.join(root, local), str(remote)),
         cryptor=XChaChaCryptor(), key_cryptor=PlainKeyCryptor(),
         adapter=orset_adapter(), supported_data_versions=(version,),
-        current_data_version=version, create=True, accelerator=accel,
+        current_data_version=version, create=True, accelerator=accel, **kw,
     )
 
 
@@ -1248,8 +1283,9 @@ COMPACTION_SPANS = (
     "ops.load",
     "ops.bulk_unwrap", "ops.bulk_decrypt", "ops.bulk_fold", "fold.decode",
     "fold.vocab", "fold.planes", "fold.device", "fold.writeback",
-    "compact.ingest", "compact.seal", "compact.write", "compact.gc",
-    "checkpoint.save", "checkpoint.load", "checkpoint.verify",
+    "compact.ingest", "compact.seal", "compact.write", "delta.plan",
+    "delta.verify", "delta.seal", "compact.gc", "checkpoint.save",
+    "checkpoint.load", "checkpoint.verify",
 )
 
 
@@ -1373,7 +1409,6 @@ def print_compaction(label: str, wall: float, snap: dict) -> None:
 def checkpoint_format(core) -> str:
     """The format of the checkpoint ``core`` sealed last, read back from
     its local slot."""
-    import asyncio
 
     from crdt_enc_tpu_torch.core import core as core_mod
 
@@ -1381,7 +1416,7 @@ def checkpoint_format(core) -> str:
         raw = await core.storage.load_local_checkpoint()
         return None if raw is None else (await core._open_sealed(raw))[b"fmt"]
 
-    fmt = asyncio.run(read())
+    fmt = run_async(read())
     return {core_mod.CHECKPOINT_FMT_ORSET: "orset columnar",
             core_mod.CHECKPOINT_FMT_OBJ: "adapter object",
             None: "none sealed"}.get(fmt, f"unknown {fmt!r}")
@@ -1392,7 +1427,6 @@ def warm_reopen(make_options, sealer, cold_bytes: bytes) -> dict:
     from its checkpoint, with the sealer's state bytes, and a read of the
     remote must fold nothing more.  Prints the sealer's checkpoint and the
     reopen's spans; returns its walls and sizes."""
-    import asyncio
 
     from crdt_enc_tpu_torch import Core, canonical_bytes
     from crdt_enc_tpu_torch.utils import trace
@@ -1407,7 +1441,7 @@ def warm_reopen(make_options, sealer, cold_bytes: bytes) -> dict:
         await core.read_remote()
         return core, t_open, time.perf_counter() - t0, trace.snapshot()
 
-    core, open_s, read_s, snap = asyncio.run(reopen())
+    core, open_s, read_s, snap = run_async(reopen())
     wb = core.with_state(canonical_bytes)
     spans = {k: v["seconds"] for k, v in snap["spans"].items()}
     folded = (snap["counters"].get("ops_folded", 0)
@@ -1434,17 +1468,16 @@ def phase_compaction(files, E: int, R: int, device, root: str) -> dict:
     byte-identical copy; the states compared byte for byte, then read back
     by a fresh replica.  The device compaction takes the pipelined route;
     its fold launches must match the mode its session reports.  Returns
-    the launches of the device compaction, the mode and the walls."""
-    import asyncio
+    the launches of the device compaction, the mode and the walls, and
+    the live replicas phase 14 compacts again: the device and host
+    compactors, the device accelerator and its session probe, and the two
+    remotes."""
 
     from crdt_enc_tpu_torch import HostAccelerator, TorchAccelerator
     from crdt_enc_tpu_torch import canonical_bytes
-    from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
-    from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
-    from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
 
     t0 = time.perf_counter()
-    remote = asyncio.run(build_compaction_remote(root, files))
+    remote = run_async(build_compaction_remote(root, files))
     print(f"  remote built in {time.perf_counter() - t0:.1f}s under {root}: "
           f"{remote['op_files']} op files, {remote['ops']} ops, "
           f"{remote['op_bytes']} bytes sealed; {COMPACT_SNAPSHOTS} snapshots "
@@ -1454,13 +1487,11 @@ def phase_compaction(files, E: int, R: int, device, root: str) -> dict:
 
     accel = TorchAccelerator(device=device)
     probe = SessionProbe(accel)
-    for counts in (F.launches, M.launches, LC.launches):
-        for k in counts:
-            counts[k] = 0
+    reset_launches()
     with RssSampler() as rss:
-        card, wall, snap = asyncio.run(timed_compaction(
+        card, wall, snap = run_async(timed_compaction(
             root, "card", remote["remote"], accel))
-    launches = {**F.launches, **M.launches, **LC.launches}
+    launches = read_launches()
     print_compaction(f"TorchAccelerator ({device})", wall, snap)
     print(f"    launches in this compaction: {launches}", flush=True)
     if len(probe.sessions) != 1:
@@ -1478,7 +1509,7 @@ def phase_compaction(files, E: int, R: int, device, root: str) -> dict:
           f"{snap['spans'].get('checkpoint.save', {}).get('seconds', 0) * 1e3:.1f}"
           " ms (part of the compaction wall)", flush=True)
     with RssSampler() as host_rss:
-        host, host_wall, host_snap = asyncio.run(timed_compaction(
+        host, host_wall, host_snap = run_async(timed_compaction(
             root, "host", host_remote, HostAccelerator()))
     print_compaction("HostAccelerator (host loop)", host_wall, host_snap)
     print(f"    {host_rss.line()}", flush=True)
@@ -1502,7 +1533,7 @@ def phase_compaction(files, E: int, R: int, device, root: str) -> dict:
         actors_left = await fresh.storage.list_op_actors()
         return fresh, time.perf_counter() - t0, names, actors_left
 
-    fresh, read_s, names, actors_left = asyncio.run(reopen())
+    fresh, read_s, names, actors_left = run_async(reopen())
     fb = fresh.with_state(canonical_bytes)
     print(f"  a fresh replica reads the compacted remote back in {read_s:.2f}s "
           f"(the cold open): bytes equal {fb == cb}; {len(names)} snapshot, "
@@ -1516,14 +1547,16 @@ def phase_compaction(files, E: int, R: int, device, root: str) -> dict:
         raise AssertionError(
             f"the compaction's launches {launches} do not match its session "
             f"mode {session.mode} (fold {expected_fold}) and one merge")
+    live = dict(card=card, host=host, accel=accel, probe=probe,
+                remote=remote["remote"], host_remote=host_remote)
     return dict(launches=launches, wall_s=wall, host_wall_s=host_wall,
                 reopen_s=read_s, warm=warm, session_mode=session.mode,
                 session_rows=session.rows_fed,
                 stream_producers=snap.get("gauges", {}).get("stream_producers"),
                 **rss.fields(""), **host_rss.fields("host_"),
                 spans={k: v["seconds"] for k, v in snap["spans"].items()},
-                counters=snap["counters"], remote={k: v for k, v in
-                                                    remote.items() if k != "remote"})
+                counters=snap["counters"], gauges=snap.get("gauges", {}),
+                remote={k: v for k, v in remote.items() if k != "remote"}), live
 
 
 # ---- the stream route past 2^22 rows (phase 11) ----------------------------
@@ -1806,7 +1839,6 @@ def phase_config5(device) -> dict:
     packed from the fold's stashed rows and reopen warm.  Each state
     byte-equal to the host loop's; the fold kernels' launches are read
     from each route alone and must be 0."""
-    import asyncio
     import secrets
 
     from crdt_enc_tpu_torch import (
@@ -1906,7 +1938,7 @@ def phase_config5(device) -> dict:
     del ops
 
     t0 = time.perf_counter()
-    remote = asyncio.run(build_config5_remote(files))
+    remote = run_async(build_config5_remote(files))
     print(f"  encrypted in-memory remote of {len(files)} op files sealed in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     storage = MemoryStorage(remote)
@@ -1918,7 +1950,7 @@ def phase_config5(device) -> dict:
             await core.compact()
             return core
 
-        compactor["core"] = asyncio.run(go())
+        compactor["core"] = run_async(go())
         return compactor["core"].with_state(lambda s: ORSet.from_obj(s.to_obj()))
 
     snap = route("Core.compact()", compaction_route)
@@ -1937,7 +1969,7 @@ def phase_config5(device) -> dict:
         await core.read_remote()
         return core, time.perf_counter() - t0
 
-    fresh, cold_s = asyncio.run(cold())
+    fresh, cold_s = run_async(cold())
     same = fresh.with_state(canonical_bytes) == host
     print(f"  cold open of a fresh replica over the compacted remote: "
           f"{cold_s:.3f}s, bytes equal to the host loop: {same}", flush=True)
@@ -1947,6 +1979,503 @@ def phase_config5(device) -> dict:
     out["warm"] = warm_reopen(lambda: config5_options(storage, accel),
                               compactor["core"], host)
     return out
+
+
+# ---- the plane cache and incremental compaction (phase 14) -----------------
+
+
+def fresh_batch(seed: int, E: int, R: int, offset: int):
+    """A config-3 batch from ``gen_columns(seed)`` with every live counter
+    raised by ``offset``: dots past the clock of a state folded from the
+    earlier batches (removes keep their horizons over the batch's own
+    adds)."""
+    kind, member, actor, counter = gen_columns(N_ROWS, R, E, seed)
+    live = actor < R
+    counter = np.where(live, counter + offset, counter).astype(np.int32)
+    return kind, member, actor, counter
+
+
+def reset_launches() -> None:
+    from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
+    from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
+    from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
+
+    for counts in (F.launches, M.launches, LC.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches() -> dict:
+    from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
+    from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
+    from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
+
+    return {**F.launches, **M.launches, **LC.launches}
+
+
+def phase_plane_cache(E: int, R: int, device) -> dict:
+    """Part (a): three config-3 batches of fresh dots folded into one
+    state through ``fold_ops`` and through ``fold_payloads``, with one host
+    ``apply`` between rounds 2 and 3.  Round 2 must start from the planes
+    the card kept (one fold launch, no ``fold.planes`` or ``fold.vocab``
+    span, ``h2d_bytes`` the op columns' 13 bytes a row); round 3 must
+    upload the planes again (the apply expired the cache).  Every state
+    is byte-equal to the host loop's after each round."""
+    import torch
+
+    from crdt_enc_tpu_torch import (
+        AddOp, HostAccelerator, ORSet, TorchAccelerator, canonical_bytes,
+    )
+    from crdt_enc_tpu_torch.models.vclock import Dot
+    from crdt_enc_tpu_torch.utils import trace
+
+    actors = actor_ids(R)
+    plane_bytes = 4 * (R + 2 * E * R)
+    t0 = time.perf_counter()
+    batches, offset, side_op = [], 0, None
+    for k, seed in enumerate(CACHE_SEEDS):
+        if k == 2:
+            # the host apply between rounds 2 and 3: one fresh dot
+            offset += 1
+            side_op = AddOp(0, Dot(actors[0], offset))
+        cols = fresh_batch(seed, E, R, offset)
+        offset = int(cols[3][cols[2] < R].max())
+        batches.append(dict(
+            rows=int((cols[2] < R).sum()),
+            ops=ops_from_columns(*cols, actors),
+            payloads=op_file_payloads(cols, actors, COMPACT_OPS_PER_FILE)))
+    host = ORSet()
+    host_bytes = []
+    for k, b in enumerate(batches):
+        if k == 2:
+            host.apply(side_op)
+        HostAccelerator().fold_ops(host, list(b["ops"]))
+        host_bytes.append(canonical_bytes(host))
+    del host
+    print(f"  {len(batches)} batches of fresh dots ({[b['rows'] for b in batches]}"
+          f" rows) built and folded by the host loop in "
+          f"{time.perf_counter() - t0:.1f}s; the state planes are "
+          f"{plane_bytes} bytes", flush=True)
+
+    out = {"plane_bytes": plane_bytes}
+    for route in ("fold_ops", "fold_payloads"):
+        accel = TorchAccelerator(device=device)
+        state = ORSet()
+        rounds = []
+        route_launches = {}
+        for k, b in enumerate(batches):
+            if k == 2:
+                state.apply(side_op)
+                print(f"  {route}: one host apply; the cache entry is "
+                      f"{'live' if accel._plane_cache_for(state) else 'expired'}",
+                      flush=True)
+            reset_launches()
+            trace.reset()
+            t0 = time.perf_counter()
+            if route == "fold_ops":
+                accel.fold_ops(state, b["ops"])
+            elif not accel.fold_payloads(state, b["payloads"],
+                                         actors_hint=actors):
+                raise AssertionError("fold_payloads declined a config-3 batch")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            snap = trace.snapshot()
+            launches = read_launches()
+            for kname, n in launches.items():
+                route_launches[kname] = route_launches.get(kname, 0) + n
+            held = torch.cuda.memory_allocated()
+            spans = snap["spans"]
+            h2d = snap["counters"].get("h2d_bytes", 0)
+            same = canonical_bytes(state) == host_bytes[k]
+            print(f"  {route} round {k + 1}: wall {wall:.3f}s; h2d_bytes "
+                  f"{h2d} (op columns {13 * b['rows']}); {launches['orset_fold']}"
+                  f" fold launch(es); card memory held after the round "
+                  f"{held} bytes; bytes equal to the host loop: {same}",
+                  flush=True)
+            for name, v in sorted(spans.items()):
+                print(f"    span {name}: {v['seconds'] * 1e3:.1f} ms "
+                      f"x{v['count']}")
+            hit = "fold.planes" not in spans and "fold.vocab" not in spans
+            expect_hit = k == 1
+            if (not same or launches["orset_fold"] != 1 or hit != expect_hit
+                    or accel._plane_cache is None
+                    or (expect_hit and h2d != 13 * b["rows"])
+                    or (not expect_hit and h2d < plane_bytes)):
+                raise AssertionError(
+                    f"plane cache, {route} round {k + 1}: hit {hit} (expected "
+                    f"{expect_hit}), h2d_bytes {h2d}, launches {launches}, "
+                    f"bytes equal {same}")
+            rounds.append(dict(
+                wall_s=wall, h2d_bytes=h2d, op_column_bytes=13 * b["rows"],
+                hit=hit, launches=launches, card_bytes_held=held,
+                spans={n: v["seconds"] for n, v in spans.items()}))
+        out[route] = dict(rounds=rounds, launches=route_launches)
+        del accel, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def compactor_clocks(cols, files, R: int):
+    """Phase 10's per-actor add clock (max add counter) and next op-file
+    version: where phase 14's tail files continue each actor."""
+    kind, _, actor, counter = cols
+    clock = np.zeros(R, np.int64)
+    adds = (actor < R) & (kind == 0)
+    np.maximum.at(clock, actor[adds], counter[adds])
+    version = np.ones(R, np.int64)
+    for ai, _, v, _ in files:
+        version[ai] = max(version[ai], v + 1)
+    return clock, version
+
+
+def tail_files(rng, clock, version, actors: list, E: int, n_ops: int) -> list:
+    """``n_ops`` tail ops as files of up to COMPACT_OPS_PER_FILE ops, one
+    file each for distinct actors at their next versions: adds with fresh
+    dots, ~10% removes whose horizon is the actor's clock.  Advances
+    ``clock`` and ``version``; files as ``compaction_files`` gives them."""
+    n_files = -(-n_ops // COMPACT_OPS_PER_FILE)
+    files, left = [], n_ops
+    for ai in rng.choice(len(actors), n_files, replace=False).tolist():
+        k = min(COMPACT_OPS_PER_FILE, left)
+        left -= k
+        ab = actors[ai]
+        ops = []
+        for m, is_rm in zip(rng.integers(0, E, k).tolist(),
+                            (rng.random(k) < 0.10).tolist()):
+            if is_rm and clock[ai]:
+                ops.append([1, m, {ab: int(clock[ai])}])
+            else:
+                clock[ai] += 1
+                ops.append([0, m, [ab, int(clock[ai])]])
+        files.append((ai, ab, int(version[ai]), ops))
+        version[ai] += 1
+    return files
+
+
+def phase_incremental(live: dict, clock, version, E: int, R: int, device,
+                      root: str, first: dict) -> dict:
+    """Part (b): phase 10's compaction is round 1 (it sealed the first
+    delta base).  A consumer opens cold over the remote, beside a control
+    consumer with ``delta=False``; then twice a 1% tail (TAIL_OPS ops, one
+    file each for ~210 actors at their next versions) lands in both phase
+    10 remotes, the long-lived device compactor and the host-loop one
+    compact again, and both consumers read.  The tail must take the sparse
+    route; every compactor and consumer state is byte-equal; the consumer
+    follows the delta chain with no fallback; the sealed delta parses and
+    carries the watermark of the compactor's cursor matrix."""
+    import asyncio
+
+    import torch
+
+    from crdt_enc_tpu_torch import Core, TorchAccelerator, canonical_bytes
+    from crdt_enc_tpu_torch.delta import parse_delta_obj
+    from crdt_enc_tpu_torch.obs.replication import stability_watermark
+    from crdt_enc_tpu_torch.utils import trace
+
+    card, host, accel, probe = (live[k] for k in
+                                ("card", "host", "accel", "probe"))
+    actors = actor_ids(R)
+    rng = np.random.default_rng(TAIL_SEED)
+    snap_dir = os.path.join(live["remote"], "states")
+
+    def spans_ms(snap, names):
+        return {n: snap["spans"][n]["seconds"] for n in names
+                if n in snap["spans"]}
+
+    async def timed(coro_fn):
+        trace.reset()
+        t0 = time.perf_counter()
+        result = await coro_fn()
+        return result, time.perf_counter() - t0, trace.snapshot()
+
+    async def run() -> dict:
+        out = {"round1": {
+            "compaction_wall_s": first["wall_s"],
+            "host_compaction_wall_s": first["host_wall_s"],
+            "delta_plan_s": first["spans"].get("delta.plan"),
+            "delta_base_bytes": first["gauges"].get("delta_base_bytes")}}
+        print(f"  round 1 = phase 10: compaction wall {first['wall_s']:.3f}s, "
+              f"delta.plan {first['spans'].get('delta.plan', 0) * 1e3:.1f} ms "
+              f"(the first seal packs the delta base: "
+              f"{first['gauges'].get('delta_base_bytes')} bytes)", flush=True)
+        consumer, c_wall, c_snap = await timed(lambda: _open_read(
+            root, "consumer", live["remote"], TorchAccelerator(device=device)))
+        control, s_wall, s_snap = await timed(lambda: _open_read(
+            root, "control", live["remote"], TorchAccelerator(device=device),
+            delta=False))
+        (snap_name,) = os.listdir(snap_dir)
+        print(f"  consumers open cold after round 1: delta consumer "
+              f"{c_wall:.3f}s, control (delta=False) {s_wall:.3f}s; the "
+              f"snapshot is {os.path.getsize(os.path.join(snap_dir, snap_name))}"
+              " bytes", flush=True)
+        out["consumers_cold_open_s"] = dict(delta=c_wall, control=s_wall)
+        prev_name = snap_name
+        for rnd in (2, 3):
+            files = tail_files(rng, clock, version, actors, E, TAIL_OPS)
+            blobs = await asyncio.gather(*(card._seal(ops)
+                                           for *_, ops in files))
+            await asyncio.gather(*(
+                s.store_ops(ab, v, blob)
+                for (_, ab, v, _), blob in zip(files, blobs)
+                for s in (card.storage, host.storage)))
+            n_ops = sum(len(ops) for *_, ops in files)
+            n_sessions = len(probe.sessions)
+            reset_launches()
+            _, wall, snap = await timed(card.compact)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            if len(probe.sessions) != n_sessions + 1:
+                raise AssertionError("the tail did not take the fold session")
+            session = probe.sessions[-1]
+            Es, Rs, n = (len(session.members), len(session.replicas),
+                         session.rows_fed)
+            sparse = accel._use_sparse(Es, Rs, n)
+            print(f"  round {rnd}: {len(files)} tail files, {n_ops} ops; "
+                  f"device compaction wall {wall:.3f}s; session mode "
+                  f"{session.mode}, {n} rows; _use_sparse(E={Es}, R={Rs}, "
+                  f"rows={n}) = {sparse} (E*R = {Es * Rs} cells >= "
+                  f"SPARSE_MIN_CELLS {accel.SPARSE_MIN_CELLS} and > "
+                  f"SPARSE_CELLS_PER_ROW {accel.SPARSE_CELLS_PER_ROW} * rows);"
+                  f" launches {launches}", flush=True)
+            print_compaction(f"round {rnd} TorchAccelerator ({device})", wall,
+                             snap)
+            if (session.mode != "buffer" or not sparse
+                    or launches["orset_fold"] or "fold.device" in snap["spans"]):
+                raise AssertionError(f"round {rnd}: the tail did not take the "
+                                     "sparse route")
+            _, h_wall, h_snap = await timed(host.compact)
+            print_compaction(f"round {rnd} HostAccelerator (host loop)",
+                             h_wall, h_snap)
+            _, cd_wall, cd_snap = await timed(consumer.read_remote)
+            _, cs_wall, cs_snap = await timed(control.read_remote)
+            (snap_name,) = os.listdir(snap_dir)
+            snap_size = os.path.getsize(os.path.join(snap_dir, snap_name))
+            cc = cd_snap["counters"]
+            print(f"  round {rnd} consumer: read_remote {cd_wall:.3f}s, "
+                  f"delta.read "
+                  f"{cd_snap['spans'].get('delta.read', {}).get('seconds', 0) * 1e3:.1f}"
+                  f" ms, delta_bytes_read {cc.get('delta_bytes_read')}, "
+                  f"delta_applied {cc.get('delta_applied')}, delta_fallbacks "
+                  f"{cc.get('delta_fallbacks', 0)}, delta_chain_length "
+                  f"{cd_snap.get('gauges', {}).get('delta_chain_length')}; "
+                  f"control: read_remote {cs_wall:.3f}s, states.load "
+                  f"{cs_snap['spans'].get('states.load', {}).get('seconds', 0) * 1e3:.1f}"
+                  f" ms, snapshot bytes read {snap_size}", flush=True)
+            got = {k: c.with_state(canonical_bytes) for k, c in (
+                ("card", card), ("host", host), ("consumer", consumer),
+                ("control", control))}
+            equal = len(set(got.values())) == 1
+            cursors = {str(c.info().next_op_versions.counters == card.info(
+            ).next_op_versions.counters) for c in (host, consumer, control)}
+            deltas = await card.storage.load_deltas([(card.actor_id, 1)])
+            rec = parse_delta_obj(await card._open_sealed(deltas[-1][2]))
+            d = card._data
+            union = d.next_op_versions.copy()
+            for c in d.cursor_matrix.values():
+                union.merge(c)
+            wm = stability_watermark(card.actor_id, d.next_op_versions,
+                                     d.cursor_matrix, union)
+            print(f"  round {rnd}: states byte-equal (device, host, consumer,"
+                  f" control): {equal} ({len(got['card'])} bytes; cursors "
+                  f"equal {cursors == {'True'}}); delta v{deltas[-1][1]} "
+                  f"{len(deltas[-1][2])} bytes: base {rec.base_name[:12]}.. "
+                  f"== previous snapshot {rec.base_name == prev_name}, new == "
+                  f"this snapshot {rec.new_name == snap_name}, watermark of "
+                  f"{len(rec.watermark)} actors (empty: no producer publishes a "
+                  f"cursor) == stability_watermark of the "
+                  f"compactor's {len(d.cursor_matrix)}-row cursor matrix "
+                  f"{rec.watermark == wm}", flush=True)
+            # config 3's producers write op files and never compact, so
+            # none publishes a cursor: with more than one silent replica
+            # the watermark is empty on both sides (the CPU tests hold the
+            # non-empty branches against the JAX function)
+            if (not equal or cursors != {"True"}
+                    or cc.get("delta_applied") != 1
+                    or cc.get("delta_fallbacks", 0)
+                    or "states.load" in cd_snap["spans"]
+                    or rec.base_name != prev_name or rec.new_name != snap_name
+                    or rec.watermark != wm
+                    or len(rec.watermark) != 0 or len(wm) != 0):
+                raise AssertionError(f"incremental round {rnd} failed its checks")
+            prev_name = snap_name
+            out[f"round{rnd}"] = dict(
+                tail_files=len(files), tail_ops=n_ops, launches=launches,
+                session_mode=session.mode, sparse=dict(
+                    E=Es, R=Rs, rows=n, sparse=sparse),
+                compaction_wall_s=wall, host_compaction_wall_s=h_wall,
+                spans=spans_ms(snap, ("delta.plan", "delta.verify",
+                                      "delta.seal", "compact.ingest",
+                                      "compact.seal", "compact.write",
+                                      "compact.gc", "checkpoint.save")),
+                host_spans=spans_ms(h_snap, ("delta.plan", "delta.verify",
+                                             "delta.seal")),
+                counters={k: v for k, v in snap["counters"].items()
+                          if k.startswith("delta_")},
+                delta_file_bytes=len(deltas[-1][2]),
+                consumer=dict(read_s=cd_wall, spans=spans_ms(
+                    cd_snap, ("delta.read", "states.load")), counters={
+                    k: v for k, v in cc.items() if k.startswith("delta_")}),
+                control=dict(read_s=cs_wall, snapshot_bytes=snap_size,
+                             spans=spans_ms(cs_snap, ("states.load",
+                                                      "states.merge"))),
+                watermark_actors=len(rec.watermark))
+        return out
+
+    return run_async(run())
+
+
+def phase_cache_compaction(device, root: str) -> dict:
+    """Part (c): the plane cache through ``Core.compact()`` at a shape
+    where the tails fold on the dense route.  Three compactors open on
+    byte-identical copies of one encrypted fs remote (CC_N ops over
+    CC_E members and CC_R replicas): a long-lived device ``Core`` whose
+    accelerator keeps its planes between compactions, the same with the
+    cache entry dropped before each compaction (every fold builds and
+    uploads its planes), and the host loop.  Then CC_ROUNDS times a 1%
+    tail lands in all three and each compacts again.  Each compaction
+    must fold on the dense route with one launch on both device
+    compactors (the BUFFER session, or ``fold_ops`` for a tail below
+    BULK_MIN_FILES files); the warm one must hit on every tail round (no ``fold.planes`` or
+    ``fold.vocab`` span) and the cold one never; all three states are
+    byte-equal after every round."""
+    import asyncio
+
+    import torch
+
+    from crdt_enc_tpu_torch import (
+        Core, HostAccelerator, TorchAccelerator, canonical_bytes,
+    )
+    from crdt_enc_tpu_torch.utils import trace
+
+    E, R = CC_E, CC_R
+    actors = actor_ids(R)
+    cols = gen_columns(CC_N, R, E, CC_SEED)
+    files = compaction_files(cols, actors)
+    clock, version = compactor_clocks(cols, files, R)
+    base = os.path.join(root, "cc_remote")
+    names = ("warm", "cold", "host")
+    fold_spans = ("ops.session_finish", "fold.vocab", "fold.planes",
+                  "fold.device", "fold.writeback", "compact.ingest",
+                  "compact.seal", "delta.plan", "delta.verify", "delta.seal")
+
+    async def run() -> dict:
+        t0 = time.perf_counter()
+        writer = await Core.open(compaction_options(root, "cc_writer", base,
+                                                    HostAccelerator()))
+        for b in range(0, len(files), COMPACT_WRITE_BATCH):
+            batch = files[b : b + COMPACT_WRITE_BATCH]
+            blobs = await asyncio.gather(*(writer._seal(ops)
+                                           for *_, ops in batch))
+            await asyncio.gather(*(
+                writer.storage.store_ops(ab, v, blob)
+                for (_, ab, v, _), blob in zip(batch, blobs)))
+        for n in names:
+            shutil.copytree(base, f"{base}_{n}")
+        print(f"  remote built in {time.perf_counter() - t0:.1f}s: "
+              f"{len(files)} op files, {CC_N} ops over E={E} members and "
+              f"R={R} replicas (E*R = {E * R} cells), copied for the warm, "
+              "cold and host-loop compactors", flush=True)
+        accels = {"warm": TorchAccelerator(device=device),
+                  "cold": TorchAccelerator(device=device),
+                  "host": HostAccelerator()}
+        probes = {n: SessionProbe(accels[n]) for n in ("warm", "cold")}
+        cores = {n: await Core.open(compaction_options(
+            root, f"cc_{n}", f"{base}_{n}", accels[n])) for n in names}
+        rng = np.random.default_rng(CC_TAIL_SEED)
+        rounds = []
+        for rnd in range(1, CC_ROUNDS + 2):
+            if rnd > 1:
+                tail = tail_files(rng, clock, version, actors, E, CC_TAIL_OPS)
+                blobs = await asyncio.gather(*(writer._seal(ops)
+                                               for *_, ops in tail))
+                await asyncio.gather(*(
+                    c.storage.store_ops(ab, v, blob)
+                    for (_, ab, v, _), blob in zip(tail, blobs)
+                    for c in cores.values()))
+            row = {}
+            for n in names:
+                if n == "cold":
+                    accels[n]._plane_cache = None
+                reset_launches()
+                trace.reset()
+                t0 = time.perf_counter()
+                await cores[n].compact()
+                if n != "host":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                snap = trace.snapshot()
+                spans = snap["spans"]
+                launches = read_launches()
+                entry = dict(
+                    wall_s=wall, launches=launches,
+                    h2d_bytes=snap["counters"].get("h2d_bytes", 0),
+                    spans={k: spans[k]["seconds"] for k in fold_spans
+                           if k in spans})
+                if n != "host":
+                    # a tail of fewer than BULK_MIN_FILES files folds per op
+                    # through fold_ops, a larger one through the session;
+                    # both end in the accelerator's cached dense fold
+                    session = probes[n].sessions[-1]
+                    route = (session.mode if session.rows_fed else "fold_ops")
+                    hit = ("fold.device" in spans and "fold.planes" not in spans
+                           and "fold.vocab" not in spans)
+                    entry.update(
+                        hit=hit, route=route,
+                        rows=session.rows_fed or snap["counters"].get(
+                            "ops_folded", 0),
+                        card_bytes_held=torch.cuda.memory_allocated())
+                    expect_hit = n == "warm" and rnd > 1
+                    if (route not in ("buffer", "fold_ops")
+                            or hit != expect_hit
+                            or launches["orset_fold"] != 1):
+                        raise AssertionError(
+                            f"cache compaction round {rnd}, {n}: route "
+                            f"{route}, hit {hit} (expected {expect_hit}), "
+                            f"launches {launches}")
+                row[n] = entry
+            got = {n: c.with_state(canonical_bytes) for n, c in cores.items()}
+            equal = len(set(got.values())) == 1
+            print(f"  round {rnd}: {row['warm']['rows']} rows through "
+                  f"{row['warm']['route']}; wall warm "
+                  f"{row['warm']['wall_s']:.3f}s (hit {row['warm']['hit']}, "
+                  f"h2d_bytes {row['warm']['h2d_bytes']}), cold "
+                  f"{row['cold']['wall_s']:.3f}s (h2d_bytes "
+                  f"{row['cold']['h2d_bytes']}), host loop "
+                  f"{row['host']['wall_s']:.3f}s; states byte-equal {equal} "
+                  f"({len(got['warm'])} bytes)", flush=True)
+            for n in ("warm", "cold"):
+                print(f"    {n}: " + ", ".join(
+                    f"{k} {v * 1e3:.1f} ms"
+                    for k, v in row[n]["spans"].items()), flush=True)
+            if not equal:
+                raise AssertionError(f"cache compaction round {rnd}: states "
+                                     "differ")
+            rounds.append(row)
+        tails = rounds[1:]
+        hits = sum(r["warm"]["hit"] for r in tails)
+        out = dict(E=E, R=R, ops=CC_N, tail_ops=CC_TAIL_OPS, rounds=rounds,
+                   hit_rate=hits / len(tails),
+                   tail_wall_s={n: sum(r[n]["wall_s"] for r in tails)
+                                for n in names},
+                   launches={k: sum(r[n]["launches"][k] for r in rounds
+                                    for n in ("warm", "cold"))
+                             for k in KERNELS})
+        print(f"  tail rounds: warm hit rate {out['hit_rate']:.2f}; summed "
+              f"walls warm {out['tail_wall_s']['warm']:.3f}s, cold "
+              f"{out['tail_wall_s']['cold']:.3f}s, host loop "
+              f"{out['tail_wall_s']['host']:.3f}s", flush=True)
+        return out
+
+    return run_async(run())
+
+
+async def _open_read(root: str, local: str, remote: str, accel, **kw):
+    from crdt_enc_tpu_torch import Core
+
+    core = await Core.open(compaction_options(root, local, remote, accel, **kw))
+    await core.read_remote()
+    return core
 
 
 # name -> (source, file:line of the TPU kernel's pallas_call, the Pallas
@@ -2068,17 +2597,30 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    root = tempfile.mkdtemp(prefix="crdt-compaction-")
+    try:
+        return run_from_phase_10(root, cols, cols2, launches, errs, times,
+                                 k3_errs, k3, name, t_start)
+    finally:
+        close_loop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
+                      name, t_start) -> int:
+    """Phases 10 to 14 and the closing lines.  Phase 10's compaction remote
+    lives under ``root`` until phase 14 has compacted it twice more."""
+    import torch
+
+    E, R, N = N_MEMBERS, N_REPLICAS, N_ROWS
     print(f"== 10. compaction end to end (config 3: N={N}, R={R}, E={E}, "
           f"{COMPACT_OPS_PER_FILE} ops a file, S={COMPACT_SNAPSHOTS} "
           "snapshots; encrypted FsStorage)", flush=True)
     print(device_line(), flush=True)
-    root = tempfile.mkdtemp(prefix="crdt-compaction-")
     print(f"  remote under {root} ({fs_type(root)})", flush=True)
     files = compaction_files(cols, actor_ids(R))
-    try:
-        compaction = phase_compaction(files, E, R, "cuda", root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    clock, version = compactor_clocks(cols, files, R)
+    compaction, live = phase_compaction(files, E, R, "cuda", root)
     del cols, cols2
     gc.collect()
     torch.cuda.empty_cache()
@@ -2102,6 +2644,28 @@ def main() -> int:
           "MemoryStorage)", flush=True)
     print(device_line(), flush=True)
     config5 = phase_config5("cuda")
+    gc.collect()
+
+    print(f"== 14. the plane cache at config-3 width ({len(CACHE_SEEDS)} "
+          f"batches of fresh dots, N={N} each) and incremental compaction "
+          f"with deltas ({TAIL_OPS}-op tails over phase 10's remote)",
+          flush=True)
+    print(device_line(), flush=True)
+    plane_cache = phase_plane_cache(E, R, "cuda")
+    reset_launches()
+    incremental = phase_incremental(live, clock, version, E, R, "cuda", root,
+                                    compaction)
+    inc_launches = {k: sum(incremental[f"round{r}"]["launches"][k]
+                           for r in (2, 3)) for k in KERNELS}
+    print(f"  launches over rounds 2 and 3 (device compactions only): "
+          f"{inc_launches}", flush=True)
+    del live
+    gc.collect()
+    print(f"== 14c. the plane cache through Core.compact() (E={CC_E}, "
+          f"R={CC_R}, N={CC_N}; {CC_ROUNDS} tails of {CC_TAIL_OPS} ops; "
+          "encrypted FsStorage)", flush=True)
+    print(device_line(), flush=True)
+    cache_compaction = phase_cache_compaction("cuda", root)
 
     kernels = []
     for kname, (source, replaces, pallas) in KERNELS.items():
@@ -2121,6 +2685,12 @@ def main() -> int:
                 r: stream[r]["launches"] for r in ("fold_payloads", "fold_ops")}
             entry["session_launches"] = sessions["device_stream"]["launches"]
         entry["compaction_launches"] = compaction["launches"][kname]
+        entry["incremental_launches"] = {
+            "plane_cache_fold_ops": plane_cache["fold_ops"]["launches"][kname],
+            "plane_cache_fold_payloads":
+                plane_cache["fold_payloads"]["launches"][kname],
+            "compaction_rounds_2_3": inc_launches[kname],
+            "plane_cache_compaction": cache_compaction["launches"][kname]}
         entry["config5_launches"] = {
             r: config5[r]["launches"][kname]
             for r in ("session", "fold_encrypted_stream", "fold_payloads",
@@ -2130,6 +2700,9 @@ def main() -> int:
     print(json.dumps({"compaction": compaction}), flush=True)
     print(json.dumps({"stream": stream, "sessions": sessions}), flush=True)
     print(json.dumps({"config5": config5}), flush=True)
+    print(json.dumps({"incremental": {
+        "plane_cache": plane_cache, "compaction": incremental,
+        "plane_cache_compaction": cache_compaction}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -1,7 +1,6 @@
 """Filesystem storage backend — the production port over a synced directory.
 
-The port's copy of ``crdt_enc_tpu/backends/fs.py``, without the delta
-family.  The op-log scans run through the port's own native library
+The port's copy of ``crdt_enc_tpu/backends/fs.py``.  The op-log scans run through the port's own native library
 (``native/io.cpp``); a failed build raises — there is no per-file Python
 scan standing in for it.
 
@@ -11,7 +10,8 @@ offload:
 * layout: ``local/meta-data.msgpack`` (lib.rs:51), the warm-open
   checkpoint ``local/checkpoint.msgpack``, ``remote/meta/<hash>``
   (lib.rs:79), ``remote/states/<hash>`` (lib.rs:139),
-  ``remote/ops/<actor-hex>/<N>`` (lib.rs:247-257);
+  ``remote/ops/<actor-hex>/<N>`` (lib.rs:247-257), and the sealed delta
+  logs ``remote/deltas/<actor-hex>/<N>``;
 * immutable content-addressed writes: SHA3-256 of the blob, base32-nopad
   name, ``O_CREAT|O_EXCL`` then fsync of file and directory
   (write_content_addressible_file, lib.rs:403-432) — a replay of the same
@@ -184,6 +184,10 @@ class FsStorage(Storage):
 
     def _ops_dir(self, actor: Actor | None = None) -> str:
         base = os.path.join(self.remote, "ops")
+        return os.path.join(base, actor.hex()) if actor is not None else base
+
+    def _deltas_dir(self, actor: Actor | None = None) -> str:
+        base = os.path.join(self.remote, "deltas")
         return os.path.join(base, actor.hex()) if actor is not None else base
 
     # -- local meta --------------------------------------------------------
@@ -541,3 +545,74 @@ class FsStorage(Storage):
                 pass
 
         await asyncio.gather(*(self._run(rm, a, last) for a, last in actor_last_versions))
+
+    # -- delta snapshots ---------------------------------------------------
+    # Same layout idiom as the op logs (``remote/deltas/<actor-hex>/<N>``)
+    # but a simpler read contract: logs are MAX_CHAIN-bounded and files
+    # are deltas (small by construction), so a plain listdir+read per
+    # actor is the whole fast path — no native scan, no probe prefilter.
+    has_deltas = True
+
+    async def list_delta_actors(self) -> list[Actor]:
+        names = await self._run(_list_dir, self._deltas_dir())
+        actors = []
+        for n in names:
+            try:
+                actors.append(bytes.fromhex(n))
+            except ValueError:
+                continue  # foreign junk in the synced dir is not ours to judge
+        return sorted(a for a in actors if len(a) == 16)
+
+    async def load_deltas(
+        self, actor_first_versions: list[tuple[Actor, int]]
+    ) -> list[tuple[Actor, int, bytes]]:
+        def scan(actor: Actor, first: int) -> list[tuple[Actor, int, bytes]]:
+            d = self._deltas_dir(actor)
+            versions = sorted(
+                v for v in (
+                    int(n) for n in _list_dir(d) if n.isdigit()
+                ) if v >= first
+            )
+            out = []
+            for v in versions:
+                raw = _read_file(os.path.join(d, str(v)))
+                if raw is not None:  # racing GC may collect mid-walk
+                    out.append((actor, v, raw))
+            return out
+
+        per_actor = await asyncio.gather(
+            *(self._run(scan, a, f) for a, f in actor_first_versions)
+        )
+        return [item for chunk in per_actor for item in chunk]
+
+    async def store_delta(self, actor: Actor, version: int, data: bytes) -> None:
+        path = os.path.join(self._deltas_dir(actor), str(version))
+        # version-addressed like op files: a vanished collider burns the
+        # version (the producer probes forward) — _write_file_new's contract
+        await self._run(
+            functools.partial(
+                _write_file_new, path, bytes(data),
+                relink_vanished_collider=False,
+            )
+        )
+
+    async def remove_deltas(
+        self, actor_last_versions: list[tuple[Actor, int]]
+    ) -> None:
+        def rm(actor: Actor, last: int) -> None:
+            d = self._deltas_dir(actor)
+            for n in _list_dir(d):
+                try:
+                    v = int(n)
+                except ValueError:
+                    continue
+                if v <= last:
+                    _remove_quiet(os.path.join(d, n))
+            try:
+                os.rmdir(d)
+            except OSError:
+                pass
+
+        await asyncio.gather(
+            *(self._run(rm, a, last) for a, last in actor_last_versions)
+        )

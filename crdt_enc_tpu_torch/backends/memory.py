@@ -1,6 +1,6 @@
 """In-memory storage backend: the port's copy of
-``crdt_enc_tpu/backends/memory.py`` without the delta family.  Multi-replica tests share one ``MemoryRemote`` the way real
-replicas share a synced directory."""
+``crdt_enc_tpu/backends/memory.py``.  Multi-replica tests share one
+``MemoryRemote`` the way real replicas share a synced directory."""
 
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ class MemoryRemote:
     metas: dict = field(default_factory=dict)  # name -> bytes
     states: dict = field(default_factory=dict)  # name -> bytes
     ops: dict = field(default_factory=dict)  # actor -> {version: bytes}
+    deltas: dict = field(default_factory=dict)  # actor -> {version: bytes}
 
 
 class MemoryStorage(Storage):
@@ -126,3 +127,39 @@ class MemoryStorage(Storage):
                 del log[v]
             if not log:
                 del self.remote.ops[actor]
+
+    # -- delta snapshots ---------------------------------------------------
+    has_deltas = True
+
+    async def list_delta_actors(self) -> list[Actor]:
+        return sorted(self.remote.deltas)
+
+    async def load_deltas(
+        self, actor_first_versions: list[tuple[Actor, int]]
+    ) -> list[tuple[Actor, int, bytes]]:
+        out = []
+        for actor, first in actor_first_versions:
+            log = self.remote.deltas.get(actor, {})
+            # sorted, holes tolerated: density is not part of the delta
+            # contract (chain validity comes from the base-name links)
+            for v in sorted(v for v in log if v >= first):
+                out.append((actor, v, log[v]))
+        return out
+
+    async def store_delta(self, actor: Actor, version: int, data: bytes) -> None:
+        log = self.remote.deltas.setdefault(actor, {})
+        if version in log:
+            raise FileExistsError(f"delta v{version} already exists for this actor")
+        log[version] = bytes(data)
+
+    async def remove_deltas(
+        self, actor_last_versions: list[tuple[Actor, int]]
+    ) -> None:
+        for actor, last in actor_last_versions:
+            log = self.remote.deltas.get(actor)
+            if not log:
+                continue
+            for v in [v for v in log if v <= last]:
+                del log[v]
+            if not log:
+                del self.remote.deltas[actor]

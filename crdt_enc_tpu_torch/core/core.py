@@ -33,26 +33,38 @@ on the bulk path unwraps every outer envelope, opens each sealing key's
 files in one native batch and hands the payloads to ``fold_payloads``,
 decoding per op only where the accelerator declines.
 
+Delta-state replication: with ``OpenOptions.delta`` on (the default) and
+a storage with the delta family, ``compact()`` also seals an encrypted
+delta since this replica's previous snapshot into its own delta log
+(``remote/deltas/<actor-hex>/<N>``), and ``read_remote()`` folds ``known
+base + delta chain`` before it downloads any unread snapshot, falling
+back to the snapshot on any gap, GC'd link or doubt (``delta_fallbacks``,
+``last_delta_fallback_reason``).  The seal self-verifies (the delta
+applied to the base must give the sealed state's bytes) and is refused
+when it is no smaller than the state.  Each snapshot's and delta's sealer
+cursor feeds the cursor matrix, and each delta carries the sealer's
+stability watermark (obs/replication.py).  The wire is the JAX package's,
+so either package reads a chain the other sealed.
+
 Local fold checkpoints: with ``OpenOptions.checkpoint`` on (the
-default), ``compact()`` ends by sealing the state, the ingest cursor and
-the read snapshots into the storage's local-checkpoint slot
-(``save_checkpoint``), and ``open`` restores them after verifying the
-fingerprint (adapter, actor, data version, latest key, remote-meta hash),
-so a reopen ingests only the op tails past the cursor; any doubt falls
-back to the cold refold with the reason recorded.  The payload keys are
-the JAX package's (``fmt``, ``state``, ``cursor``, ``rs``, ``fp``), so a
-checkpoint sealed by either package opens warm in the other; the slots of
-subsystems the port lacks (``cm``, ``rd``, ``snap``, ``sp``) are neither
-written nor read.
+default), ``compact()`` ends by sealing the state, the ingest cursor, the
+read snapshots, the cursor matrix, the delta consumption cursor and (when
+the state still equals it) the sealed snapshot's name into the storage's
+local-checkpoint slot (``save_checkpoint``), and ``open`` restores them
+after verifying the fingerprint (adapter, actor, data version, latest
+key, remote-meta hash), so a reopen ingests only the op tails past the
+cursor and extends its delta chain; any doubt falls back to the cold
+refold with the reason recorded.  The payload keys are the JAX package's
+(``fmt``, ``state``, ``cursor``, ``rs``, ``fp``, ``cm``, ``rd``,
+``snap``), so a checkpoint sealed by either package opens warm in the
+other; the strong-read slot ``sp`` is neither written nor read.
 
 Not copied (each still to port): the ``checkpoint_on_read`` reseal of
-consumer replicas, delta-state replication, strong reads
+consumer replicas, the serving tier's device-cut deltas, strong reads
 and the stable prefix, replication sampling and the metrics sink, the
 payload-stream branch of the bulk path (no accelerator of the port
 reaches it: OR-Sets take the session), the fold service's pre-packed
-checkpoint payload, and the serving front end ``load_sealed_ops``.  A
-reader of either package full-loads a snapshot that carries no delta
-chain, so dropping the delta seal changes nothing on the wire.
+checkpoint payload, and the serving front end ``load_sealed_ops``.
 """
 
 from __future__ import annotations
@@ -131,9 +143,8 @@ _QUARANTINED = _Quarantined()
 
 @dataclass
 class LocalMeta:
-    """Private per-replica identity + durable producer cursors.  The wire
-    form is the JAX package's (``last_delta`` is carried through untouched:
-    the port seals no deltas)."""
+    """Private per-replica identity + durable producer cursors (the op
+    log's and the delta log's).  The wire form is the JAX package's."""
 
     local_actor_id: bytes
     last_op_version: int = 0
@@ -201,6 +212,30 @@ class StateWrapper:
     next_op_versions: VClock
 
 
+def snapshot_sealer(obj) -> bytes | None:
+    """The validated sealer id from a decoded snapshot wrapper, or
+    ``None`` when absent or malformed — the single encoding of the sealer
+    wire rule (16-byte actor id in slot 2).  The type check matters:
+    ``bytes(16)`` would coerce an integer into 16 NUL bytes, a phantom
+    all-zero replica.  Ingest drops what this rejects (observational,
+    never a read failure)."""
+    sealer = obj[2] if len(obj) > 2 else None
+    if (
+        isinstance(sealer, (bytes, bytearray, memoryview))
+        and len(sealer) == 16
+    ):
+        return bytes(sealer)
+    return None
+
+
+def snapshot_payload(state_bytes: bytes, cursor_obj, sealer: bytes) -> bytes:
+    """The packed ``[state, cursor, sealer]`` wrapper around a state
+    already packed canonically: a msgpack array of three is the header
+    0x93 followed by its packed elements, so the state is not packed a
+    second time."""
+    return b"\x93" + state_bytes + codec.pack(cursor_obj) + codec.pack(sealer)
+
+
 @dataclass
 class Info:
     """Observability snapshot (reference Info, lib.rs:766-775)."""
@@ -241,6 +276,12 @@ class OpenOptions:
     # and open() restores it after verification (falling back to the
     # cold refold on any mismatch).
     checkpoint: bool = True
+    # delta-state replication: with ``delta`` on and a storage backend
+    # that has the delta family, compact() also seals a delta since this
+    # replica's previous snapshot, and read_remote() folds ``known base +
+    # delta chain`` before re-reading full snapshots (with a counted
+    # fallback on any gap, GC'd link or fingerprint doubt).
+    delta: bool = True
 
 
 def unpack_checkpoint_state(adapter, fmt: int, st):
@@ -275,6 +316,15 @@ class _MutData:
         self.read_metas: set[str] = set()
         self.remote_meta = RemoteMeta()
         self.keys = Keys()
+        # cursor matrix: other replicas' last PUBLISHED ingest cursors,
+        # learned from the sealer id + cursor each compacted snapshot (and
+        # each delta) carries (obs/replication.py).  Monotone (clocks only
+        # merge) and observational — convergence never depends on it.
+        self.cursor_matrix: dict[Actor, VClock] = {}
+        # delta-chain consumption cursor: per sealer, the highest delta
+        # version already scanned (applied OR skipped) — the next read
+        # loads only past it, and compaction GCs the consumed prefix
+        self.read_deltas: dict[Actor, int] = {}
 
 
 class Core:
@@ -309,6 +359,12 @@ class Core:
         # SHA3 of the canonical converged RemoteMeta; dropped at every
         # meta merge
         self._remote_id_cache: bytes | None = None
+        # delta-state replication: the retained base — the last snapshot
+        # THIS replica sealed, as its canonical packed state bytes + name
+        # + cursor obj — is what the next compaction diffs against
+        self._delta_enabled = opts.delta
+        self._delta_base: dict | None = None
+        self.last_delta_fallback_reason: str | None = None
 
     # ------------------------------------------------------------------ open
     @classmethod
@@ -522,13 +578,19 @@ class Core:
                 return CHECKPOINT_FMT_ORSET, obj
         return CHECKPOINT_FMT_OBJ, self.adapter.state_to_obj(state)
 
-    async def save_checkpoint(self) -> bool:
+    async def save_checkpoint(self, *, _snap: tuple | None = None) -> bool:
         """Seal the materialized state, the ingest cursor and the
         read-snapshot set as this replica's local warm-open checkpoint
         (sealed with the data-key cryptor, stored through the storage's
         atomic local-checkpoint slot).  A later ``open`` restores it and
         ingests only the op tails past the cursor.  Returns False when
-        checkpointing is off on this core."""
+        checkpointing is off on this core.
+
+        ``_snap`` is ``(snapshot_name, mut_epoch)`` from the compaction's
+        seal: when the live state provably still equals the just-sealed
+        snapshot (same mutation epoch), the checkpoint records its name
+        (``snap``), so a warm reopen restores the delta-sealing base and
+        keeps its chain unbroken."""
         if not self._checkpoint_enabled:
             return False
         with trace.span("checkpoint.save"):
@@ -543,7 +605,22 @@ class Core:
                 b"cursor": d.next_op_versions.to_obj(),
                 b"rs": sorted(d.read_states),
                 b"fp": self._checkpoint_fingerprint(),
+                # the cursor matrix rides along so a warm open keeps its
+                # replication view; observational — never fingerprinted
+                b"cm": {
+                    a: c.to_obj() for a, c in sorted(d.cursor_matrix.items())
+                },
+                # delta-chain continuity (both observational): the
+                # per-sealer delta consumption cursor, and — only when
+                # the epoch proves state == sealed snapshot — its name
+                b"rd": dict(sorted(d.read_deltas.items())),
             }
+            if (
+                _snap is not None
+                and _snap[1] is not None
+                and _snap[1] == getattr(d.state, "_mut", None)
+            ):
+                payload[b"snap"] = _snap[0].encode()
             blob = await self._seal(payload)
             await self.storage.store_local_checkpoint(blob)
             trace.add("checkpoint_bytes", len(blob))
@@ -569,8 +646,8 @@ class Core:
         cursor is still traceable against the remote listing.  A torn
         file, a decrypt failure or any mismatch falls back to the cold
         refold with the reason recorded — a checkpoint is a cache, never a
-        source of truth.  Slots the port does not read (``cm``, ``rd``,
-        ``snap``, ``sp`` of a JAX-sealed checkpoint) are ignored."""
+        source of truth.  The strong-read slot ``sp`` of a JAX-sealed
+        checkpoint is ignored."""
         raw = await self.storage.load_local_checkpoint()
         if raw is None:
             return False
@@ -586,6 +663,14 @@ class Core:
                     fmt = int(obj[b"fmt"])
                     cursor = VClock.from_obj(obj[b"cursor"])
                     read_states = {str(n) for n in obj[b"rs"]}
+                    cursor_matrix = {
+                        bytes(a): VClock.from_obj(c)
+                        for a, c in (obj.get(b"cm") or {}).items()
+                    }
+                    read_deltas = {
+                        bytes(a): int(v)
+                        for a, v in (obj.get(b"rd") or {}).items()
+                    }
                 except Exception:
                     logger.debug("checkpoint malformed", exc_info=True)
                     return await self._checkpoint_fallback("malformed")
@@ -624,6 +709,24 @@ class Core:
             d.state = state
             d.next_op_versions = cursor
             d.read_states = read_states
+            d.cursor_matrix = cursor_matrix
+            d.read_deltas = read_deltas
+            # delta-base continuity: when the checkpoint proves it was
+            # sealed WITH the snapshot (state == snapshot, name known),
+            # the next compaction keeps extending the delta chain instead
+            # of breaking it with a delta-less seal
+            snap = obj.get(b"snap")
+            if (
+                self._delta_enabled
+                and isinstance(snap, (bytes, bytearray, memoryview))
+            ):
+                snap_name = bytes(snap).decode()
+                if snap_name in read_states:
+                    self._set_delta_base(
+                        snap_name,
+                        codec.pack(self.adapter.state_to_obj(state)),
+                        cursor.to_obj(),
+                    )
         self.opened_from_checkpoint = True
         return True
 
@@ -638,7 +741,11 @@ class Core:
         """inner(data version) → cipher middle → outer(container), with the
         sealing key's id recorded in the outer layer so readers select the
         right key after rotation or concurrent bootstrap."""
-        inner = VersionBytes(self.current_data_version, codec.pack(payload_obj))
+        return await self._seal_packed(codec.pack(payload_obj))
+
+    async def _seal_packed(self, payload: bytes) -> bytes:
+        """:meth:`_seal` of a payload already packed canonically."""
+        inner = VersionBytes(self.current_data_version, payload)
         key = self._latest_key()
         middle = await self.cryptor.encrypt(key.material, inner.serialize())
         return VersionBytes(
@@ -840,7 +947,19 @@ class Core:
             names = await self.storage.list_state_names()
         new = [n for n in names if n not in self._data.read_states]
         if not new:
+            # a quiet poll pays NO delta machinery: deltas are sealed
+            # with their snapshots, so no unread snapshot ⇒ no new delta
             return
+        if self._delta_enabled and getattr(self.storage, "has_deltas", False):
+            # delta-first: chains that anchor at an already-merged base
+            # snapshot fold without downloading the full snapshot; any
+            # snapshot a chain cannot reach (gap, GC'd link, fingerprint
+            # doubt, no codec) is full-loaded below — the delta layer can
+            # save bytes but never lose data
+            if await self._read_remote_deltas():
+                new = [n for n in new if n not in self._data.read_states]
+                if not new:
+                    return
         with trace.span("states.load"):
             loaded = await self.storage.load_states(new)
         sem = asyncio.Semaphore(IO_CONCURRENCY)
@@ -850,9 +969,10 @@ class Core:
             async with sem:
                 try:
                     obj = await self._open_sealed(raw)
-                    # [state, cursor] or [state, cursor, sealer]: the
-                    # sealer id is observational and not used here
-                    return name, StateWrapper(
+                    # [state, cursor] or [state, cursor, sealer]; a
+                    # malformed sealer id is ignored (observational),
+                    # never a read failure
+                    return name, snapshot_sealer(obj), StateWrapper(
                         self.adapter.state_from_obj(obj[0]),
                         VClock.from_obj(obj[1]),
                     )
@@ -884,12 +1004,105 @@ class Core:
         # sync section: CvRDT merge (HOT LOOP #1 → accelerator)
         with trace.span("states.merge"):
             self.accel.merge_states(
-                self._data.state, [sw.state for _, sw in decoded]
+                self._data.state, [sw.state for _, _, sw in decoded]
             )
         trace.add("states_merged", len(decoded))
-        for _, sw in decoded:
+        for _, sealer, sw in decoded:
             self._data.next_op_versions.merge(sw.next_op_versions)
-        self._data.read_states.update(name for name, _ in decoded)
+            if sealer is not None and sealer != self.actor_id:
+                # learn the sealing replica's published ingest cursor —
+                # the matrix row the stability watermark mins over
+                self._data.cursor_matrix.setdefault(
+                    sealer, VClock()
+                ).merge(sw.next_op_versions)
+        self._data.read_states.update(name for name, _, _ in decoded)
+
+    # ------------------------------------------------------- delta chains
+    def _delta_fallback(self, actor: Actor, version: int, reason: str) -> None:
+        """One unusable delta link: counted (``delta_fallbacks``) and
+        attributed, never silent — the snapshot path picks the slack up
+        in the same pass, so this is an efficiency signal, not an error.
+        The last reason is kept in ``last_delta_fallback_reason``."""
+        trace.add("delta_fallbacks", 1)
+        self.last_delta_fallback_reason = reason
+        logger.debug(
+            "delta chain fallback at %s:v%d (%s); using the snapshot path",
+            actor.hex(), version, reason,
+        )
+
+    async def _read_remote_deltas(self) -> int:
+        """Walk every sealer's delta log past the consumed cursor and
+        apply each link whose base snapshot this replica has already
+        merged (base NAME ∈ ``read_states`` — the content address is the
+        fingerprint, so an unknown or renamed base is doubt and falls
+        back).  Applying a link is byte-equal to merging its target
+        snapshot (delta/codec.py contract), so the target name is marked
+        read, its cursor merged, and the sealer's cursor-matrix row
+        advanced — exactly the full-snapshot bookkeeping.  Returns the
+        number of links applied."""
+        from ..delta import codec_for, wire
+
+        d = self._data
+        codec_cls = codec_for(self.adapter.name)
+        with trace.span("delta.read"):
+            actors = await self.storage.list_delta_actors()
+            wanted = [
+                (a, d.read_deltas.get(a, 0) + 1) for a in sorted(actors)
+            ]
+            if not wanted:
+                return 0
+            files = await self.storage.load_deltas(wanted)
+            if not files:
+                return 0
+            trace.add("delta_bytes_read", sum(len(raw) for _, _, raw in files))
+            applied = 0
+            chain = 0  # longest contiguous applied run this pass
+            run: dict[Actor, int] = {}
+            for actor, version, raw in files:
+                # scanned-is-consumed: whatever this link's fate, the next
+                # poll starts past it (its target stays reachable through
+                # the snapshot listing)
+                if version > d.read_deltas.get(actor, 0):
+                    d.read_deltas[actor] = version
+                try:
+                    obj = await self._open_sealed(raw)
+                    rec = wire.parse_delta_obj(obj)
+                except MissingKeyError:
+                    # unlike op ingest this is NOT loud: the full snapshot
+                    # (sealed with the same key register) raises it if the
+                    # key truly has not synced
+                    self._delta_fallback(actor, version, "unknown_key")
+                    continue
+                except Exception:
+                    logger.debug("delta undecodable", exc_info=True)
+                    self._delta_fallback(actor, version, "unreadable")
+                    continue
+                if rec.adapter != self.adapter.name:
+                    self._delta_fallback(actor, version, "adapter")
+                    continue
+                if rec.new_name in d.read_states:
+                    continue  # already merged (idempotent re-delivery)
+                if codec_cls is None:
+                    self._delta_fallback(actor, version, "no_codec")
+                    continue
+                if not rec.base_name or rec.base_name not in d.read_states:
+                    self._delta_fallback(actor, version, "base_missing")
+                    continue
+                # sync section: fold the link + full snapshot bookkeeping
+                codec_cls.apply(d.state, rec.delta_obj)
+                d.next_op_versions.merge(rec.new_cursor)
+                d.read_states.add(rec.new_name)
+                if rec.sealer != self.actor_id:
+                    d.cursor_matrix.setdefault(
+                        rec.sealer, VClock()
+                    ).merge(rec.new_cursor)
+                applied += 1
+                run[actor] = run.get(actor, 0) + 1
+                chain = max(chain, run[actor])
+            if applied:
+                trace.add("delta_applied", applied)
+                trace.gauge("delta_chain_length", chain)
+        return applied
 
     async def _read_remote_ops(self) -> None:
         with trace.span("ops.list"):
@@ -1346,24 +1559,43 @@ class Core:
         await self._compact_seal()
 
     async def _compact_seal(self) -> None:
-        """Snapshot the CURRENT state + cursor, write the new snapshot,
-        then collect the snapshots and op files it covers."""
-        # sync section: the (state, cursor) cut comes from one loop slice
+        """Snapshot the CURRENT state + cursor, write the new snapshot and
+        its delta, then collect the deltas, snapshots and op files it
+        covers."""
+        # sync section: the snapshot/cursor/delta-plan cut comes from ONE
+        # loop slice — an await here would let an ingest interleave and
+        # seal a torn (state, cursor, delta) triple
         d = self._data
-        payload = [
-            self.adapter.state_to_obj(d.state),
-            d.next_op_versions.to_obj(),
-            # sealer id: readers attribute the cursor to this replica
-            self.actor_id,
-        ]
+        state_obj = self.adapter.state_to_obj(d.state)
+        cursor_obj = d.next_op_versions.to_obj()
+        snap_mut = getattr(d.state, "_mut", None)
+        with trace.span("compact.seal"):
+            # packed once: the snapshot payload and the delta plan's next
+            # base share these bytes
+            state_bytes = codec.pack(state_obj)
+        delta_plan = self._plan_delta_seal(state_bytes, cursor_obj)
+        # sealer id: readers attribute the cursor to this replica
+        payload = snapshot_payload(state_bytes, cursor_obj, self.actor_id)
         states_to_remove = sorted(d.read_states)
         ops_to_remove = sorted(d.next_op_versions.counters.items())
         prior_names = frozenset(d.read_states)
+        # consumed-prefix GC covers FOREIGN logs only: the own log is
+        # governed by _seal_delta's MAX_CHAIN bound — a stale reopen that
+        # re-scanned its own chain must not wipe links steady consumers
+        # are still walking
+        deltas_to_remove = sorted(
+            (a, v) for a, v in d.read_deltas.items() if a != self.actor_id
+        )
         with trace.span("compact.seal"):
-            blob = await self._seal(payload)
+            blob = await self._seal_packed(payload)
         # crash safety: the new snapshot is durable before anything vanishes
         with trace.span("compact.write"):
             name = await self.storage.store_state(blob)
+        if delta_plan is not None:
+            # the delta lands AFTER its target snapshot is durable (a crash
+            # between the two leaves a snapshot consumers simply full-read)
+            # and BEFORE the GC below
+            await self._seal_delta(delta_plan, name)
         # snapshot-GC guard: foreign snapshots may only be removed when the
         # justifying snapshot ``name`` was never published before.  A
         # re-seal of unchanged state reproduces its previous content-
@@ -1379,6 +1611,11 @@ class Core:
         else:
             stale_states = states_to_remove
         with trace.span("compact.gc"):
+            if deltas_to_remove and self._delta_enabled:
+                # consumed delta prefixes go FIRST: the new snapshot covers
+                # them, and removing them before their target snapshots
+                # keeps any crash window free of dangling chain heads
+                await self.storage.remove_deltas(deltas_to_remove)
             await asyncio.gather(
                 self.storage.remove_states(stale_states),
                 self.storage.remove_ops(ops_to_remove),
@@ -1389,7 +1626,170 @@ class Core:
         if self._checkpoint_enabled:
             # the freshly compacted state is the ideal warm-open resume
             # point: everything folded, op logs collected to the cursor
-            await self.save_checkpoint()
+            await self.save_checkpoint(_snap=(name, snap_mut))
+
+    # --------------------------------------------------------- delta sealing
+    def _plan_delta_seal(self, state_bytes: bytes, cursor_obj):
+        """Sync section of the delta seal: diff the about-to-be-sealed
+        state against the retained base (this replica's previous
+        snapshot) and hand the await half (:meth:`_seal_delta`) an
+        immutable plan.  Runs BEFORE the first await of the seal tail so
+        a concurrent apply cannot tear the (base, new, delta) triple.
+
+        The plan always carries ``new_bytes`` — ``state_bytes``, the
+        canonical packed state — which becomes the NEXT base even when no
+        delta can be cut this round (first seal, no codec, failed diff);
+        ``dobj`` is None then and consumers fall back to the full snapshot
+        for this link only."""
+        if not self._delta_enabled or not getattr(
+            self.storage, "has_deltas", False
+        ):
+            return None
+        from ..delta import codec_for
+
+        codec_cls = codec_for(self.adapter.name)
+        if codec_cls is None:
+            return None
+        with trace.span("delta.plan"):
+            plan = {
+                "new_bytes": state_bytes,
+                "cursor": cursor_obj,
+                "dobj": None,
+                "codec": codec_cls,
+                "base_state": None,
+                "base_name": "",
+                "base_cursor": None,
+            }
+            base = self._delta_base
+            if base is None:
+                return plan
+            try:
+                base_state = self.adapter.state_from_obj(
+                    codec.unpack(base["bytes"])
+                )
+                dobj = codec_cls.diff(base_state, self._data.state)
+            except Exception:
+                logger.warning(
+                    "delta diff failed; sealing snapshot only", exc_info=True
+                )
+                trace.add("delta_seal_skipped", 1)
+                return plan
+        if dobj is None:
+            trace.add("delta_seal_skipped", 1)
+            return plan
+        # the size guard and self-verify run in _seal_delta's await half
+        # (everything they read is an immutable plan-owned copy) — only
+        # the diff against the LIVE state needed this sync section
+        plan["dobj"] = dobj
+        plan["base_state"] = base_state
+        plan["base_name"] = base["name"]
+        plan["base_cursor"] = base["cursor"]
+        return plan
+
+    def _set_delta_base(self, name: str, state_bytes: bytes,
+                        cursor_obj) -> None:
+        """Retain the just-sealed snapshot as the next diff base.
+        ``state_bytes`` is a resident O(state) canonical copy per Core —
+        deliberate (the alternative is re-decrypting the sealed snapshot
+        every compact) but not free, so its size is published
+        (``delta_base_bytes``) and the subsystem is opt-out
+        (``OpenOptions.delta``)."""
+        self._delta_base = {
+            "name": name, "bytes": state_bytes, "cursor": cursor_obj,
+        }
+        trace.gauge("delta_base_bytes", len(state_bytes))
+
+    def _verify_delta_plan(self, plan) -> bool:
+        """The refusal-to-publish guard (worker thread — the plan owns
+        every input, so nothing races the live state): apply the delta to
+        the base copy and require byte-identity with the sealed state.  A
+        codec bug must surface HERE, on the sealer, not as divergence
+        scattered across the fleet."""
+        with trace.span("delta.verify"):
+            try:
+                base_state = plan["base_state"]
+                plan["codec"].apply(base_state, plan["dobj"])
+                return (
+                    codec.pack(self.adapter.state_to_obj(base_state))
+                    == plan["new_bytes"]
+                )
+            except Exception:
+                logger.warning("delta verify crashed", exc_info=True)
+                return False
+
+    async def _seal_delta(self, plan, name: str) -> None:
+        """Await half of the delta seal: wire-build, seal with the data
+        key, publish at the next own-log version (FileExistsError probes
+        forward — the op-file discipline), persist the bumped local-meta
+        cursor, and retain the new base.  A delta-less round (``dobj``
+        None: no base, a delta no smaller than the state, or one that does
+        not refold to it) wipes the own log instead: a chain that cannot
+        extend to the new snapshot is dead weight every consumer would
+        scan and fall back on."""
+        from ..delta import MAX_CHAIN, wire
+        from ..obs.replication import stability_watermark
+
+        d = self._data
+        assert self._local_meta is not None
+        if name == plan["base_name"]:
+            return  # idempotent re-seal of the identical snapshot
+        if plan["dobj"] is not None:
+            if len(codec.pack(plan["dobj"])) >= len(plan["new_bytes"]):
+                # a delta no smaller than the state saves nothing
+                trace.add("delta_seal_skipped", 1)
+                plan["dobj"] = None
+            elif not await asyncio.to_thread(self._verify_delta_plan, plan):
+                logger.warning(
+                    "delta diff does not refold to the sealed state; "
+                    "refusing to publish it (snapshot only)"
+                )
+                trace.add("delta_seal_divergence", 1)
+                plan["dobj"] = None
+        if plan["dobj"] is None:
+            self._set_delta_base(name, plan["new_bytes"], plan["cursor"])
+            last = self._local_meta.last_delta_version
+            if last:
+                trace.add("delta_pruned", 1)
+                await self.storage.remove_deltas([(self.actor_id, last)])
+            return
+        with trace.span("delta.seal"):
+            union = d.next_op_versions.copy()
+            for clock in d.cursor_matrix.values():
+                union.merge(clock)
+            rec = wire.DeltaRecord(
+                base_name=plan["base_name"],
+                new_name=name,
+                base_cursor=VClock.from_obj(plan["base_cursor"]),
+                new_cursor=VClock.from_obj(plan["cursor"]),
+                sealer=self.actor_id,
+                adapter=self.adapter.name,
+                watermark=stability_watermark(
+                    self.actor_id, d.next_op_versions, d.cursor_matrix, union
+                ),
+                delta_obj=plan["dobj"],
+            )
+            blob = await self._seal(wire.build_delta_obj(rec))
+            version = self._local_meta.last_delta_version + 1
+            while True:
+                try:
+                    await self.storage.store_delta(
+                        self.actor_id, version, blob
+                    )
+                    break
+                except FileExistsError:
+                    version += 1
+            self._local_meta.last_delta_version = version
+            await self._store_local_meta()
+            trace.add("delta_files_sealed", 1)
+            trace.add("delta_bytes_sealed", len(blob))
+            # own-log bound: consumers further than MAX_CHAIN behind
+            # re-read the full snapshot once and rejoin the chain
+            if version > MAX_CHAIN:
+                trace.add("delta_pruned", 1)
+                await self.storage.remove_deltas(
+                    [(self.actor_id, version - MAX_CHAIN)]
+                )
+        self._set_delta_base(name, plan["new_bytes"], plan["cursor"])
 
     # ------------------------------------------------- remote meta lifecycle
     async def _read_remote_meta(self, force_notify: bool = False) -> None:

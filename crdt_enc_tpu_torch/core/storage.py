@@ -1,7 +1,6 @@
 """Storage port: abstract persistence over four object families.
 
-The port's copy of ``crdt_enc_tpu/core/storage.py`` without the
-delta-snapshot family (the port's ``Core`` seals no deltas).
+The port's copy of ``crdt_enc_tpu/core/storage.py``.
 
 Mirrors the reference Storage trait (crdt-enc/src/storage.rs:8-43): local
 meta (one mutable blob), remote metas / states (immutable content-addressed
@@ -130,6 +129,39 @@ class Storage(ABC):
     @abstractmethod
     async def remove_ops(self, actor_last_versions: list[tuple[Actor, int]]) -> None:
         """Remove every op file with version ≤ last for each actor."""
+
+    # -- delta snapshots (immutable, per-sealer, versioned 1,2,3,…) --------
+    # The delta-state replication family: each compacting replica keeps a
+    # small versioned log of sealed delta snapshots next to its op log.
+    # Contract differences from the op family, both deliberate:
+    # ``load_deltas`` returns every version ≥ first that EXISTS, sorted,
+    # tolerating leading holes (prefix GC is routine and chain validity is
+    # established by the payload's base-name links, not by density); and
+    # the whole family is OPTIONAL — these defaults implement "no delta
+    # support" (``has_deltas`` False, loads empty, stores/removes no-ops),
+    # under which producers seal no deltas and consumers read full
+    # snapshots.
+    has_deltas = False
+
+    async def list_delta_actors(self) -> list[Actor]:
+        return []
+
+    async def load_deltas(
+        self, actor_first_versions: list[tuple[Actor, int]]
+    ) -> list[tuple[Actor, int, bytes]]:
+        """Every stored delta with version ≥ first, sorted by version
+        per actor (leading/interior holes skipped, not scanned-to)."""
+        return []
+
+    async def store_delta(self, actor: Actor, version: int, data: bytes) -> None:
+        """Publish one immutable delta file.  Must raise
+        ``FileExistsError`` on a version collision (the producer probes
+        forward, the op-file discipline)."""
+
+    async def remove_deltas(
+        self, actor_last_versions: list[tuple[Actor, int]]
+    ) -> None:
+        """Remove every delta with version ≤ last for each actor."""
 
     # -- lifecycle ---------------------------------------------------------
     async def init(self, core) -> None:

@@ -1,0 +1,217 @@
+"""Per-CRDT delta codecs: cut a small lattice delta, apply it exactly.
+
+The port's copy of ``crdt_enc_tpu/delta/codec.py`` for the OR-Set,
+G-Counter and PN-Counter (the resettable counter rides the OR-Set
+codec).  The G-Set codec waits for a G-Set adapter, and the device-cut
+builder over plane-diff rows for the device-cut seal.
+
+A codec provides two pure functions over a CRDT type's state:
+
+* ``diff(base, new) -> obj | None`` — the state change from ``base``
+  to ``new`` as a msgpack-able object, or ``None`` when no delta
+  smaller than the full state can be cut (the caller then seals no
+  delta and consumers fall back to the snapshot path).
+* ``apply(state, obj) -> None`` — fold the delta into ``state``.
+
+**Correctness contract** (the differential tests pin it byte-exactly): for any consumer state ``X`` that
+has MERGED the base snapshot (``X ⊒ base`` in the CvRDT lattice, via
+``merge(X0, base)`` — cursor coverage alone is NOT enough, see the
+OR-Set note below), ``apply(X, diff(base, new))`` must leave ``X``
+byte-identical (canonical form) to ``merge(X, new)``.  The core only
+applies a delta when the base snapshot's content-addressed NAME is in
+its ``read_states`` set, which is exactly the merged-the-base
+precondition; anything weaker falls back to the full snapshot.
+
+For join-semilattice states with cheap sub-elements (G-Counter,
+PN-Counter) the delta is literally a smaller element of the
+same lattice and ``apply`` is ``merge`` — correct for ANY ``X``.  The
+Orswot OR-Set is the interesting case: its clock doubles as the
+tombstone set (``models/orset.py``), so a plain sub-state cannot
+express removals without killing every surviving old entry.  The
+Orswot delta here is the dotted-causal-context form restricted to the
+window ``(base.clock, new.clock]``:
+
+* ``e``  — surviving slots whose add-dot lies past ``base.clock``
+  (the new adds; also the *confirmations* that keep a window dot
+  alive on the consumer),
+* ``x``  — base slots absent from ``new`` (removals of old entries;
+  dot-exact, so a consumer's newer concurrent slot is untouched),
+* ``t``  — remove horizons (``deferred``) raised past the base's,
+* ``bc``/``c`` — both endpoint clocks, delimiting the kill window.
+
+``apply`` kills a consumer slot iff it is dot-exactly removed by
+``x``, or its dot falls in the window and ``e`` does not confirm it —
+precisely the slots ``merge(X, new)`` would kill (``new`` saw those
+dots and no longer holds them), and no others: dots at or below
+``base.clock`` are protected (the consumer merged the base, so its
+surviving old slots are the base's surviving old slots), and dots
+past ``new.clock`` are unknown to ``new`` and survive any merge with
+it.  Why cursor coverage is not enough for the precondition: Orswot
+removes do not advance the clock, so a consumer whose *cursor*
+descends the base's may still hold a pre-base dot alive that the base
+had removed — only an actual merge of the base snapshot rules that
+out.
+"""
+
+from __future__ import annotations
+
+from ..models import GCounter, ORSet, PNCounter, VClock
+
+
+# --------------------------------------------------------------------- orset
+def orset_delta_diff(base: ORSet, new: ORSet):
+    """The Orswot window delta (module docs).  ``new`` must descend
+    ``base`` (it is the same replica's state after more folding —
+    slots only grow, killed dots stay dead)."""
+    bc = base.clock
+    adds: dict = {}
+    for member, slots in new.entries.items():
+        picked = {r: c for r, c in slots.items() if c > bc.get(r)}
+        if picked:
+            adds[member] = picked
+    removed: dict = {}
+    for member, slots in base.entries.items():
+        new_slots = new.entries.get(member, {})
+        gone = {r: c for r, c in slots.items() if not new_slots.get(r, 0)}
+        if gone:
+            removed[member] = gone
+    horizons: dict = {}
+    for member, hs in new.deferred.items():
+        base_hs = base.deferred.get(member, {})
+        raised = {
+            r: h
+            for r, h in hs.items()
+            if h > base_hs.get(r, 0) and h > new.clock.get(r)
+        }
+        if raised:
+            horizons[member] = raised
+    return {
+        b"bc": bc.to_obj(),
+        b"c": new.clock.to_obj(),
+        b"e": adds,
+        b"x": removed,
+        b"t": horizons,
+    }
+
+
+def orset_delta_apply(state: ORSet, obj) -> None:
+    """Fold one Orswot window delta into ``state`` (module docs)."""
+    bc = VClock.from_obj(obj.get(b"bc"))
+    nc = VClock.from_obj(obj.get(b"c"))
+    adds = {m: {bytes(r): int(c) for r, c in v.items()}
+            for m, v in (obj.get(b"e") or {}).items()}
+    removed = {m: {bytes(r): int(c) for r, c in v.items()}
+               for m, v in (obj.get(b"x") or {}).items()}
+    horizons = {m: {bytes(r): int(c) for r, c in v.items()}
+                for m, v in (obj.get(b"t") or {}).items()}
+    state._mut += 1  # device plane caches key on the mutation epoch
+    touched = set(adds) | set(removed) | set(horizons)
+
+    # 1) kill pass: dot-exact removals, then the causal window.  When
+    #    the window is empty (a remove-only delta: Orswot removes never
+    #    advance the clock) only explicitly named members need a look.
+    window = any(nc.get(r) > bc.get(r) for r in nc.counters)
+    scan = list(state.entries) if window else [
+        m for m in removed if m in state.entries
+    ]
+    for member in scan:
+        slots = state.entries.get(member)
+        if not slots:
+            continue
+        gone = removed.get(member, {})
+        confirm = adds.get(member, {})
+        for r in list(slots):
+            c = slots[r]
+            if gone.get(r, 0) == c:
+                del slots[r]  # the base slot new explicitly dropped
+            elif bc.get(r) < c <= nc.get(r) and confirm.get(r, 0) != c:
+                # new saw this dot and no longer holds it: dead
+                del slots[r]
+                touched.add(member)
+        if not slots:
+            state.entries.pop(member, None)
+
+    # 2) raised remove horizons: kill what they cover, defer the rest
+    for member, hs in horizons.items():
+        state._apply_rm(member, VClock(dict(hs)))
+
+    # 3) new adds: unseen dots land, seen-and-dead dots stay dead
+    for member, slots in adds.items():
+        for r, c in slots.items():
+            cur = state.entries.get(member, {}).get(r, 0)
+            if cur >= c:
+                continue  # consumer already holds this dot or newer
+            if c <= state.clock.get(r):
+                continue  # seen and killed locally: stays dead
+            if state.deferred.get(member, {}).get(r, 0) >= c:
+                continue  # a deferred remove already observed it
+            state.entries.setdefault(member, {})[r] = c
+
+    # 4) causal advance + canonical normalization of touched members
+    state.clock.merge(nc)
+    for member in touched:
+        state._normalize_member(member)
+
+
+class _OrsetCodec:
+    state_type = ORSet
+    diff = staticmethod(orset_delta_diff)
+    apply = staticmethod(orset_delta_apply)
+
+
+# ------------------------------------------------------------------ counters
+class _GCounterCodec:
+    """A G-Counter delta is a sub-clock: the per-actor counters that
+    moved past the base.  ``apply`` is the lattice join itself, so the
+    merged-base precondition is not even needed here."""
+
+    state_type = GCounter
+
+    @staticmethod
+    def diff(base: GCounter, new: GCounter):
+        return {
+            r: c
+            for r, c in new.clock.counters.items()
+            if c > base.clock.get(r)
+        }
+
+    @staticmethod
+    def apply(state: GCounter, obj) -> None:
+        state.clock.merge(VClock.from_obj(obj))
+
+
+class _PNCounterCodec:
+    state_type = PNCounter
+
+    @staticmethod
+    def diff(base: PNCounter, new: PNCounter):
+        return [
+            _GCounterCodec.diff(base.p, new.p),
+            _GCounterCodec.diff(base.n, new.n),
+        ]
+
+    @staticmethod
+    def apply(state: PNCounter, obj) -> None:
+        p, n = obj
+        _GCounterCodec.apply(state.p, p)
+        _GCounterCodec.apply(state.n, n)
+
+
+# ------------------------------------------------------------------ registry
+# adapter name (CrdtAdapter.name) → codec.  The composed resettable
+# counter (delta/compose.py) rides the OR-Set codec unchanged: its
+# state IS an ORSet — the same composition law that lets it ride the
+# OR-Set device kernels.
+_CODECS = {
+    b"orset": _OrsetCodec,
+    b"rcounter": _OrsetCodec,
+    b"gcounter": _GCounterCodec,
+    b"pncounter": _PNCounterCodec,
+}
+
+
+def codec_for(adapter_name: bytes):
+    """The delta codec registered for an adapter name, or ``None`` —
+    the caller falls back to the full-snapshot path (types without a
+    codec simply never seal deltas)."""
+    return _CODECS.get(bytes(adapter_name))

@@ -239,8 +239,9 @@ def orset_fold_stream(clock0, add0, rm0, chunks, *, num_members: int,
                       pool: ChunkPool | None = None):
     """Fold an iterable of fixed-shape op chunks into the state planes.
 
-    ``clock0``/``add0``/``rm0`` are host (numpy) planes; they are uploaded
-    to ``device`` once.  ``chunks`` yields ``(kind, member, actor,
+    ``clock0``/``add0``/``rm0`` are host (numpy) planes, uploaded to
+    ``device`` once, or int32 tensors already there (a plane-cache hit),
+    taken as they are; the stream may recycle their memory.  ``chunks`` yields ``(kind, member, actor,
     counter)`` of one common row count (:func:`iter_orset_chunks`), and
     each chunk is one ``orset_fold_cuda`` launch with ``retire_rm`` (on
     by default, as the JAX stream's chunks retire).  The planes ping-pong
@@ -250,10 +251,13 @@ def orset_fold_stream(clock0, add0, rm0, chunks, *, num_members: int,
     Pass ``pool`` when the chunk iterator stages into a
     :class:`ChunkPool`, so its buffers recycle."""
     device = torch.device(device)
-    host = [np.ascontiguousarray(x, np.int32) for x in (clock0, add0, rm0)]
-    if device.type == "cuda":
-        trace.add("h2d_bytes", sum(x.nbytes for x in host))
-    planes = tuple(torch.from_numpy(x).to(device) for x in host)
+    if isinstance(clock0, torch.Tensor):
+        planes = (clock0, add0, rm0)
+    else:
+        host = [np.ascontiguousarray(x, np.int32) for x in (clock0, add0, rm0)]
+        if device.type == "cuda":
+            trace.add("h2d_bytes", sum(x.nbytes for x in host))
+        planes = tuple(torch.from_numpy(x).to(device) for x in host)
     spare: list = [None]
 
     def fold_step(planes, chunk):

@@ -20,6 +20,12 @@ regime (few rows over a huge vocabulary) fold by one sort on the host
 ingest chunk by chunk; ``fold_encrypted_stream`` runs decrypt, decode and
 fold as one overlapped pipeline.
 
+A dense OR-Set fold keeps the planes it computed on the device
+(``_OrsetPlaneCache``): the next fold of the same, unmutated state remaps
+its batch onto the cached vocabularies and starts from those planes, so
+it walks no state and uploads only the op columns.  Every host writeback bumps the state's
+``_mut`` epoch, and a bumped epoch expires the entry.
+
 Eager PyTorch compiles nothing per shape, so the JAX package's bucket
 padding of rows and vocabularies (a bound on XLA recompiles) has no
 counterpart here.
@@ -28,6 +34,7 @@ counterpart here.
 from __future__ import annotations
 
 import operator
+import weakref
 from itertools import islice
 
 import numpy as np
@@ -39,7 +46,6 @@ from ..models.lwwmap import LWWMap, _wins
 from ..models.orset import ORSet
 from ..ops.columnar import (
     CounterColumns,
-    OrsetColumns,
     Vocab,
     counter_ops_to_columns,
     dense_to_vclock,
@@ -59,10 +65,35 @@ from ..ops.native_decode import (
 )
 from ..ops.orset import orset_fold, orset_merge_many
 from ..ops.stream import ChunkPool, iter_orset_chunks, orset_fold_stream
-from ..utils import trace
+from ..utils import codec, trace
 
 MIN_DEVICE_BATCH = 256  # below this the host loop wins
 ENCRYPTED_STREAM_CHUNKS = 8  # fold_encrypted_stream's pipeline chunks
+
+
+class _OrsetPlaneCache:
+    """Device-resident ORSet state planes carried between folds (the JAX
+    package's ``_OrsetPlaneCache``).
+
+    After a dense fold writes its result back to the sparse host state,
+    the planes it computed — on the device, normalized, equal to the
+    state — are kept here, so the NEXT fold of the same, unmutated state
+    skips the state→planes walk and the full-state upload.  Validity is
+    (object identity via weakref) × (the state's ``_mut`` epoch recorded
+    after the writeback): any host mutation bumps the epoch and the entry
+    expires.  The vocabularies are the caching fold's; later batches
+    remap onto them (value-collision-guarded, as the fold sessions
+    are)."""
+
+    __slots__ = ("ref", "token", "members", "replicas", "planes", "canon")
+
+    def __init__(self, ref, token, members, replicas, planes, canon):
+        self.ref = ref
+        self.token = token
+        self.members = members
+        self.replicas = replicas
+        self.planes = planes  # (clock, add, rm) tensors on the device
+        self.canon = canon  # member slot -> canonical packed bytes
 
 
 class TorchAccelerator(HostAccelerator):
@@ -97,6 +128,8 @@ class TorchAccelerator(HostAccelerator):
             raise ValueError(f"TorchAccelerator: unsupported device {device}")
         self.device = device
         self.min_device_batch = min_device_batch
+        # device-resident plane reuse across fold rounds
+        self._plane_cache: _OrsetPlaneCache | None = None
 
     def _upload(self, arrays) -> list:
         """numpy arrays → tensors on ``self.device``; counts the bytes
@@ -130,55 +163,183 @@ class TorchAccelerator(HostAccelerator):
         members, replicas = Vocab(), Vocab()
         with trace.span("fold.columns"):
             cols = orset_ops_to_columns(ops, members, replicas)
-        with trace.span("fold.vocab"):
-            orset_scan_vocab(state, members, replicas)
+        return self._fold_orset_columns(
+            state, cols.kind, cols.member, cols.actor, cols.counter,
+            members, replicas,
+        )
+
+    # ---------------------------------------------------------- plane cache
+    def _plane_cache_for(self, state: ORSet) -> _OrsetPlaneCache | None:
+        """The live cache entry for ``state``, or None (no entry, an entry
+        for another object, or the state mutated since it was filled)."""
+        c = self._plane_cache
+        if c is None or c.ref() is not state:
+            return None
+        if c.token != getattr(state, "_mut", None):
+            self._plane_cache = None  # stale: free the device planes
+            return None
+        return c
+
+    @staticmethod
+    def _remap_to_cache(cache: _OrsetPlaneCache, member, actor,
+                        members: Vocab, replicas: Vocab):
+        """Remap batch columns from their batch vocabularies onto the
+        cache's (growing them), or None where the dense planes cannot
+        take the batch — a member value collision (1 == True, 0.0 ==
+        -0.0) or a padded/sentinel index — and the caller then takes the
+        uncached path."""
+        if (len(member) and int(np.max(member)) >= len(members.items)) or (
+            len(actor) and int(np.max(actor)) >= len(replicas.items)
+        ):
+            return None  # sentinel/padded columns: not plain vocab indices
+        mt = np.empty(len(members.items), np.int32)
+        canon = cache.canon
+        for i, obj in enumerate(members.items):
+            gid = cache.members.intern(obj)
+            pk = codec.pack(obj)
+            prev = canon.get(gid)
+            if prev is None:
+                stored = cache.members.items[gid]
+                prev = pk if stored is obj else codec.pack(stored)
+                canon[gid] = prev
+            if prev != pk:
+                return None
+            mt[i] = gid
+        rt = np.empty(len(replicas.items), np.int32)
+        for i, a in enumerate(replicas.items):
+            rt[i] = cache.replicas.intern(a)
+        member = mt[member] if len(member) else np.asarray(member, np.int32)
+        actor = rt[actor] if len(actor) else np.asarray(actor, np.int32)
+        return member, actor
+
+    @staticmethod
+    def _cached_planes_padded(cache: _OrsetPlaneCache, E: int, R: int):
+        """The cached planes grown to the post-remap vocabulary sizes by
+        zero padding on the device (no host round trip)."""
+        clock, add, rm = cache.planes
+        E0, R0 = add.shape
+        if (E, R) == (E0, R0):
+            return clock, add, rm
+        clock2 = clock.new_zeros(R)
+        clock2[:R0] = clock
+        add2 = add.new_zeros((E, R))
+        add2[:E0, :R0] = add
+        rm2 = rm.new_zeros((E, R))
+        rm2[:E0, :R0] = rm
+        return clock2, add2, rm2
+
+    def _install_plane_cache(self, state: ORSet, members: Vocab,
+                             replicas: Vocab, planes, canon) -> None:
+        """Record the fold's device planes as the state's resume planes.
+        The writeback bump happens HERE, so the recorded token is the
+        post-writeback epoch.  The weakref finalizer drops the entry when
+        the state dies — plane-sized device buffers must not outlive the
+        replica they cache (the accelerator is held weakly in the
+        callback, so nothing keeps anything alive)."""
+        state._mut += 1
+        accel_ref = weakref.ref(self)
+
+        def _drop(dead_ref):
+            accel = accel_ref()
+            if accel is not None:
+                c = accel._plane_cache
+                if c is not None and c.ref is dead_ref:
+                    accel._plane_cache = None
+
+        self._plane_cache = _OrsetPlaneCache(
+            weakref.ref(state, _drop), state._mut, members, replicas,
+            tuple(planes), canon if canon is not None else {},
+        )
+
+    def _drop_plane_cache(self, state: ORSet) -> None:
+        c = self._plane_cache
+        if c is not None and c.ref() is state:
+            self._plane_cache = None
+
+    def _note_orset_writeback(self, state: ORSet) -> None:
+        """A non-caching path rewrote ``state``: bump its epoch and drop
+        any device planes held for it."""
+        state._mut += 1
+        self._drop_plane_cache(state)
+
+    def _fold_orset_columns(self, state: ORSet, kind, member, actor, counter,
+                            members: Vocab, replicas: Vocab) -> ORSet:
+        """The shared OR-Set tail over batch columns whose indices point
+        into the batch vocabularies ``members`` and ``replicas``.
+
+        A live plane-cache entry for ``state`` remaps the batch onto the
+        cached vocabularies and starts the fold from the cached device
+        planes: no vocabulary scan of the state, no state→planes walk,
+        and only the op columns cross to the device.  Otherwise the
+        state's vocabulary is scanned in and the planes built.  Sparse
+        batches over huge vocabularies take the vectorized host fold;
+        dense ones fold on the device — past ``STREAM_CHUNK_ROWS`` rows
+        blockwise (fixed-shape chunks staged in a depth-2 pool, each one
+        fold launch into planes that stay on the device, the JAX
+        package's branch) — and the result's planes stay cached."""
+        n_rows = len(kind)
+        cache = self._plane_cache_for(state)
+        if cache is not None:
+            remapped = self._remap_to_cache(cache, member, actor, members,
+                                            replicas)
+            if remapped is None:
+                cache = None
+            else:
+                member, actor = remapped
+                members, replicas = cache.members, cache.replicas
+        if cache is None:
+            with trace.span("fold.vocab"):
+                orset_scan_vocab(state, members, replicas)
         E, R = len(members), len(replicas)
         if E == 0 or R == 0:
             return state
-        if self._use_sparse(E, R, len(cols.kind)):
-            return orset_fold_sparse_host(
-                state, cols.kind, cols.member, cols.actor, cols.counter,
-                members, replicas)
-        return self._fold_orset_columns(state, cols, members, replicas)
-
-    def _fold_orset_columns(self, state: ORSet, cols, members: Vocab,
-                            replicas: Vocab) -> ORSet:
-        """The dense route: state → planes, upload, fold, download,
-        planes → state.  The vocabularies already hold every member and
-        actor of the state and the batch.  Past ``STREAM_CHUNK_ROWS``
-        rows the fold runs blockwise: fixed-shape chunks staged in a
-        depth-2 pool, each chunk one fold launch into planes that stay on
-        the device (the JAX package's branch, accel.py:396-428)."""
-        E, R = len(members), len(replicas)
-        with trace.span("fold.planes"):
-            planes = orset_state_to_planes(state, members, replicas, scanned=True)
+        if self._use_sparse(E, R, n_rows):
+            # the sparse writeback bumps the epoch itself (and stashes
+            # its rows for the checkpoint under that epoch): only the
+            # planes go
+            self._drop_plane_cache(state)
+            return orset_fold_sparse_host(state, kind, member, actor,
+                                          counter, members, replicas)
+        if cache is not None:
+            # a hit consumes the entry: the fold's output replaces it, and
+            # planes a failed fold may have recycled are never served
+            self._plane_cache = None
+            planes = self._cached_planes_padded(cache, E, R)
+        else:
+            with trace.span("fold.planes"):
+                planes = orset_state_to_planes(state, members, replicas,
+                                               scanned=True)
         with trace.span("fold.device"):
-            if len(cols.kind) > self.STREAM_CHUNK_ROWS:
+            if n_rows > self.STREAM_CHUNK_ROWS:
                 rows = self.STREAM_CHUNK_ROWS
                 pool = ChunkPool(rows, depth=2,
                                  pin=self.device.type == "cuda")
                 out = orset_fold_stream(
                     *planes,
-                    iter_orset_chunks(cols.kind, cols.member, cols.actor,
-                                      cols.counter, rows, R, pool=pool),
+                    iter_orset_chunks(kind, member, actor, counter, rows, R,
+                                      pool=pool),
                     num_members=E, num_replicas=R, device=self.device,
                     pool=pool,
                 )
                 del planes
             else:
-                dev = self._upload(
-                    (*planes, cols.kind, cols.member, cols.actor, cols.counter)
-                )
-                del planes
-                out = orset_fold(*dev, num_members=E, num_replicas=R)
+                if cache is None:
+                    planes = self._upload(planes)
+                dev = self._upload((kind, member, actor, counter))
+                out = orset_fold(*planes, *dev, num_members=E, num_replicas=R)
+                del planes, dev
             clock, add, rm = (x.cpu().numpy() for x in out)
-            del out
         with trace.span("fold.writeback"):
             folded = orset_planes_to_state(clock, add, rm, members, replicas)
         state.clock = folded.clock
         state.entries = folded.entries
         state.deferred = folded.deferred
-        state._mut += 1
+        # the planes just computed ARE the new state, on the device: keep
+        # them for the next round (epoch recorded after the writeback)
+        self._install_plane_cache(
+            state, members, replicas, out,
+            cache.canon if cache is not None else None,
+        )
         return state
 
     # -------------------------------------------------------- fold_payloads
@@ -196,7 +357,8 @@ class TorchAccelerator(HostAccelerator):
             return self._fold_counter_payloads(state, payloads, actors_hint)
         if not isinstance(state, ORSet):
             return False
-        actors_sorted = self._orset_actor_table(state, actors_hint)
+        actors_sorted = self._orset_actor_table(
+            state, actors_hint, self._plane_cache_for(state))
         with trace.span("fold.decode"):
             decoded = decode_orset_payload_batch(payloads, actors_sorted)
         if decoded is None:
@@ -204,19 +366,24 @@ class TorchAccelerator(HostAccelerator):
         return self._fold_orset_decoded(state, decoded, actors_sorted)
 
     @staticmethod
-    def _orset_actor_table(state: ORSet, actors_hint) -> list:
+    def _orset_actor_table(state: ORSet, actors_hint, cache=None) -> list:
         """Sorted, unique actor table for the native decoder: the caller's
-        hint plus every actor the state mentions.  A strictly sorted hint
-        that already covers the state is used as it is (storage listings
-        come sorted; re-sorting 100k byte strings costs more than the
-        decrypt)."""
+        hint plus every actor the state mentions — read off a live plane
+        cache's replica vocabulary where there is one, which covers the
+        unmutated state, instead of walking the state.  A strictly sorted
+        hint that already covers the state is used as it is (storage
+        listings come sorted; re-sorting 100k byte strings costs more
+        than the decrypt)."""
         hint = list(actors_hint)
         actor_set = set(hint)
-        actor_set.update(state.clock.counters)
-        for entry in state.entries.values():
-            actor_set.update(entry)
-        for dfr in state.deferred.values():
-            actor_set.update(dfr)
+        if cache is not None:
+            actor_set.update(cache.replicas.items)
+        else:
+            actor_set.update(state.clock.counters)
+            for entry in state.entries.values():
+                actor_set.update(entry)
+            for dfr in state.deferred.values():
+                actor_set.update(dfr)
         if len(actor_set) == len(hint) and all(
             map(operator.lt, hint, islice(hint, 1, None))
         ):
@@ -236,31 +403,9 @@ class TorchAccelerator(HostAccelerator):
         if len(members) != len(member_objs):
             return False
         replicas = Vocab(actors_sorted)
-        with trace.span("fold.vocab"):
-            orset_scan_vocab(state, members, replicas)
-        if self._use_sparse(len(members), len(replicas), len(kind)):
-            orset_fold_sparse_host(state, kind, member_idx, actor_idx,
-                                   counter, members, replicas)
-            return True
-        cols = OrsetColumns(kind, member_idx, actor_idx, counter, members, replicas)
-        self._fold_orset_columns(state, cols, members, replicas)
+        self._fold_orset_columns(state, kind, member_idx, actor_idx, counter,
+                                 members, replicas)
         return True
-
-    def _fold_orset_rows(self, state: ORSet, kind, member, actor, counter,
-                         members: Vocab, replicas: Vocab) -> ORSet:
-        """The JAX ``_fold_orset_columns`` contract over row columns whose
-        member and actor indices point into ``members`` and ``replicas``
-        (a fold session's buffered rows): the state's vocabulary scanned
-        in, then the dense or blockwise fold, or the sparse route."""
-        orset_scan_vocab(state, members, replicas)
-        E, R = len(members), len(replicas)
-        if E == 0 or R == 0:
-            return state
-        if self._use_sparse(E, R, len(kind)):
-            return orset_fold_sparse_host(state, kind, member, actor,
-                                          counter, members, replicas)
-        cols = OrsetColumns(kind, member, actor, counter, members, replicas)
-        return self._fold_orset_columns(state, cols, members, replicas)
 
     # ------------------------------------------------------- fold sessions
     def can_open_fold_session(self, state) -> bool:
@@ -542,5 +687,5 @@ class TorchAccelerator(HostAccelerator):
         state.clock = merged.clock
         state.entries = merged.entries
         state.deferred = merged.deferred
-        state._mut += 1
+        self._note_orset_writeback(state)
         return state

@@ -363,7 +363,9 @@ class OrsetFoldSession:
                 np.concatenate([c[i] for c in self._buffered])
                 for i in range(4))
             self._buffered = []
-            return self.accel._fold_orset_rows(
+            # the accelerator's shared tail: a live plane-cache entry
+            # serves the state planes, and the dense result is cached
+            return self.accel._fold_orset_columns(
                 state, kind, member, actor, counter, self.members,
                 self.replicas,
             )
@@ -399,7 +401,9 @@ class OrsetFoldSession:
         state.clock = folded.clock
         state.entries = folded.entries
         state.deferred = folded.deferred
-        state._mut += 1
+        # bump the epoch and drop the accelerator's device planes if it
+        # holds this state: the combine ran on the host
+        self.accel._note_orset_writeback(state)
         return state
 
     @staticmethod

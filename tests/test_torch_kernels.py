@@ -705,3 +705,87 @@ def test_device_stream_session_on_the_card(dev, monkeypatch):
         if device == "cuda":
             assert F.launches["orset_fold"] - before == s.device_chunks > 0
     assert out["cpu"] == out["cuda"] == T.canonical_bytes(host)
+
+
+# ---- the device plane cache ------------------------------------------------
+
+
+def _cache_ops(N, E, R, seed, actors, base=0):
+    from crdt_enc_tpu_torch.models.orset import AddOp, RmOp
+    from crdt_enc_tpu_torch.models.vclock import Dot, VClock
+
+    kind, member, actor, counter = ordered_rows(N, E, R, seed)
+    return [AddOp(int(m), Dot(actors[a], base + int(c))) if k == 0
+            else RmOp(int(m), VClock({actors[a]: base + int(c)}))
+            for k, m, a, c in zip(kind, member, actor, counter) if a < R]
+
+
+@pytest.mark.cuda
+def test_plane_cache_hit_uploads_only_the_op_columns(dev):
+    """Round 2 on an unmutated state starts from the planes the card kept:
+    ``h2d_bytes`` counts the op columns alone (13 bytes a row), and the
+    state equals the host loop's."""
+    import crdt_enc_tpu_torch as T
+    from crdt_enc_tpu_torch.utils import trace
+
+    E, R = 60, 40
+    actors = sorted(bytes([a + 1]) * 16 for a in range(R))
+    accel = T.TorchAccelerator(min_device_batch=1)
+    state, host = T.ORSet(), T.ORSet()
+    r1 = _cache_ops(3000, E, R, 21, actors)
+    accel.fold_ops(state, r1)
+    T.HostAccelerator().fold_ops(host, list(r1))
+    assert accel._plane_cache is not None
+    assert accel._plane_cache.planes[1].device.type == "cuda"
+    r2 = _cache_ops(3000, E, R, 22, actors, base=1 << 21)
+    trace.reset()
+    before = F.launches["orset_fold"]
+    accel.fold_ops(state, r2)
+    T.HostAccelerator().fold_ops(host, list(r2))
+    snap = trace.snapshot()
+    assert "fold.planes" not in snap["spans"]
+    assert "fold.vocab" not in snap["spans"]
+    assert snap["counters"]["h2d_bytes"] == 13 * len(r2)
+    assert F.launches["orset_fold"] - before == 1
+    assert T.canonical_bytes(state) == T.canonical_bytes(host)
+
+
+@pytest.mark.cuda
+def test_cached_plane_launch_equals_a_cold_launch(dev):
+    """The fold launched on cached (and padded) planes gives the bytes of
+    a fold launched on planes built from the state."""
+    import crdt_enc_tpu_torch as T
+
+    E, R = 50, 30
+    actors = sorted(bytes([a + 1]) * 16 for a in range(R + 4))
+    r1 = _cache_ops(2500, E, R, 23, actors)
+    r2 = _cache_ops(2500, E + 6, R + 4, 24, actors, base=1 << 21)
+    warm = T.TorchAccelerator(min_device_batch=1)
+    s_warm, s_cold = T.ORSet(), T.ORSet()
+    for r in (r1, r2):
+        warm.fold_ops(s_warm, r)
+        # a fresh accelerator holds no planes: this fold builds them
+        T.TorchAccelerator(min_device_batch=1).fold_ops(s_cold, r)
+    clock, add, rm = warm._plane_cache.planes
+    assert tuple(add.shape) == (E + 6, R + 4)
+    assert T.canonical_bytes(s_warm) == T.canonical_bytes(s_cold)
+
+
+@pytest.mark.cuda
+def test_plane_cache_finalizer_frees_the_card(dev):
+    import gc
+
+    import crdt_enc_tpu_torch as T
+
+    E, R = 400, 300
+    actors = sorted(bytes([a % 250 + 1, a // 250]) * 8 for a in range(R))
+    accel = T.TorchAccelerator(min_device_batch=1)
+    state = T.ORSet()
+    accel.fold_ops(state, _cache_ops(20000, E, R, 25, actors))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    plane_bytes = 2 * accel._plane_cache.planes[1].numel() * 4
+    del state
+    gc.collect()
+    assert accel._plane_cache is None
+    assert held - torch.cuda.memory_allocated() >= plane_bytes

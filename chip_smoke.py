@@ -93,6 +93,25 @@ Phases:
    so the phase does not time ~86k file reads); each state byte-equal to
    the host loop's with no fold kernel launched; the compaction's
    checkpoint must be packed from the fold's stashed rows and reopen warm;
+14. the plane cache and incremental compaction with deltas (a: three
+   config-3 batches into one state; b: phase 10's remote after 1% tails,
+   with a delta consumer; c: the cache through ``Core.compact()`` at
+   E = 4,096, R = 1,000);
+15. the rest of the catalogue, each byte-equal to the host loop on a
+   byte-identical copy and read back by a third replica: (a) the shared
+   tag index (CrdtMap<orset>) at config 3's width — 500,000 ops (half its
+   backlog) over 10,000 actors, 1,024 keys of 8 tags, 16 writers a key —
+   compacted from
+   an encrypted ``MemoryStorage`` through ``MapFoldSession`` (no chunk
+   declined, the scatter phase on the card; rows per family, card memory
+   peak, both walls); (b) the LWW register: config 4's writes as op files
+   of one register through ``fold_payloads`` (exactly one ``lww_fold``
+   launch) and ``Core.compact()``, then K5 at K = 1 against its plain
+   version on both routes and in both modes, with its times; (c) 16 MVReg
+   snapshots of 2,048 pairs through ``merge_states`` (the blocked
+   dominance filter on the card; its block and card memory peak),
+   ``Core.compact()`` and ``fold_payloads``; (d) G-Set, SeqList,
+   MerkleReg and the no-op type through ``Core.compact()``, no launch;
 then the kernels line and the result line.  Phase 5 also times the merge
 at the compaction's own shape (S = 9, E = 4,096, R = 5,000) against its
 plain version, and phases 5 and 9 give the merge and K3's shape their
@@ -173,6 +192,21 @@ TAIL_OPS, TAIL_SEED = 10_000, 14
 # 100,000-op history (config 2's count) and 1% tails
 CC_E, CC_R, CC_N, CC_SEED = 4096, PN_R, PN_N, 15
 CC_TAIL_OPS, CC_ROUNDS, CC_TAIL_SEED = 1_000, 4, 16
+
+# phase 15: the rest of the catalogue at config 3's fleet and backlog.
+# (a) the shared tag index (examples/tags_map.py): CrdtMap<orset> ops over
+# 10,000 actors, 1,024 keys of 8 tags, each key written by a fixed group of
+# 16 actors; every MAP_BEYOND-th key remove defers for good.  Half config
+# 3's 1M-op backlog: the host-loop reference applies ~70 us an op (70.3 s
+# for 1M ops on the H100 machine's host), which alone would take the phase
+# past its share of the script's time
+MAP_N, MAP_R, MAP_K, MAP_TAGS, MAP_GROUP = N_ROWS // 2, N_REPLICAS, 1024, 8, 16
+MAP_BEYOND, MAP_SEED = 500, 17
+# (c) 16 MVReg snapshots of 2,048 (clock, value) pairs in all over 10,000
+# actors, 8 actors a clock (the host loop's pairwise merge is O(V^2))
+MV_S, MV_V, MV_R, MV_CLOCK, MV_SEED = 16, 2048, N_REPLICAS, 8, 18
+# (d) the host-by-design types' small histories
+OTHER_SEED = 19
 
 # peak device-memory rates (NVIDIA data sheets); float32 outside the
 # tensor cores is the table's nearest rate for the kernels' int32 ALU work
@@ -1794,38 +1828,52 @@ def phase_sessions(files, actors: list, device) -> dict:
 # ---- config 5: the sparse regime (phase 13) --------------------------------
 
 
-def config5_options(storage, accel):
-    from crdt_enc_tpu_torch import (
-        OpenOptions, PlainKeyCryptor, XChaChaCryptor, orset_adapter,
-    )
+def catalogue_options(storage, adapter, accel):
+    from crdt_enc_tpu_torch import OpenOptions, PlainKeyCryptor, XChaChaCryptor
 
     version = uuid.UUID("c3b80d17-42fe-4e95-b7a8-2d50c61e9f07").bytes
     return OpenOptions(
         storage=storage, cryptor=XChaChaCryptor(),
-        key_cryptor=PlainKeyCryptor(), adapter=orset_adapter(),
+        key_cryptor=PlainKeyCryptor(), adapter=adapter,
         supported_data_versions=(version,), current_data_version=version,
         create=True, accelerator=accel,
     )
 
 
-async def build_config5_remote(files: list):
-    """An encrypted in-memory remote holding the op files, every file
-    sealed by one writer ``Core`` (``_seal``) under its actor and
-    version."""
+async def seal_remote(files: list, adapter):
+    """An encrypted in-memory remote holding ``files`` — ``(actor id,
+    version, ops in wire form)`` — every file sealed by one writer
+    ``Core`` under its actor and version."""
     import asyncio
 
     from crdt_enc_tpu_torch import Core, HostAccelerator, MemoryRemote, MemoryStorage
 
     remote = MemoryRemote()
-    writer = await Core.open(config5_options(MemoryStorage(remote),
-                                             HostAccelerator()))
+    writer = await Core.open(catalogue_options(MemoryStorage(remote), adapter,
+                                               HostAccelerator()))
     store = MemoryStorage(remote)
     for b in range(0, len(files), COMPACT_WRITE_BATCH):
         batch = files[b : b + COMPACT_WRITE_BATCH]
         blobs = await asyncio.gather(*(writer._seal(ops) for *_, ops in batch))
-        await asyncio.gather(*(store.store_ops(ab, v, blob) for (_, ab, v, _), blob
-                               in zip(batch, blobs)))
+        await asyncio.gather(*(store.store_ops(ab, v, blob)
+                               for (ab, v, _), blob in zip(batch, blobs)))
     return remote
+
+
+def config5_options(storage, accel):
+    from crdt_enc_tpu_torch import orset_adapter
+
+    return catalogue_options(storage, orset_adapter(), accel)
+
+
+def build_config5_remote(files: list):
+    """An encrypted in-memory remote holding the op files, every file
+    sealed by one writer ``Core`` (``_seal``) under its actor and
+    version."""
+    from crdt_enc_tpu_torch import orset_adapter
+
+    return seal_remote([(ab, v, ops) for _, ab, v, ops in files],
+                       orset_adapter())
 
 
 def phase_config5(device) -> dict:
@@ -2478,6 +2526,554 @@ async def _open_read(root: str, local: str, remote: str, accel, **kw):
     return core
 
 
+# ---- the rest of the catalogue (phase 15) ----------------------------------
+
+
+def copy_memory_remote(remote):
+    """A byte-identical copy of an in-memory remote (the files are
+    immutable bytes; only the directories are copied)."""
+    from crdt_enc_tpu_torch import MemoryRemote
+
+    return MemoryRemote(
+        metas=dict(remote.metas), states=dict(remote.states),
+        ops={a: dict(v) for a, v in remote.ops.items()},
+        deltas={a: dict(v) for a, v in remote.deltas.items()})
+
+
+def actor_files(streams: dict, per_file: int = COMPACT_OPS_PER_FILE) -> list:
+    """Per-actor op streams (wire form) as op files of up to ``per_file``
+    ops within one actor, dense versions from 1."""
+    out = []
+    for ab in sorted(streams):
+        ops = streams[ab]
+        for v, lo in enumerate(range(0, len(ops), per_file), start=1):
+            out.append((ab, v, ops[lo : lo + per_file]))
+    return out
+
+
+def map_history(seed: int = MAP_SEED) -> tuple:
+    """Phase 15a's CrdtMap<orset> history in wire form: MAP_N ops over
+    MAP_K keys and MAP_R actors, each key written by a fixed group of
+    MAP_GROUP actors (a key remove's context then names at most that
+    many).  A step picks a key, an actor of its group and an op: a tag
+    add (~88%), a tag remove citing the tag's observed dots under a fresh
+    map dot (~10%), or a key remove with the key's observed births
+    (~2%).  A remover has observed the births of its group's actors that
+    sort before it (and its own): the host loop replays the op files actor
+    by actor in that order, so each such remove fires when it arrives
+    (a context naming later actors would defer until they replay, and the
+    loop's per-op flush of pending removes would go quadratic).  Every
+    MAP_BEYOND-th key remove cites one dot past its actor's last, so it
+    defers for good.  Returns (per-actor streams, the number of each op
+    kind)."""
+    rng = np.random.default_rng(seed)
+    actors = actor_ids(MAP_R)
+    perm = rng.permutation(MAP_R)
+    groups = [sorted(int(perm[(k * MAP_GROUP + j) % MAP_R])
+                     for j in range(MAP_GROUP)) for k in range(MAP_K)]
+    keys = [f"key{k:04d}" for k in range(MAP_K)]
+    tags = [f"tag{t}" for t in range(MAP_TAGS)]
+    counter = [0] * MAP_R
+    births = [dict() for _ in range(MAP_K)]  # actor index -> max counter
+    entries = {}  # (key, tag) -> {actor index: counter}
+    streams = {actors[a]: [] for a in range(MAP_R)}
+    kinds = {"tag add": 0, "tag remove": 0, "key remove": 0,
+             "key remove, deferred": 0}
+    n_key_rm = 0
+    ks = rng.integers(0, MAP_K, MAP_N).tolist()
+    js = rng.integers(0, MAP_GROUP, MAP_N).tolist()
+    ts = rng.integers(0, MAP_TAGS, MAP_N).tolist()
+    us = rng.random(MAP_N).tolist()
+    for k, j, t, u in zip(ks, js, ts, us):
+        a = groups[k][j]
+        ab = actors[a]
+        if u >= 0.98:
+            ctx = {b: c for b, c in births[k].items() if b <= a}
+            if ctx:
+                n_key_rm += 1
+                beyond = n_key_rm % MAP_BEYOND == 0
+                wire_ctx = {actors[b]: c for b, c in ctx.items()}
+                if beyond:
+                    wire_ctx[ab] = counter[a] + MAP_N
+                    kinds["key remove, deferred"] += 1
+                else:
+                    kinds["key remove"] += 1
+                    for b, c in ctx.items():
+                        if births[k].get(b, 0) <= c:
+                            births[k].pop(b, None)
+                    for tt in range(MAP_TAGS):
+                        e = entries.get((k, tt))
+                        if e:
+                            for b, c in ctx.items():
+                                if e.get(b, 0) <= c:
+                                    e.pop(b, None)
+                streams[ab].append([1, wire_ctx, [keys[k]]])
+                continue
+        counter[a] += 1
+        c = counter[a]
+        e = entries.setdefault((k, t), {})
+        if 0.88 <= u < 0.98 and e:
+            child = [1, tags[t], {actors[b]: cc for b, cc in e.items()}]
+            e.clear()
+            kinds["tag remove"] += 1
+        else:
+            child = [0, tags[t], [ab, c]]
+            e[a] = c
+            kinds["tag add"] += 1
+        births[k][a] = c
+        streams[ab].append([0, [ab, c], keys[k], child])
+    return {ab: s for ab, s in streams.items() if s}, kinds
+
+
+def timed_catalogue_compaction(remote, adapter, accel) -> tuple:
+    """A fresh replica over ``remote`` compacts it.  Returns the core,
+    the wall from ``Core.open``, the trace snapshot and the launches."""
+    from crdt_enc_tpu_torch import Core, MemoryStorage
+    from crdt_enc_tpu_torch.utils import trace
+
+    async def go():
+        core = await Core.open(catalogue_options(MemoryStorage(remote), adapter,
+                                                 accel))
+        await core.compact()
+        return core
+
+    reset_launches()
+    trace.reset()
+    t0 = time.perf_counter()
+    core = run_async(go())
+    wall = time.perf_counter() - t0
+    return core, wall, trace.snapshot(), read_launches()
+
+
+def read_back(remote, adapter) -> bytes:
+    """A third replica (host loop) reads the compacted remote."""
+    from crdt_enc_tpu_torch import Core, HostAccelerator, MemoryStorage, canonical_bytes
+
+    async def go():
+        core = await Core.open(catalogue_options(MemoryStorage(remote), adapter,
+                                                 HostAccelerator()))
+        await core.read_remote()
+        return core.with_state(canonical_bytes)
+
+    return run_async(go())
+
+
+def compare_catalogue(label: str, dev_bytes: bytes, host_bytes: bytes,
+                      back: bytes) -> None:
+    print(f"  {label}: bytes equal to the host loop: {dev_bytes == host_bytes} "
+          f"({len(dev_bytes)} bytes); read back: {back == dev_bytes}", flush=True)
+    if dev_bytes != host_bytes or back != dev_bytes:
+        raise AssertionError(f"{label}: the device compaction disagrees with "
+                             "the host loop or does not read back")
+
+
+def phase_catalogue_map(device) -> dict:
+    """15a: the shared tag index (CrdtMap<orset>) at config 3's width,
+    compacted from an encrypted in-memory remote by a device ``Core`` —
+    the pipelined route through ``MapFoldSession``, its finish's scatter
+    phase on the card — and by the host loop on a byte-identical copy."""
+    import torch
+
+    from crdt_enc_tpu_torch import HostAccelerator, TorchAccelerator, canonical_bytes
+    from crdt_enc_tpu_torch.core.adapters import map_adapter
+
+    t0 = time.perf_counter()
+    streams, kinds = map_history()
+    files = actor_files(streams)
+    n_ops = sum(len(s) for s in streams.values())
+    t1 = time.perf_counter()
+    remote = run_async(seal_remote(files, map_adapter()))
+    host_remote = copy_memory_remote(remote)
+    print(f"  {n_ops} ops ({kinds}) from {len(streams)} actors over {MAP_K} "
+          f"keys x {MAP_TAGS} tags, groups of {MAP_GROUP}, built in "
+          f"{t1 - t0:.1f}s; {len(files)} op files sealed in "
+          f"{time.perf_counter() - t1:.1f}s", flush=True)
+    out = {"ops": n_ops, "kinds": kinds, "op_files": len(files),
+           "actors": len(streams), "keys": MAP_K, "tags": MAP_TAGS}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    dev, wall, snap, launches = timed_catalogue_compaction(
+        remote, map_adapter(), TorchAccelerator(device=device))
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    print_compaction("device Core.compact()", wall, snap)
+    c = snap["counters"]
+    declined = c.get("session_declined_chunks", 0)
+    rows = {f: c.get(f"map_rows_{f}", 0)
+            for f in ("birth", "child_add", "child_rm", "key_rm")}
+    on_card = "map.scatter_device" in snap["spans"]
+    print(f"    session: MapFoldSession (scatter phase on the card: {on_card}); "
+          f"declined chunks {declined}; rows fed {rows}; card memory peak "
+          f"{peak if peak is None else f'{peak / 1e9:.3f} GB'}; launches "
+          f"{launches}", flush=True)
+    if (declined or not on_card or "session.map_fold" not in snap["spans"]
+            or c.get("op_files_bulk_folded") != len(files)):
+        raise AssertionError(f"15a: the map compaction left the session's "
+                             f"device route (declined {declined}, scatter on "
+                             f"the card {on_card})")
+    host, host_wall, host_snap, _ = timed_catalogue_compaction(
+        host_remote, map_adapter(), HostAccelerator())
+    print_compaction("host-loop Core.compact()", host_wall, host_snap)
+    dev_bytes = dev.with_state(canonical_bytes)
+    deferred = dev.with_state(lambda s: len(s.deferred))
+    compare_catalogue("15a map", dev_bytes, host.with_state(canonical_bytes),
+                      read_back(remote, map_adapter()))
+    print(f"    {dev.with_state(lambda s: len(s.births))} live keys, "
+          f"{deferred} removes deferred", flush=True)
+    out.update(wall_s=wall, host_wall_s=host_wall, peak_card_bytes=peak,
+               declined_chunks=declined, rows=rows, launches=launches,
+               spans={k: v["seconds"] for k, v in snap["spans"].items()},
+               host_spans={k: v["seconds"]
+                           for k, v in host_snap["spans"].items()},
+               state_bytes=len(dev_bytes), deferred=deferred)
+    return out
+
+
+def lwwreg_columns(device):
+    """Config 4's generator at one key: (ts, actor, value) rows, the
+    register's op files, and the kernel's int32 columns on ``device``."""
+    import torch
+
+    from crdt_enc_tpu_torch.ops.lww import ts_split
+
+    key, ts, actor, value = gen_lww(LWW_N, 1, LWW_R)
+    actors = actor_ids(LWW_R)
+    streams: dict = {}
+    for t, a, v in zip(ts.tolist(), actor.tolist(), value.tolist()):
+        streams.setdefault(actors[a], []).append([t, actors[a], v])
+    cols = [torch.from_numpy(x).to(device)
+            for x in (key, *ts_split(ts), actor, value)]
+    return streams, cols
+
+
+def phase_catalogue_lwwreg(device, rate: float) -> dict:
+    """15b: the LWW register's bulk fold — config 4's 1,000,000 writes as op
+    files of one register — through ``fold_payloads`` (exactly one
+    ``lww_fold`` launch, at one key) and ``Core.compact()``, each
+    byte-equal to the host loop; then K5 at K = 1 against its plain
+    version on both routes and in both modes, with its times."""
+    import torch
+
+    from crdt_enc_tpu_torch import HostAccelerator, TorchAccelerator, canonical_bytes
+    from crdt_enc_tpu_torch.core.adapters import lwwreg_adapter
+    from crdt_enc_tpu_torch.models import LWWReg
+    from crdt_enc_tpu_torch.ops import lww as L
+    from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
+    from crdt_enc_tpu_torch.utils import codec, trace
+
+    streams, cols = lwwreg_columns(device)
+    files = actor_files(streams)
+    payloads = [codec.pack(ops) for *_, ops in files]
+    t0 = time.perf_counter()
+    host = LWWReg()
+    for s in streams.values():
+        for o in s:
+            host.apply(o)
+    host_s = time.perf_counter() - t0
+    host_bytes = canonical_bytes(host)
+    out: dict = {"writes": LWW_N, "op_files": len(files), "host_loop_s": host_s}
+    accel = TorchAccelerator(device=device)
+    state = LWWReg()
+    reset_launches()
+    trace.reset()
+    t0 = time.perf_counter()
+    ok = accel.fold_payloads(state, payloads)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    snap = trace.snapshot()
+    same = canonical_bytes(state) == host_bytes
+    print(f"  fold_payloads: {len(payloads)} payloads, wall {wall:.3f}s (host "
+          f"loop {host_s:.3f}s); bytes equal to the host loop: {same}; "
+          f"launches {launches}; spans " + ", ".join(
+              f"{k} {v['seconds'] * 1e3:.1f} ms"
+              for k, v in sorted(snap["spans"].items())), flush=True)
+    # one launch on the card (a CPU dry run takes the plain version)
+    one = int(device.type == "cuda")
+    if not ok or not same or launches["lww_fold"] != one:
+        raise AssertionError(f"15b fold_payloads: folded {ok}, bytes equal "
+                             f"{same}, lww_fold launches {launches['lww_fold']}")
+    out["fold_payloads"] = dict(wall_s=wall, launches=launches)
+
+    remote = run_async(seal_remote(files, lwwreg_adapter()))
+    host_remote = copy_memory_remote(remote)
+    dev, cwall, csnap, claunches = timed_catalogue_compaction(
+        remote, lwwreg_adapter(), accel)
+    print_compaction("device Core.compact()", cwall, csnap)
+    print(f"    launches {claunches}", flush=True)
+    hcore, hwall, hsnap, _ = timed_catalogue_compaction(
+        host_remote, lwwreg_adapter(), HostAccelerator())
+    print_compaction("host-loop Core.compact()", hwall, hsnap)
+    compare_catalogue("15b LWW register", dev.with_state(canonical_bytes),
+                      hcore.with_state(canonical_bytes),
+                      read_back(remote, lwwreg_adapter()))
+    if dev.with_state(canonical_bytes) != host_bytes or claunches["lww_fold"] != one:
+        raise AssertionError("15b Core.compact(): not the fold's bytes or not "
+                             "one lww_fold launch")
+    out["compaction"] = dict(wall_s=cwall, host_wall_s=hwall,
+                             launches=claunches)
+
+    errs: dict = {}
+    V = LWW_V
+    for nv in (V, None):
+        ref = L.lww_fold_plain(*cols, num_keys=1, num_values=nv)
+        for route, mode in LWW_PATHS:
+            with lww_path(route, mode):
+                geo = LC.plan(LWW_N, 1, cols[0].device)
+                got = LC.lww_fold_cuda(*cols, num_keys=1, num_values=nv)
+            check_equal(f"lww_fold at K = 1 (N={LWW_N}, num_values={nv}, "
+                        f"route={route}, {mode}; {geo.blocks} blocks, "
+                        f"{geo.tile_keys} tile keys)", ref, got, errs,
+                        "lww_fold")
+    N = LWW_N
+    ms = time_ms(lambda: LC.lww_fold_cuda(*cols, num_keys=1, num_values=V))
+    plain_ms = time_ms(lambda: L.lww_fold_plain(*cols, num_keys=1,
+                                                num_values=V))
+    nbytes = 20 * N + 17
+    bytes_ms = nbytes / rate * 1e3
+    ops_ms = 4 * N / CUDA_CORE_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"  lww_fold at K = 1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
+    out["one_key"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by="bytes" if bytes_ms >= ops_ms
+                          else "operations",
+                          routes=lww_path_times(cols, 1, V))
+    out["max_abs_err"] = errs["lww_fold"]
+    return out
+
+
+def mvreg_snapshots(seed: int = MV_SEED) -> tuple:
+    """MV_S register snapshots over MV_R actors holding MV_V (clock, value)
+    pairs in all, each clock naming MV_CLOCK actors drawn at random.  The
+    first snapshot's writes are all fresh clocks; each later snapshot's
+    are half fresh and half successors — the clock of a fresh write of an
+    earlier snapshot, not used before, with one counter raised — so the
+    merge keeps MV_V minus the successors' count.  Within a snapshot no
+    clock dominates another (random supports), so each is an anti-chain
+    as per-op apply builds it.  Returns (snapshots, their write ops)."""
+    from crdt_enc_tpu_torch.models import MVReg, MVRegOp, VClock
+
+    rng = np.random.default_rng(seed)
+    actors = actor_ids(MV_R)
+    unused: list = []  # fresh clocks no successor has raised yet
+    snaps, ops = [], []
+    per = MV_V // MV_S
+    for s in range(MV_S):
+        reg = MVReg()
+        fresh = []
+        for j in range(per):
+            if s and j % 2:
+                clock = dict(unused.pop(int(rng.integers(len(unused)))))
+                a = list(clock)[int(rng.integers(len(clock)))]
+                clock[a] += int(rng.integers(1, 5))
+            else:
+                ix = rng.choice(MV_R, MV_CLOCK, replace=False)
+                clock = {actors[int(i)]: int(c) for i, c in
+                         zip(ix, rng.integers(1, 1000, MV_CLOCK))}
+                fresh.append(clock)
+            op = MVRegOp(VClock(dict(clock)), f"v{s}-{j}")
+            ops.append(op)
+            reg.apply(op)
+        unused += fresh
+        snaps.append(reg)
+    return snaps, ops
+
+
+def phase_catalogue_mvreg(device) -> dict:
+    """15c: MV_S MVReg snapshots merged by ``merge_states`` (the dominance
+    filter on the card, blocked) and by ``Core.compact()`` over an
+    encrypted in-memory remote holding them, and ``fold_payloads`` of
+    their write ops; each byte-equal to the host loop."""
+    import torch
+
+    from crdt_enc_tpu_torch import (
+        Core, HostAccelerator, MemoryRemote, MemoryStorage, TorchAccelerator,
+        canonical_bytes,
+    )
+    from crdt_enc_tpu_torch.core.adapters import mvreg_adapter
+    from crdt_enc_tpu_torch.models import MVReg
+    from crdt_enc_tpu_torch.ops.mvreg import dominance_block
+    from crdt_enc_tpu_torch.utils import codec, trace
+
+    snaps, ops = mvreg_snapshots()
+    V = sum(len(s.vals) for s in snaps)
+
+    def copies():
+        return [MVReg.from_obj(s.to_obj()) for s in snaps]
+
+    t0 = time.perf_counter()
+    first, *rest = copies()
+    host = HostAccelerator().merge_states(first, rest)
+    host_s = time.perf_counter() - t0
+    host_bytes = canonical_bytes(host)
+    R = len({a for s in snaps for c, _ in s.vals for a in c.counters})
+    block = dominance_block(V, R)
+    accel = TorchAccelerator(device=device)
+    first, *rest = copies()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    trace.reset()
+    t0 = time.perf_counter()
+    got = accel.merge_states(first, rest)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    snap = trace.snapshot()
+    same = canonical_bytes(got) == host_bytes
+    print(f"  merge_states: {MV_S} snapshots, V = {V} pairs over R = {R} "
+          f"actors -> {len(got.vals)} kept; wall {wall:.3f}s (host loop "
+          f"{host_s:.3f}s); filter block {block} rows ({block * V * R} "
+          f"booleans a comparison); card memory peak "
+          f"{peak if peak is None else f'{peak / 1e9:.3f} GB'}; bytes equal to "
+          f"the host loop: {same}; spans " + ", ".join(
+              f"{k} {v['seconds'] * 1e3:.1f} ms"
+              for k, v in sorted(snap["spans"].items())), flush=True)
+    if not same or "merge.device" not in snap["spans"]:
+        raise AssertionError("15c merge_states: not the host loop's bytes or "
+                             "not the device filter")
+    out = {"snapshots": MV_S, "V": V, "R": R, "kept": len(got.vals),
+           "merge": dict(wall_s=wall, host_loop_s=host_s, block=block,
+                         peak_card_bytes=peak)}
+
+    remote = MemoryRemote()
+    by_value = {op.value: op for op in ops}
+
+    async def seal_all():
+        per = MV_V // MV_S
+        for i in range(MV_S):
+            core = await Core.open(catalogue_options(
+                MemoryStorage(remote), mvreg_adapter(), HostAccelerator()))
+            await core.apply_ops([by_value[f"v{i}-{j}"] for j in range(per)])
+            await core._compact_seal()
+
+    run_async(seal_all())
+    host_remote = copy_memory_remote(remote)
+    dev, cwall, csnap, _ = timed_catalogue_compaction(remote, mvreg_adapter(),
+                                                      accel)
+    print_compaction("device Core.compact()", cwall, csnap)
+    hcore, hwall, hsnap, _ = timed_catalogue_compaction(
+        host_remote, mvreg_adapter(), HostAccelerator())
+    print_compaction("host-loop Core.compact()", hwall, hsnap)
+    compare_catalogue("15c MVReg", dev.with_state(canonical_bytes),
+                      hcore.with_state(canonical_bytes),
+                      read_back(remote, mvreg_adapter()))
+    if (dev.with_state(canonical_bytes) != host_bytes
+            or csnap["counters"].get("states_merged") != MV_S
+            or "merge.device" not in csnap["spans"]):
+        raise AssertionError("15c Core.compact(): not merge_states' bytes or "
+                             "not the device merge of every snapshot")
+    out["compaction"] = dict(wall_s=cwall, host_wall_s=hwall)
+
+    payloads = [codec.pack([[op.clock.to_obj(), op.value]
+                            for op in ops[i : i + COMPACT_OPS_PER_FILE]])
+                for i in range(0, len(ops), COMPACT_OPS_PER_FILE)]
+    t0 = time.perf_counter()
+    host_fold = HostAccelerator().fold_ops(MVReg(), list(ops))
+    fold_host_s = time.perf_counter() - t0
+    state = MVReg()
+    trace.reset()
+    t0 = time.perf_counter()
+    ok = accel.fold_payloads(state, payloads)
+    fwall = time.perf_counter() - t0
+    same = canonical_bytes(state) == canonical_bytes(host_fold) == host_bytes
+    print(f"  fold_payloads: {len(ops)} write ops in {len(payloads)} payloads, "
+          f"wall {fwall:.3f}s (host loop {fold_host_s:.3f}s); bytes equal to "
+          f"the host loop and the merge: {same}", flush=True)
+    if not ok or not same or "merge.device" not in trace.snapshot()["spans"]:
+        raise AssertionError("15c fold_payloads: declined, not the host loop's "
+                             "bytes, or not the device filter")
+    out["fold_payloads"] = dict(wall_s=fwall, host_loop_s=fold_host_s,
+                                ops=len(ops))
+    return out
+
+
+def other_histories() -> dict:
+    """15d: a small history for each host-by-design type (and the no-op
+    type), built on the port's models: adapter factory name -> per-actor
+    streams in wire form."""
+    from crdt_enc_tpu_torch.models import MerkleReg, SeqList
+
+    rng = np.random.default_rng(OTHER_SEED)
+    actors = actor_ids(8)
+    out = {}
+    out["gset_adapter"] = {a: [[int(rng.integers(1000)), f"m{i}"][i % 2]
+                               for i in range(60)] for a in actors}
+    lst, reg = SeqList(), MerkleReg()
+    ls, ms = {a: [] for a in actors}, {a: [] for a in actors}
+    for i in range(480):
+        a = actors[i % 8]
+        if i % 5 == 4 and len(lst):
+            op = lst.delete_ctx(int(rng.integers(len(lst))))
+        else:
+            op = lst.insert_ctx(a, int(rng.integers(len(lst) + 1)), i)
+        lst.apply(op)
+        ls[a].append(op.to_obj())
+        node = reg.write_ctx(int(rng.integers(50)))
+        if i % 3:
+            reg.apply(node)
+        ms[a].append(node.to_obj())
+    out["list_adapter"] = ls
+    out["merklereg_adapter"] = ms
+    out["empty_adapter"] = {a: [None] * 20 for a in actors}
+    return out
+
+
+def phase_catalogue_others(device) -> dict:
+    """15d: G-Set, SeqList, MerkleReg and the no-op type compacted by a
+    device ``Core`` (the host bulk routes of ``fold_payloads``) and by the
+    host loop on a copy: byte-equal, no kernel launched."""
+    from crdt_enc_tpu_torch import HostAccelerator, TorchAccelerator, canonical_bytes
+    from crdt_enc_tpu_torch.core import adapters
+
+    out = {}
+    for name, streams in other_histories().items():
+        adapter = getattr(adapters, name)
+        files = actor_files(streams, 4)
+        remote = run_async(seal_remote(files, adapter()))
+        host_remote = copy_memory_remote(remote)
+        dev, wall, snap, launches = timed_catalogue_compaction(
+            remote, adapter(), TorchAccelerator(device=device))
+        host, hwall, _, _ = timed_catalogue_compaction(
+            host_remote, adapter(), HostAccelerator())
+        label = f"15d {name.removesuffix('_adapter')}"
+        print(f"  {label}: {len(files)} op files; device compaction "
+              f"{wall:.3f}s, host loop {hwall:.3f}s; launches {launches}",
+              flush=True)
+        compare_catalogue(label, dev.with_state(canonical_bytes),
+                          host.with_state(canonical_bytes),
+                          read_back(remote, adapter()))
+        if any(launches.values()):
+            raise AssertionError(f"{label}: a kernel launched")
+        out[name.removesuffix("_adapter")] = dict(
+            op_files=len(files), wall_s=wall, host_wall_s=hwall,
+            launches=launches)
+    return out
+
+
+def phase_catalogue(device, rate: float) -> dict:
+    """Phase 15: the rest of the catalogue through ``Core.compact()`` and the
+    accelerator's entry points (15a-d)."""
+    import torch
+
+    device = torch.device(device)
+    out = {}
+    print(f"  15a. CrdtMap<orset> (R={MAP_R}, {MAP_K} keys x {MAP_TAGS} tags, "
+          f"N={MAP_N}; encrypted MemoryStorage)", flush=True)
+    out["map"] = phase_catalogue_map(device)
+    gc.collect()
+    print(f"  15b. LWW register (config 4: N={LWW_N}, R={LWW_R}, V={LWW_V}, "
+          "one key)", flush=True)
+    out["lwwreg"] = phase_catalogue_lwwreg(device, rate)
+    gc.collect()
+    print(f"  15c. MVReg (S={MV_S} snapshots, V={MV_V} pairs, R={MV_R}, "
+          f"{MV_CLOCK} actors a clock)", flush=True)
+    out["mvreg"] = phase_catalogue_mvreg(device)
+    gc.collect()
+    print("  15d. G-Set, SeqList, MerkleReg, empty", flush=True)
+    out["others"] = phase_catalogue_others(device)
+    return out
+
+
 # name -> (source, file:line of the TPU kernel's pallas_call, the Pallas
 # functions it stands for).  Both OR-Set entries run the bucketed kernels
 # of csrc/orset_fold.cu and differ in the range kernel's epilogue; K3
@@ -2608,7 +3204,7 @@ def main() -> int:
 
 def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
                       name, t_start) -> int:
-    """Phases 10 to 14 and the closing lines.  Phase 10's compaction remote
+    """Phases 10 to 15 and the closing lines.  Phase 10's compaction remote
     lives under ``root`` until phase 14 has compacted it twice more."""
     import torch
 
@@ -2666,6 +3262,15 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
           "encrypted FsStorage)", flush=True)
     print(device_line(), flush=True)
     cache_compaction = phase_cache_compaction("cuda", root)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"== 15. the rest of the catalogue (CrdtMap<orset> N={MAP_N}, "
+          f"R={MAP_R}; LWW register N={LWW_N}; MVReg S={MV_S}, V={MV_V}; "
+          "G-Set, SeqList, MerkleReg, empty; encrypted MemoryStorage)",
+          flush=True)
+    print(device_line(), flush=True)
+    catalogue = phase_catalogue("cuda", memory_rate(name))
 
     kernels = []
     for kname, (source, replaces, pallas) in KERNELS.items():
@@ -2695,6 +3300,19 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
             r: config5[r]["launches"][kname]
             for r in ("session", "fold_encrypted_stream", "fold_payloads",
                       "fold_ops", "Core.compact()")}
+        entry["catalogue_launches"] = {
+            "map_compaction": catalogue["map"]["launches"][kname],
+            "lwwreg_fold_payloads":
+                catalogue["lwwreg"]["fold_payloads"]["launches"][kname],
+            "lwwreg_compaction":
+                catalogue["lwwreg"]["compaction"]["launches"][kname],
+            "gset_list_merklereg_empty": sum(
+                o["launches"][kname] for o in catalogue["others"].values())}
+        if kname == "lww_fold":
+            entry["one_key"] = catalogue["lwwreg"]["one_key"]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       catalogue["lwwreg"]["max_abs_err"])
+            entry["match"] = entry["max_abs_err"] == 0
         kernels.append(entry)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"compaction": compaction}), flush=True)
@@ -2703,6 +3321,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     print(json.dumps({"incremental": {
         "plane_cache": plane_cache, "compaction": incremental,
         "plane_cache_compaction": cache_compaction}}), flush=True)
+    print(json.dumps({"catalogue": catalogue}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

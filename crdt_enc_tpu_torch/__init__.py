@@ -12,7 +12,11 @@ decrypt and payload decode and the native state assembly and canonical
 packer (``native/``), and the accelerator boundary ``Core`` uses:
 ``TorchAccelerator.fold_ops`` and ``fold_payloads`` for OR-Set (the
 sparse regime included), G-/PN-Counter (and, per op, LWW-map) batches,
-and ``TorchAccelerator.merge_states`` for OR-Sets.  Importing the package
+``fold_payloads`` and a fold session for the causal map and
+``fold_payloads`` for the rest of the catalogue (the LWW and multi-value
+registers on the device, the G-Set, sequence list and Merkle register on
+the host), and ``TorchAccelerator.merge_states`` for OR-Sets and
+multi-value registers.  Importing the package
 loads torch and numpy only when a name below is first touched (PEP 562),
 so ``import crdt_enc_tpu_torch`` stays cheap and never needs a GPU.
 """
@@ -33,6 +37,13 @@ _EXPORTS = {
     "gcounter_adapter": ".core.adapters",
     "pncounter_adapter": ".core.adapters",
     "lwwmap_adapter": ".core.adapters",
+    "mvreg_adapter": ".core.adapters",
+    "gset_adapter": ".core.adapters",
+    "lwwreg_adapter": ".core.adapters",
+    "merklereg_adapter": ".core.adapters",
+    "list_adapter": ".core.adapters",
+    "map_adapter": ".core.adapters",
+    "empty_adapter": ".core.adapters",
     "TorchAccelerator": ".parallel.accel",
     "HostAccelerator": ".core.adapters",
     "ORSet": ".models.orset",
@@ -41,6 +52,13 @@ _EXPORTS = {
     "LWWMap": ".models.lwwmap",
     "LWWOp": ".models.lwwmap",
     "GCounter": ".models.counters",
+    "CrdtMap": ".models.crdtmap",
+    "EmptyCrdt": ".models.base",
+    "GSet": ".models.gset",
+    "LWWReg": ".models.lwwreg",
+    "MerkleReg": ".models.merkle_reg",
+    "MVReg": ".models.mvreg",
+    "SeqList": ".models.seqlist",
     "PNCounter": ".models.counters",
     "Dot": ".models.vclock",
     "canonical_bytes": ".models.base",

@@ -11,6 +11,13 @@ packages is plain Python objects and numpy arrays:
   ``pncounter_from_reference_obj`` do the same for ``LWWMap``
   (``{key: [ts, actor, value, tombstone]}``), ``GCounter`` (``{actor:
   counter}``) and ``PNCounter`` (``[p, n]``);
+* ``mvreg_``, ``gset_``, ``lwwreg_``, ``merklereg_``, ``seqlist_``,
+  ``crdtmap_`` and ``empty_from_reference_obj`` do the same for the rest
+  of the catalogue: ``MVReg`` (``[[clock, value], ...]``), ``GSet``
+  (members in canonical order), ``LWWReg`` (``[ts, actor, value]`` or
+  ``None``), ``MerkleReg`` (``[[parents, value], ...]``), ``SeqList``
+  (``[[ident, value] | [ident], ...]``), ``CrdtMap`` (``[child, clock,
+  entries, deferred]``) and ``EmptyCrdt`` (``None``);
 * ``planes_from_numpy`` / ``planes_to_numpy`` move int32 state planes
   ``(clock (R,), add (E, R), rm (E, R))`` between numpy and torch.
 """
@@ -20,10 +27,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.counters import GCounter, PNCounter
-from .models.lwwmap import LWWMap
-from .models.orset import ORSet
-from .models.vclock import VClock
+from .models import (
+    CrdtMap,
+    EmptyCrdt,
+    GCounter,
+    GSet,
+    LWWMap,
+    LWWReg,
+    MerkleReg,
+    MVReg,
+    ORSet,
+    PNCounter,
+    SeqList,
+    VClock,
+)
 
 
 def orset_from_reference_obj(obj) -> ORSet:
@@ -54,6 +71,34 @@ def gcounter_from_reference_obj(obj) -> GCounter:
 
 def pncounter_from_reference_obj(obj) -> PNCounter:
     return PNCounter.from_obj(obj)
+
+
+def mvreg_from_reference_obj(obj) -> MVReg:
+    return MVReg.from_obj(obj)
+
+
+def gset_from_reference_obj(obj) -> GSet:
+    return GSet.from_obj(obj)
+
+
+def lwwreg_from_reference_obj(obj) -> LWWReg:
+    return LWWReg.from_obj(obj)
+
+
+def merklereg_from_reference_obj(obj) -> MerkleReg:
+    return MerkleReg.from_obj(obj)
+
+
+def seqlist_from_reference_obj(obj) -> SeqList:
+    return SeqList.from_obj(obj)
+
+
+def crdtmap_from_reference_obj(obj) -> CrdtMap:
+    return CrdtMap.from_obj(obj)
+
+
+def empty_from_reference_obj(obj) -> EmptyCrdt:
+    return EmptyCrdt.from_obj(obj)
 
 
 def planes_from_numpy(clock, add, rm, *, device) -> tuple:

@@ -1,7 +1,7 @@
 """CRDT-type adapters and the host accelerator.
 
-The port's copy of ``HostAccelerator`` and the OR-Set, counter and LWW-map
-adapters from ``crdt_enc_tpu/core/adapters.py``.  An adapter bundles how the core
+The port's copy of ``HostAccelerator`` and the eleven adapters of
+``crdt_enc_tpu/core/adapters.py``.  An adapter bundles how the core
 (de)serializes a state type and its ops; the *accelerator* is the
 pluggable execution backend for the two hot paths (per-op fold and state
 merge).  ``HostAccelerator`` is the plain loop; ``TorchAccelerator``
@@ -13,10 +13,26 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
-from ..models.counters import GCounter, PNCounter
-from ..models.lwwmap import LWWMap, LWWOp
-from ..models.orset import ORSet
+from ..models import (
+    CrdtMap,
+    EmptyCrdt,
+    GCounter,
+    GSet,
+    LWWMap,
+    LWWOp,
+    LWWReg,
+    LWWRegOp,
+    MerkleNode,
+    MerkleReg,
+    MVReg,
+    MVRegOp,
+    ORSet,
+    PNCounter,
+    SeqList,
+    VClock,
+)
 from ..models.orset import op_from_obj as orset_op_from_obj
+from ..models.seqlist import op_from_obj as seqlist_op_from_obj
 from ..models.vclock import Dot
 
 
@@ -85,4 +101,74 @@ def lwwmap_adapter() -> CrdtAdapter:
         new=LWWMap,
         state_from_obj=LWWMap.from_obj,
         op_from_obj=LWWOp.from_obj,
+    )
+
+
+def mvreg_adapter() -> CrdtAdapter:
+    return CrdtAdapter(
+        name=b"mvreg",
+        new=MVReg,
+        state_from_obj=MVReg.from_obj,
+        op_to_obj=lambda op: [op.clock.to_obj(), op.value],
+        op_from_obj=lambda obj: MVRegOp(VClock.from_obj(obj[0]), obj[1]),
+    )
+
+
+def gset_adapter() -> CrdtAdapter:
+    return CrdtAdapter(
+        name=b"gset",
+        new=GSet,
+        state_from_obj=GSet.from_obj,
+        op_to_obj=lambda op: op,  # the op IS the member
+        op_from_obj=lambda obj: obj,
+    )
+
+
+def lwwreg_adapter() -> CrdtAdapter:
+    return CrdtAdapter(
+        name=b"lwwreg",
+        new=LWWReg,
+        state_from_obj=LWWReg.from_obj,
+        op_from_obj=LWWRegOp.from_obj,
+    )
+
+
+def merklereg_adapter() -> CrdtAdapter:
+    return CrdtAdapter(
+        name=b"merklereg",
+        new=MerkleReg,
+        state_from_obj=MerkleReg.from_obj,
+        op_from_obj=MerkleNode.from_obj,
+    )
+
+
+def list_adapter() -> CrdtAdapter:
+    return CrdtAdapter(
+        name=b"list",
+        new=SeqList,
+        state_from_obj=SeqList.from_obj,
+        op_from_obj=seqlist_op_from_obj,
+    )
+
+
+def map_adapter(child: bytes = b"orset") -> CrdtAdapter:
+    """Causal reset-remove map with nested CRDT values of type ``child``
+    (one of crdtmap.CHILD_TYPES)."""
+    proto = CrdtMap(child=child)  # op codec needs only the child type
+    return CrdtAdapter(
+        name=b"map+" + child,
+        new=lambda: CrdtMap(child=child),
+        state_from_obj=CrdtMap.from_obj,
+        op_to_obj=proto.op_to_obj,
+        op_from_obj=proto.op_from_obj,
+    )
+
+
+def empty_adapter() -> CrdtAdapter:
+    return CrdtAdapter(
+        name=b"empty",
+        new=EmptyCrdt,
+        state_from_obj=EmptyCrdt.from_obj,
+        op_to_obj=lambda op: None,
+        op_from_obj=lambda obj: None,
     )

@@ -1393,6 +1393,7 @@ class Core:
                 with trace.span("ops.chunk_fold"):
                     await asyncio.to_thread(session.reduce_chunk, decoded)
             except SessionDeclined:
+                trace.add("session_declined_chunks", 1)
                 if not python_mode:
                     await finish_session()
                     python_mode = True

@@ -1,9 +1,9 @@
 """Per-CRDT delta codecs: cut a small lattice delta, apply it exactly.
 
 The port's copy of ``crdt_enc_tpu/delta/codec.py`` for the OR-Set,
-G-Counter and PN-Counter (the resettable counter rides the OR-Set
-codec).  The G-Set codec waits for a G-Set adapter, and the device-cut
-builder over plane-diff rows for the device-cut seal.
+G-Counter, PN-Counter and G-Set (the resettable counter rides the OR-Set
+codec).  The device-cut delta over plane-diff rows waits for the
+device-cut seal.
 
 A codec provides two pure functions over a CRDT type's state:
 
@@ -55,7 +55,8 @@ out.
 
 from __future__ import annotations
 
-from ..models import GCounter, ORSet, PNCounter, VClock
+from ..models import GCounter, GSet, ORSet, PNCounter, VClock
+from ..utils import codec as _codec
 
 
 # --------------------------------------------------------------------- orset
@@ -197,6 +198,21 @@ class _PNCounterCodec:
         _GCounterCodec.apply(state.n, n)
 
 
+class _GSetCodec:
+    state_type = GSet
+
+    @staticmethod
+    def diff(base: GSet, new: GSet):
+        added = [m for m in new.members if m not in base.members]
+        added.sort(key=_codec.pack)
+        return added
+
+    @staticmethod
+    def apply(state: GSet, obj) -> None:
+        for m in obj or []:
+            state.apply(m)
+
+
 # ------------------------------------------------------------------ registry
 # adapter name (CrdtAdapter.name) → codec.  The composed resettable
 # counter (delta/compose.py) rides the OR-Set codec unchanged: its
@@ -207,6 +223,7 @@ _CODECS = {
     b"rcounter": _OrsetCodec,
     b"gcounter": _GCounterCodec,
     b"pncounter": _PNCounterCodec,
+    b"gset": _GSetCodec,
 }
 
 

@@ -155,6 +155,25 @@ class ORSet:
         for e in list(members | set(new_deferred)):
             self._normalize_member(e)
 
+    def reset_remove(self, ctx: VClock) -> None:
+        """ResetRemove (for causal-map children): forget every dot and
+        horizon the removed context observed — entries, deferred removes,
+        and the clock itself all drop state ≤ ctx per actor."""
+        self._mut += 1
+        for m in list(self.entries):
+            entry = self.entries[m]
+            for r in [r for r, c in entry.items() if c <= ctx.get(r)]:
+                del entry[r]
+            if not entry:
+                del self.entries[m]
+        for m in list(self.deferred):
+            dfr = self.deferred[m]
+            for r in [r for r, c in dfr.items() if c <= ctx.get(r)]:
+                del dfr[r]
+            if not dfr:
+                del self.deferred[m]
+        self.clock.reset_remove(ctx)
+
     def _normalize_member(self, member: Member) -> None:
         entry = self.entries.get(member)
         dfr = self.deferred.get(member)

@@ -1,4 +1,4 @@
-"""Vector clocks and dots — the causality substrate of the OR-Set.
+"""Vector clocks and dots — the causality substrate of every CRDT here.
 
 A copy of ``crdt_enc_tpu/models/vclock.py``.  Actors are 16-byte UUIDs
 (bytes).  A ``Dot`` is one event ``(actor, counter)``; a ``VClock``
@@ -47,6 +47,10 @@ class VClock:
             if c > self.get(a):
                 self.counters[a] = c
 
+    def contains(self, dot: Dot) -> bool:
+        """Has this history seen the event?  (counter ≤ clock[actor])"""
+        return dot.counter <= self.get(dot.actor)
+
     def dominates(self, other: "VClock") -> bool:
         """Strictly greater: descends from ``other`` and differs."""
         return self.descends(other) and self.counters != other.counters
@@ -60,6 +64,13 @@ class VClock:
 
     def is_empty(self) -> bool:
         return not self.counters
+
+    def reset_remove(self, ctx: "VClock") -> None:
+        """Forget every event the removed context ``ctx`` observed: drop
+        per-actor counters ≤ ctx's (the ResetRemove protocol the causal
+        map applies to its children — models/crdtmap.py)."""
+        for a in [a for a, c in self.counters.items() if c <= ctx.get(a)]:
+            del self.counters[a]
 
     # canonical form: map actor → counter, zero entries dropped
     def to_obj(self):

@@ -208,6 +208,16 @@ def _bind(lib) -> None:
         u8p, u64p, u64p, ctypes.c_uint64, u8p, ctypes.c_uint64, i8p, i32p, i32p,
     ]
     lib.counter_decode_batch.restype = ctypes.c_int64
+    lib.map_count_rows_batch.argtypes = [u8p, u64p, u64p, ctypes.c_uint64, i64p]
+    lib.map_count_rows_batch.restype = ctypes.c_int64
+    lib.map_decode_batch.argtypes = (
+        [u8p, u64p, u64p, ctypes.c_uint64, u8p, ctypes.c_uint64]
+        + [u64p, u64p, i32p, i32p]  # birth
+        + [u64p, u64p, u64p, u64p, i32p, i32p]  # child add
+        + [u64p, u64p, u64p, u64p, i32p, i32p, i32p, i32p]  # child rm
+        + [u64p, u64p, i32p, i32p, i32p]  # key rm
+    )
+    lib.map_decode_batch.restype = ctypes.c_int64
 
     lib.scan_op_sizes.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, i64p]
     lib.scan_op_sizes.restype = ctypes.c_int64

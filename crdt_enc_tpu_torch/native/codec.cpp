@@ -8,6 +8,7 @@
 //   ORSet add:  [0, member, [actor16, counter]]
 //   ORSet rm:   [1, member, {actor16: counter, ...}]
 //   counter op: [dir, [actor16, counter]]   (G-Counter: bare [actor16, c])
+//   map op:     see map_decode_payload below (CrdtMap<orset>)
 //
 // Members are interned against a caller-managed table via a callback-free
 // two-pass protocol: pass 1 here extracts (kind, actor, counter) and member
@@ -299,6 +300,216 @@ struct GrowSink {
   }
 };
 
+// ---- CrdtMap<orset> payloads → four row families ----------------------
+//
+// Map ops (models/crdtmap.py):
+//   Up:  [0, [actor16, counter], key, child_op]
+//        child_op = ORSet add [0, member, [actor16, counter]]
+//                 | ORSet rm  [1, member, {actor16: counter, ...}]
+//   Rm:  [1, {actor16: counter, ...}, [key, ...]]
+// decode to
+//   birth:     (key_span, actor, counter)            one per Up
+//   child-add: (key_span, member_span, actor, counter)
+//   child-rm:  (key_span, member_span, actor, counter) per ctx entry, with
+//              the Up's map dot (mactor, mctr) for the replay gate
+//   key-rm:    (key_span, actor, counter, group)     per ctx entry x key
+// Returns -1 on any surprise (unknown actor, a non-16-byte actor, a child
+// add whose dot is not the map dot, a remove context over 64 actors, a
+// counter past INT32_MAX, malformed input): the caller folds per op.
+
+struct MapCounts {
+  int64_t birth, cadd, crm, krm;
+};
+
+int map_count_payload(const uint8_t* buf, uint64_t len, MapCounts* mc) {
+  Reader r{buf, buf + len};
+  uint64_t n_ops;
+  if (!r.arr(&n_ops)) return -1;
+  for (uint64_t i = 0; i < n_ops; i++) {
+    uint64_t alen;
+    if (!r.arr(&alen)) return -1;
+    uint64_t tag;
+    if (!r.uint(&tag)) return -1;
+    if (tag == 0) {
+      if (alen != 4) return -1;
+      uint64_t dlen;
+      const uint8_t* a;
+      uint64_t abytes, c;
+      if (!r.arr(&dlen) || dlen != 2 || !r.bin(&a, &abytes) || abytes != 16 ||
+          !r.uint(&c))
+        return -1;
+      if (!r.skip()) return -1;  // key
+      mc->birth++;
+      uint64_t clen;
+      if (!r.arr(&clen) || clen != 3) return -1;
+      uint64_t ckind;
+      if (!r.uint(&ckind)) return -1;
+      if (!r.skip()) return -1;  // member
+      if (ckind == 0) {
+        uint64_t d2;
+        if (!r.arr(&d2) || d2 != 2 || !r.bin(&a, &abytes) || abytes != 16 ||
+            !r.uint(&c))
+          return -1;
+        mc->cadd++;
+      } else if (ckind == 1) {
+        uint64_t m;
+        if (!r.map(&m)) return -1;
+        for (uint64_t j = 0; j < m; j++) {
+          if (!r.bin(&a, &abytes) || abytes != 16 || !r.uint(&c)) return -1;
+          mc->crm++;
+        }
+      } else {
+        return -1;
+      }
+    } else if (tag == 1) {
+      if (alen != 3) return -1;
+      uint64_t m;
+      if (!r.map(&m)) return -1;
+      const uint8_t* a;
+      uint64_t abytes, c;
+      for (uint64_t j = 0; j < m; j++) {
+        if (!r.bin(&a, &abytes) || abytes != 16 || !r.uint(&c)) return -1;
+      }
+      uint64_t nk;
+      if (!r.arr(&nk)) return -1;
+      for (uint64_t k = 0; k < nk; k++)
+        if (!r.skip()) return -1;
+      mc->krm += (int64_t)(m * nk);
+    } else {
+      return -1;
+    }
+  }
+  return 0;
+}
+
+struct MapOut {
+  const uint8_t* base;
+  // birth
+  uint64_t* b_koff; uint64_t* b_klen; int32_t* b_actor; int32_t* b_ctr;
+  int64_t b_row;
+  // child add
+  uint64_t* a_koff; uint64_t* a_klen; uint64_t* a_moff; uint64_t* a_mlen;
+  int32_t* a_actor; int32_t* a_ctr; int64_t a_row;
+  // child rm (r_mactor/r_mctr = the Up's MAP dot, for suppression gates)
+  uint64_t* r_koff; uint64_t* r_klen; uint64_t* r_moff; uint64_t* r_mlen;
+  int32_t* r_actor; int32_t* r_ctr; int32_t* r_mactor; int32_t* r_mctr;
+  int64_t r_row;
+  // key rm (k_group = index of the originating Rm op, so the fold can
+  // evaluate fire-or-defer per WHOLE remove)
+  uint64_t* k_koff; uint64_t* k_klen; int32_t* k_actor; int32_t* k_ctr;
+  int32_t* k_group; int64_t k_row; int32_t group_no;
+};
+
+int map_decode_payload(const uint8_t* buf, uint64_t len,
+                       const uint8_t* actors, uint64_t n_actors, MapOut* o) {
+  Reader r{buf, buf + len};
+  uint64_t n_ops;
+  if (!r.arr(&n_ops)) return -1;
+  for (uint64_t i = 0; i < n_ops; i++) {
+    uint64_t alen;
+    if (!r.arr(&alen)) return -1;
+    uint64_t tag;
+    if (!r.uint(&tag)) return -1;
+    if (tag == 0) {
+      uint64_t dlen;
+      const uint8_t* a;
+      uint64_t abytes, c;
+      if (!r.arr(&dlen) || dlen != 2 || !r.bin(&a, &abytes) || abytes != 16 ||
+          !r.uint(&c))
+        return -1;
+      if (c > kCounterMax) return -1;
+      int ai = actor_index(actors, n_actors, a);
+      if (ai < 0) return -1;
+      const uint8_t* ks;
+      uint64_t kn;
+      if (!r.span(&ks, &kn)) return -1;
+      o->b_koff[o->b_row] = (uint64_t)(ks - o->base);
+      o->b_klen[o->b_row] = kn;
+      o->b_actor[o->b_row] = ai;
+      o->b_ctr[o->b_row] = (int32_t)c;
+      o->b_row++;
+      uint64_t clen;
+      if (!r.arr(&clen) || clen != 3) return -1;
+      uint64_t ckind;
+      if (!r.uint(&ckind)) return -1;
+      const uint8_t* ms;
+      uint64_t mn;
+      if (!r.span(&ms, &mn)) return -1;
+      if (ckind == 0) {
+        const uint8_t* ca;
+        uint64_t cab, cc;
+        uint64_t d2;
+        if (!r.arr(&d2) || d2 != 2 || !r.bin(&ca, &cab) || cab != 16 ||
+            !r.uint(&cc))
+          return -1;
+        // the shared-dot discipline the columnar fold relies on
+        if (memcmp(ca, a, 16) != 0 || cc != c) return -1;
+        o->a_koff[o->a_row] = (uint64_t)(ks - o->base);
+        o->a_klen[o->a_row] = kn;
+        o->a_moff[o->a_row] = (uint64_t)(ms - o->base);
+        o->a_mlen[o->a_row] = mn;
+        o->a_actor[o->a_row] = ai;
+        o->a_ctr[o->a_row] = (int32_t)c;
+        o->a_row++;
+      } else {
+        uint64_t m;
+        if (!r.map(&m)) return -1;
+        for (uint64_t j = 0; j < m; j++) {
+          const uint8_t* ca;
+          uint64_t cab, cc;
+          if (!r.bin(&ca, &cab) || cab != 16 || !r.uint(&cc)) return -1;
+          if (cc > kCounterMax) return -1;
+          int cai = actor_index(actors, n_actors, ca);
+          if (cai < 0) return -1;
+          o->r_koff[o->r_row] = (uint64_t)(ks - o->base);
+          o->r_klen[o->r_row] = kn;
+          o->r_moff[o->r_row] = (uint64_t)(ms - o->base);
+          o->r_mlen[o->r_row] = mn;
+          o->r_actor[o->r_row] = cai;
+          o->r_ctr[o->r_row] = (int32_t)cc;
+          o->r_mactor[o->r_row] = ai;
+          o->r_mctr[o->r_row] = (int32_t)c;
+          o->r_row++;
+        }
+      }
+    } else {
+      uint64_t m;
+      if (!r.map(&m)) return -1;
+      // ctx entries first, then the keys they apply to — buffer the ctx
+      int32_t ctx_a[64];
+      int32_t ctx_c[64];
+      if (m > 64) return -1;  // rm_ctx over >64 actors: per-op path
+      for (uint64_t j = 0; j < m; j++) {
+        const uint8_t* ca;
+        uint64_t cab, cc;
+        if (!r.bin(&ca, &cab) || cab != 16 || !r.uint(&cc)) return -1;
+        if (cc > kCounterMax) return -1;
+        int cai = actor_index(actors, n_actors, ca);
+        if (cai < 0) return -1;
+        ctx_a[j] = cai;
+        ctx_c[j] = (int32_t)cc;
+      }
+      uint64_t nk;
+      if (!r.arr(&nk)) return -1;
+      for (uint64_t k = 0; k < nk; k++) {
+        const uint8_t* ks;
+        uint64_t kn;
+        if (!r.span(&ks, &kn)) return -1;
+        for (uint64_t j = 0; j < m; j++) {
+          o->k_koff[o->k_row] = (uint64_t)(ks - o->base);
+          o->k_klen[o->k_row] = kn;
+          o->k_actor[o->k_row] = ctx_a[j];
+          o->k_ctr[o->k_row] = ctx_c[j];
+          o->k_group[o->k_row] = o->group_no;
+          o->k_row++;
+        }
+      }
+      o->group_no++;
+    }
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -429,6 +640,48 @@ int64_t counter_decode_batch(const uint8_t* buf, const uint64_t* bases,
     row += got;
   }
   return row;
+}
+
+// Row counts of the four map families over a payload batch (counts_out:
+// birth, child add, child rm, key rm).  Returns their sum or -1.
+int64_t map_count_rows_batch(const uint8_t* buf, const uint64_t* bases,
+                             const uint64_t* lens, uint64_t n_payloads,
+                             int64_t counts_out[4]) {
+  MapCounts mc{0, 0, 0, 0};
+  for (uint64_t i = 0; i < n_payloads; i++)
+    if (map_count_payload(buf + bases[i], lens[i], &mc) < 0) return -1;
+  counts_out[0] = mc.birth;
+  counts_out[1] = mc.cadd;
+  counts_out[2] = mc.crm;
+  counts_out[3] = mc.krm;
+  return mc.birth + mc.cadd + mc.crm + mc.krm;
+}
+
+// Decode a map payload batch into the caller's family columns, sized by
+// map_count_rows_batch.  Returns the rows written or -1.
+int64_t map_decode_batch(
+    const uint8_t* buf, const uint64_t* bases, const uint64_t* lens,
+    uint64_t n_payloads, const uint8_t* actors, uint64_t n_actors,
+    uint64_t* b_koff, uint64_t* b_klen, int32_t* b_actor, int32_t* b_ctr,
+    uint64_t* a_koff, uint64_t* a_klen, uint64_t* a_moff, uint64_t* a_mlen,
+    int32_t* a_actor, int32_t* a_ctr,
+    uint64_t* r_koff, uint64_t* r_klen, uint64_t* r_moff, uint64_t* r_mlen,
+    int32_t* r_actor, int32_t* r_ctr, int32_t* r_mactor, int32_t* r_mctr,
+    uint64_t* k_koff, uint64_t* k_klen, int32_t* k_actor, int32_t* k_ctr,
+    int32_t* k_group) {
+  MapOut o{};
+  o.base = buf;
+  o.b_koff = b_koff; o.b_klen = b_klen; o.b_actor = b_actor; o.b_ctr = b_ctr;
+  o.a_koff = a_koff; o.a_klen = a_klen; o.a_moff = a_moff; o.a_mlen = a_mlen;
+  o.a_actor = a_actor; o.a_ctr = a_ctr;
+  o.r_koff = r_koff; o.r_klen = r_klen; o.r_moff = r_moff; o.r_mlen = r_mlen;
+  o.r_actor = r_actor; o.r_ctr = r_ctr; o.r_mactor = r_mactor; o.r_mctr = r_mctr;
+  o.k_koff = k_koff; o.k_klen = k_klen; o.k_actor = k_actor; o.k_ctr = k_ctr;
+  o.k_group = k_group;
+  for (uint64_t i = 0; i < n_payloads; i++)
+    if (map_decode_payload(buf + bases[i], lens[i], actors, n_actors, &o) < 0)
+      return -1;
+  return o.b_row + o.a_row + o.r_row + o.k_row;
 }
 
 // FNV-1a over a byte span

@@ -41,9 +41,21 @@ import numpy as np
 import torch
 
 from ..core.adapters import HostAccelerator
+from ..models import (
+    CrdtMap,
+    GSet,
+    LWWReg,
+    MerkleNode,
+    MerkleReg,
+    MVReg,
+    MVRegOp,
+    SeqList,
+    VClock,
+)
 from ..models.counters import POS, GCounter, PNCounter
-from ..models.lwwmap import LWWMap, _wins
+from ..models.lwwmap import LWWMap, LWWOp, _wins
 from ..models.orset import ORSet
+from ..models.seqlist import op_from_obj as seqlist_op_from_obj
 from ..ops.columnar import (
     CounterColumns,
     Vocab,
@@ -58,7 +70,8 @@ from ..ops.columnar import (
     vclock_to_dense,
 )
 from ..ops.counters import gcounter_fold, pncounter_fold
-from ..ops.lww import lww_fold
+from ..ops.lww import TS_SPLIT_BITS, lww_fold
+from ..ops.mvreg import mvreg_dominance_keep
 from ..ops.native_decode import (
     decode_counter_payload_batch,
     decode_orset_payload_batch,
@@ -346,15 +359,33 @@ class TorchAccelerator(HostAccelerator):
     def fold_payloads(self, state, payloads: list, actors_hint=()) -> bool:
         """Bulk front end: decrypted op-file payloads → native columnar
         decode → one device fold, with no per-op Python objects.  Handles
-        the OR-Set and the two counters; OR-Set batches past
-        ``STREAM_CHUNK_ROWS`` rows fold blockwise.  Returns False — with
-        ``state`` untouched — where the caller must decode per op and call
-        ``fold_ops`` instead: any other state type, a payload the native
-        decoder declines (unknown actor, counter past int32), and a member
-        vocabulary that collapses as Python values.  OR-Set batches in the
-        sparse regime fold through the sparse route."""
+        the OR-Set, the two counters and the causal map; OR-Set batches
+        past ``STREAM_CHUNK_ROWS`` rows fold blockwise.  The rest of the
+        catalogue unpacks each file whole: the LWW register folds through
+        the LWW kernel at one key, the MVReg through the dominance filter,
+        and the G-Set, sequence list and Merkle register on the host (no
+        arithmetic to put on the device: hashing, ordering, DAG
+        bookkeeping).  Returns False — with ``state`` untouched — where the
+        caller must decode per op and call ``fold_ops`` instead: any other
+        state type, a payload the native decoder declines (unknown actor,
+        counter past int32, a map remove over 64 actors, a child dot that
+        is not its map dot), a key or member vocabulary that collapses as
+        Python values, and an LWW timestamp outside [0, 2^62).  OR-Set
+        batches in the sparse regime fold through the sparse route."""
         if isinstance(state, (GCounter, PNCounter)):
             return self._fold_counter_payloads(state, payloads, actors_hint)
+        if isinstance(state, CrdtMap):
+            return self._fold_map_payloads(state, payloads, actors_hint)
+        if isinstance(state, GSet):
+            return self._fold_gset_payloads(state, payloads)
+        if isinstance(state, LWWReg):
+            return self._fold_lwwreg_payloads(state, payloads)
+        if isinstance(state, MVReg):
+            return self._fold_mvreg_payloads(state, payloads)
+        if isinstance(state, SeqList):
+            return self._fold_seqlist_payloads(state, payloads)
+        if isinstance(state, MerkleReg):
+            return self._fold_merklereg_payloads(state, payloads)
         if not isinstance(state, ORSet):
             return False
         actors_sorted = self._orset_actor_table(
@@ -405,6 +436,136 @@ class TorchAccelerator(HostAccelerator):
         replicas = Vocab(actors_sorted)
         self._fold_orset_columns(state, kind, member_idx, actor_idx, counter,
                                  members, replicas)
+        return True
+
+    # ------------------------------------------------------------ causal map
+    @staticmethod
+    def _map_actor_table(state: CrdtMap, actors_hint=()) -> list:
+        """Sorted, unique actor table for the native map decoder: the
+        caller's hint plus every actor the state mentions."""
+        actor_set = set(actors_hint)
+        actor_set.update(state.clock.counters)
+        for birth in state.births.values():
+            actor_set.update(birth)
+        for ctx, _rm_keys in state.deferred.values():
+            actor_set.update(ctx.counters)
+        for child in state.vals.values():
+            actor_set.update(child.clock.counters)
+            for entry in child.entries.values():
+                actor_set.update(entry)
+            for dfr in child.deferred.values():
+                actor_set.update(dfr)
+        return sorted(actor_set)
+
+    def _map_fold_device(self, n_rows: int):
+        """The scatter phase's device for a batch of ``n_rows`` decoded
+        rows: this accelerator's from ``min_device_batch`` rows, else None
+        (the numpy phase)."""
+        return self.device if n_rows >= self.min_device_batch else None
+
+    def _fold_map_payloads(self, state: CrdtMap, payloads: list,
+                           actors_hint=()) -> bool:
+        """CrdtMap<orset> bulk path: native four-family decode → the
+        vectorized columnar fold (ops/map_columnar.py), its scatter phase
+        on the device from ``min_device_batch`` rows.  Declines (per-op
+        fallback) for other child types, payloads the decoder declines,
+        and key or member vocabularies that collapse as Python values."""
+        if state.child != b"orset":
+            return False
+        from ..ops.map_columnar import crdtmap_fold_host, decode_map_payload_batch
+
+        actors_sorted = self._map_actor_table(state, actors_hint)
+        with trace.span("fold.map_decode"):
+            decoded = decode_map_payload_batch(payloads, actors_sorted)
+        if decoded is None:
+            return False
+        B, A, Rm, Kk, key_objs, member_objs = decoded
+        keys = Vocab(key_objs)
+        members = Vocab(member_objs)
+        # vocab value-collision guard (1 == True etc.), as in the ORSet path
+        if len(keys) != len(key_objs) or len(members) != len(member_objs):
+            return False
+        n_rows = sum(len(f["actor"]) for f in (B, A, Rm, Kk))
+        with trace.span("fold.map"):
+            crdtmap_fold_host(state, B, A, Rm, Kk, keys, members,
+                              Vocab(actors_sorted),
+                              device=self._map_fold_device(n_rows))
+        return True
+
+    # -------------------------------------------- catalogue bulk front ends
+    @staticmethod
+    def _unpack_all(payloads: list) -> list:
+        """Every op of every payload, unpacked before anything mutates."""
+        return [op for p in payloads for op in codec.unpack(p)]
+
+    def _fold_gset_payloads(self, state: GSet, payloads: list) -> bool:
+        """G-Set bulk: one unpack per file, one set update.  No device
+        path: the fold is deduplication of opaque values, which hashing
+        them into the host set is."""
+        frozen = state._freeze
+        state.members.update(frozen(op) for op in self._unpack_all(payloads))
+        return True
+
+    def _fold_lwwreg_payloads(self, state: LWWReg, payloads: list) -> bool:
+        """LWW-Register bulk: the LWW-map cascade at one key — one
+        ``lww_fold`` launch over every write on the device, its winner
+        resolved against the slot with the host tie-break (the columns
+        are rank-interned, so integer compare ≡ bytes compare)."""
+        rows = self._unpack_all(payloads)
+        if not rows:
+            return True
+        if any(not 0 <= int(o[0]) < 1 << 2 * TS_SPLIT_BITS for o in rows):
+            return False  # the timestamp does not split into two int32s
+        if len(rows) < self.min_device_batch:
+            for o in rows:
+                state.apply(o)
+            return True
+        ops = [LWWOp(None, int(o[0]), bytes(o[1]), o[2], False) for o in rows]
+        with trace.span("fold.columns"):
+            cols = lww_ops_to_columns(ops)
+        V = len(cols.values_sorted)
+        num_values = V if len(cols.actors_sorted) * V < 2**31 else None
+        with trace.span("fold.device"):
+            dev = self._upload(
+                (cols.key, cols.ts_hi, cols.ts_lo, cols.actor, cols.value))
+            m_hi, m_lo, m_actor, m_value, present = (
+                int(x[0]) for x in lww_fold(*dev, num_keys=1,
+                                            num_values=num_values))
+        if present:
+            state._take((m_hi << TS_SPLIT_BITS) | m_lo,
+                        cols.actors_sorted[m_actor],
+                        cols.values_sorted[m_value])
+        return True
+
+    def _fold_mvreg_payloads(self, state: MVReg, payloads: list) -> bool:
+        """MVReg bulk fold: ops are (clock, value) candidates; iterated
+        strict-dominance apply equals the global anti-chain (dominance is
+        transitive), so one dominance filter replaces the per-op loop —
+        the argument ``_merge_mvregs`` makes."""
+        new = [(VClock.from_obj(obj[0]), obj[1])
+               for obj in self._unpack_all(payloads)]
+        if not new:
+            return True
+        if len(new) + len(state.vals) < self.min_device_batch:
+            for c, v in new:
+                state.apply(MVRegOp(c, v))
+            return True
+        self._mvreg_antichain(state, list(state.vals) + new)
+        return True
+
+    def _fold_seqlist_payloads(self, state: SeqList, payloads: list) -> bool:
+        """SeqList bulk: whole-file unpack, host apply.  No device path:
+        the state is an order-keyed tree of variable-length Logoot paths
+        with no dense tensor shape."""
+        for op in [seqlist_op_from_obj(o) for o in self._unpack_all(payloads)]:
+            state.apply(op)
+        return True
+
+    def _fold_merklereg_payloads(self, state: MerkleReg, payloads: list) -> bool:
+        """MerkleReg bulk: whole-file unpack + apply.  No device path: the
+        fold is hash-DAG bookkeeping (parent links, head set)."""
+        for node in [MerkleNode.from_obj(o) for o in self._unpack_all(payloads)]:
+            state.apply(node)
         return True
 
     # ------------------------------------------------------- fold sessions
@@ -658,7 +819,52 @@ class TorchAccelerator(HostAccelerator):
             return state
         if isinstance(state, ORSet) and len(others) + 1 >= 3:
             return self._merge_orsets(state, others)
+        if isinstance(state, MVReg):
+            total = len(state.vals) + sum(len(o.vals) for o in others)
+            if total >= self.min_device_batch:
+                return self._merge_mvregs(state, others)
         return super().merge_states(state, others)
+
+    def _merge_mvregs(self, state: MVReg, others: list) -> MVReg:
+        """Batched MVReg snapshot merge: the global anti-chain of every
+        candidate (clock, value) pair through one dominance filter,
+        instead of S sequential pairwise merges.  Equivalent because each
+        input register is already an anti-chain and domination is
+        transitive, so iterated pairwise merging and the global filter
+        both keep exactly the pairs no other pair strictly dominates;
+        identical duplicates never dominate each other (strict filter) and
+        collapse in canonicalization."""
+        pairs = list(state.vals)
+        for o in others:
+            pairs.extend(o.vals)
+        return self._mvreg_antichain(state, pairs)
+
+    def _mvreg_antichain(self, state: MVReg, pairs: list) -> MVReg:
+        """Write the global strict-dominance anti-chain of ``pairs`` into
+        ``state`` through one ``mvreg_dominance_keep`` call on the device.
+        The dense clocks are int64, so every counter the host loop takes
+        compares exactly (the JAX route stores them in int32)."""
+        replicas = Vocab()
+        rows, cols, vals = [], [], []
+        for i, (c, _) in enumerate(pairs):
+            for a, n in c.counters.items():
+                rows.append(i)
+                cols.append(replicas.intern(a))
+                vals.append(n)
+        R, V = len(replicas), len(pairs)
+        if R == 0 or V <= 1:  # empty clocks: dedup is all there is
+            state.vals = pairs
+            state._canonicalize()
+            return state
+        with trace.span("merge.planes"):
+            clocks = np.zeros((V, R), np.int64)
+            clocks[rows, cols] = vals
+        with trace.span("merge.device"):
+            (dev,) = self._upload((clocks,))
+            keep = mvreg_dominance_keep(dev).cpu().numpy()
+        state.vals = [pairs[i] for i in np.flatnonzero(keep)]
+        state._canonicalize()
+        return state
 
     def _merge_orsets(self, state: ORSet, others: list) -> ORSet:
         """Stack every state's planes over one shared vocabulary and merge

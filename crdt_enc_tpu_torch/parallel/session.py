@@ -41,8 +41,12 @@ concatenation when a chunk brings new ones: eager PyTorch compiles
 nothing per shape, so the JAX package's power-of-two capacities and
 member overshoot (a bound on XLA recompiles) have no counterpart here.
 
-Left out of the copy: the mesh branch of DEVICE_STREAM, the CrdtMap
-session (``session_supported`` answers False for maps), the device-decode
+``MapFoldSession`` folds CrdtMap<orset> chunks: each decodes natively to
+the map's four row families, and finish runs the columnar map fold once
+against the state read there (its scatter phase on the device from
+``min_device_batch`` rows).
+
+Left out of the copy: the mesh branch of DEVICE_STREAM, the device-decode
 experiment and the device-memory sampling at fold boundaries.
 """
 
@@ -51,7 +55,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models import GCounter, ORSet, PNCounter
+from ..models import CrdtMap, GCounter, ORSet, PNCounter
 from ..models.counters import POS
 from ..ops.columnar import (
     KIND_ADD,
@@ -497,18 +501,126 @@ class CounterFoldSession:
         return out
 
 
+class MapFoldSession:
+    """Chunked CrdtMap<orset> ingestion: each chunk decodes to the four
+    row families natively (validation up front — ``SessionDeclined``
+    fires while chunks are fed, never at finish) and interns its key and member
+    spans into running vocabularies; finish concatenates the remapped
+    families and runs the columnar map fold once against the state read
+    AT FINISH (``crdtmap_fold_host``), so applies that landed while
+    chunks were in flight are honored exactly like the whole-batch
+    path."""
+
+    accepts_packed = False
+
+    def __init__(self, accel, state: CrdtMap, actors_hint=()):
+        self.accel = accel
+        self.state = state
+        self.actors_sorted = accel._map_actor_table(state, actors_hint)
+        self.keys = Vocab()
+        self.members = Vocab()
+        self._fams: list = []  # (B, A, Rm, K) with vocab-global indices
+        self._n_groups = 0
+        self.rows_fed = 0
+        self._finished = False
+
+    def decode_chunk(self, payloads: list):
+        from ..ops.map_columnar import decode_map_payload_batch
+
+        with trace.span("session.decode"):
+            decoded = decode_map_payload_batch(payloads, self.actors_sorted)
+        if decoded is None:
+            raise SessionDeclined("native map decoder declined the chunk")
+        return decoded
+
+    @staticmethod
+    def _remap(vocab: Vocab, objs):
+        """Chunk-local object table → running-vocab indices; declines on
+        a value collision (1 == True etc. — distinct canonical spans
+        interning to one slot would scatter rows onto the wrong row)."""
+        idx = np.fromiter((vocab.intern(o) for o in objs), np.int32,
+                          count=len(objs))
+        if len(objs) and len(np.unique(idx)) != len(objs):
+            raise SessionDeclined("vocab value collision in map chunk")
+        return idx
+
+    def reduce_chunk(self, decoded) -> None:
+        if self._finished:
+            raise RuntimeError("session already finished")
+        B, A, Rm, Kk, key_objs, member_objs = decoded
+        kmap = self._remap(self.keys, key_objs)
+        mmap = self._remap(self.members, member_objs)
+
+        def rekey(fam, with_member):
+            out = dict(fam)
+            if len(fam["key"]):
+                out["key"] = kmap[fam["key"]]
+            if with_member and len(fam["member"]):
+                out["member"] = mmap[fam["member"]]
+            return out
+
+        B2, A2, Rm2, K2 = (rekey(B, False), rekey(A, True), rekey(Rm, True),
+                           rekey(Kk, False))
+        if len(K2["group"]):
+            K2["group"] = K2["group"] + self._n_groups
+            self._n_groups += int(Kk["group"].max()) + 1
+        self._fams.append((B2, A2, Rm2, K2))
+        self.rows_fed += sum(len(f["actor"]) for f in (B2, A2, Rm2, K2))
+
+    def feed(self, payloads: list) -> None:
+        self.reduce_chunk(self.decode_chunk(payloads))
+
+    def finish(self) -> CrdtMap:
+        from ..ops.map_columnar import crdtmap_fold_host
+
+        if self._finished:
+            raise RuntimeError("session already finished")
+        self._finished = True
+        state = self.state
+        if not self._fams:
+            return state
+
+        def cat(ix, names):
+            return {n: np.concatenate([f[ix][n] for f in self._fams])
+                    for n in names}
+
+        B = cat(0, ("key", "actor", "ctr"))
+        A = cat(1, ("key", "member", "actor", "ctr"))
+        Rm = cat(2, ("key", "member", "actor", "ctr", "mactor", "mctr"))
+        Kk = cat(3, ("key", "actor", "ctr", "group"))
+        self._fams = []
+        for name, fam in (("birth", B), ("child_add", A), ("child_rm", Rm),
+                          ("key_rm", Kk)):
+            trace.add(f"map_rows_{name}", len(fam["actor"]))
+        # concurrent applies may have introduced actors since open: the
+        # fed rows only ever index the original sorted prefix, so new
+        # actors intern AFTER it and the row indices stay valid
+        replicas = Vocab(self.actors_sorted)
+        for a in self.accel._map_actor_table(state):
+            replicas.intern(a)
+        with trace.span("session.map_fold"):
+            crdtmap_fold_host(state, B, A, Rm, Kk, self.keys, self.members,
+                              replicas,
+                              device=self.accel._map_fold_device(self.rows_fed))
+        return state
+
+
 def session_supported(state) -> bool:
     """True iff a chunked columnar session exists for ``state``'s type
     (one isinstance chain, no session construction)."""
-    return isinstance(state, (ORSet, GCounter, PNCounter))
+    if isinstance(state, (ORSet, GCounter, PNCounter)):
+        return True
+    return isinstance(state, CrdtMap) and state.child == b"orset"
 
 
 def open_fold_session(accel, state, actors_hint=()):
     """A fold session for ``state``, or None when no chunked columnar
     path exists for its type (the caller folds chunks through the per-op
     path)."""
+    if not session_supported(state):
+        return None
     if isinstance(state, ORSet):
         return OrsetFoldSession(accel, state, actors_hint)
     if isinstance(state, (GCounter, PNCounter)):
         return CounterFoldSession(accel, state, actors_hint)
-    return None
+    return MapFoldSession(accel, state, actors_hint)

@@ -258,10 +258,9 @@ def test_counter_codecs_are_sub_lattices(name):
 
 def test_codec_registry_covers_the_port_adapters():
     assert codec_for(b"orset") is codec_for(b"rcounter")
-    for name in (b"orset", b"gcounter", b"pncounter"):
+    for name in (b"orset", b"gcounter", b"pncounter", b"gset"):
         assert codec_for(name) is not None
     assert codec_for(b"lwwmap") is None  # LWW maps seal no deltas
-    assert codec_for(b"gset") is None  # no G-Set adapter in the port
 
 
 def _wire_record():

@@ -399,6 +399,52 @@ def test_lww_fold_one_key(dev, lww_route, lww_mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+def test_lww_fold_every_row_on_one_key(dev, lww_route, lww_mode, packed):
+    """The LWW register's bulk fold: config 4's 1,000,000 writes (10,000
+    actors, timestamps below 2^40, 100 values) all on key 0, so every row
+    contends for one slot (one-key tile on the shared route)."""
+    rng = np.random.default_rng(4)
+    N, R, V = 1_000_000, 10_000, 100
+    hi, lo = L.ts_split(rng.integers(1, 1 << 40, N))
+    cols = [torch.from_numpy(x).to(dev) for x in (
+        np.zeros(N, np.int32), hi, lo,
+        rng.integers(0, R, N, dtype=np.int32),
+        rng.integers(0, V, N, dtype=np.int32))]
+    nv = V if packed else None
+    got = fold_on_route(cols, 1, nv, lww_route)
+    assert got[4].cpu().tolist() == [True]
+    assert_tables_equal(L.lww_fold_plain(*cols, num_keys=1, num_values=nv), got)
+
+
+@pytest.mark.cuda
+def test_lwwreg_fold_payloads_launches_the_kernel_once(dev):
+    """``TorchAccelerator().fold_payloads`` folds an LWW register's op
+    files with one ``lww_fold`` launch at one key, equal to the host
+    loop."""
+    import uuid
+
+    from crdt_enc_tpu_torch import TorchAccelerator, canonical_bytes
+    from crdt_enc_tpu_torch.models import LWWReg
+    from crdt_enc_tpu_torch.utils import codec
+
+    rng = np.random.default_rng(5)
+    actors = [uuid.UUID(int=i + 1).bytes for i in range(50)]
+    ops = [[int(t), actors[int(a)], int(v)] for t, a, v in zip(
+        rng.integers(0, 1 << 40, 5000), rng.integers(0, 50, 5000),
+        rng.integers(0, 100, 5000))]
+    payloads = [codec.pack(ops[i : i + 48]) for i in range(0, len(ops), 48)]
+    host = LWWReg()
+    for o in ops:
+        host.apply(o)
+    got = LWWReg()
+    n0 = LC.launches["lww_fold"]
+    assert TorchAccelerator(device=dev).fold_payloads(got, payloads)
+    assert LC.launches["lww_fold"] == n0 + 1
+    assert canonical_bytes(got) == canonical_bytes(host)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("above", [0, 1])
 def test_lww_fold_at_the_shared_threshold(dev, lww_mode, above):
     """K at SHARED_KEYS_MAX takes the shared route, one key more the

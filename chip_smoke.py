@@ -112,6 +112,24 @@ Phases:
    dominance filter on the card; its block and card memory peak),
    ``Core.compact()`` and ``fold_payloads``; (d) G-Set, SeqList,
    MerkleReg and the no-op type through ``Core.compact()``, no launch;
+16. the multi-tenant fold service (``FoldService``): K2 through the
+   tenant layout (the tenants' planes side by side as ``(E_b, T·R_b)``,
+   padding rows at ``actor = T·R_b``) against its plain version at the
+   fleets' bucket shapes, then fleet (a), 2,048 tenants at bench.py
+   --e2e-multitenant's shape (384 ops over 4 replicas and 64 members,
+   24-op files; 1/8 G-Counters, 8 oversize solo spills, 8 decoder
+   declines, 16 empty, 16 with 3 snapshots), and fleet (b), one bucket at
+   the cells cap (16 tenants of 1,024 members x 1,024 replicas, 32,768
+   ops), as encrypted in-memory remotes in three byte-identical copies:
+   three service cycles (all ops; a 10% tail, served from the warm tier
+   with deltas cut on the card; quiet), against the sequential solo
+   ``compact()`` loop with ``TorchAccelerator`` and with the host loop.
+   Each OR-Set bucket of cycle 1 launches K2 once; every tenant equals
+   the host loop's bytes each cycle; each cycle-2 delta equals the host
+   dict walk's; ``read_strong`` on 8 tenants equals the host loop's
+   strong read; the quiet cycle launches, uploads and builds nothing.
+   Per cycle: wall, tenant p50/p99, ops/s, launches, ``h2d_bytes``, card
+   memory peak and the card's idle share (torch.profiler);
 then the kernels line and the result line.  Phase 5 also times the merge
 at the compaction's own shape (S = 9, E = 4,096, R = 5,000) against its
 plain version, and phases 5 and 9 give the merge and K3's shape their
@@ -207,6 +225,21 @@ MAP_BEYOND, MAP_SEED = 500, 17
 MV_S, MV_V, MV_R, MV_CLOCK, MV_SEED = 16, 2048, N_REPLICAS, 8, 18
 # (d) the host-by-design types' small histories
 OTHER_SEED = 19
+
+# phase 16: the multi-tenant fold service.  Fleet (a) at bench.py
+# --e2e-multitenant's per-tenant shape (384 ops over 4 replicas and 64
+# members, 24-op files), 2,048 tenants: 1/8 G-Counters, 8 oversize
+# OR-Sets past the bucket row cap (solo spills), 8 whose remove contexts
+# name an actor the decoder does not know (it declines; the Python
+# columns take them), 16 empty and 16 with 3 snapshots beside their op
+# files (K4 in their ingest).  Fleet (b): one bucket at the cells cap, 16
+# tenants of 1,024 members x 1,024 replicas and 32,768 ops.  Cycle 2 adds
+# a 10% tail of op files to every tenant with ops; cycle 3 is quiet.
+FLEET_T, FLEET_N, FLEET_R, FLEET_E, FLEET_OPF = 2048, 384, 4, 64, 24
+FLEET_GC, FLEET_BIG, FLEET_BIG_N = FLEET_T // 8, 8, 40_000
+FLEET_DECLINE, FLEET_EMPTY, FLEET_SNAP, FLEET_SNAPSHOTS = 8, 16, 16, 3
+CAP_T, CAP_E, CAP_R, CAP_N = 16, 1024, 1024, 32_768
+SERVE_TAIL_PCT, SERVE_SEED, SERVE_STRONG = 10, 23, 8
 
 # peak device-memory rates (NVIDIA data sheets); float32 outside the
 # tensor cores is the table's nearest rate for the kernels' int32 ALU work
@@ -3074,6 +3107,533 @@ def phase_catalogue(device, rate: float) -> dict:
     return out
 
 
+# ---- the multi-tenant fold service (phase 16) -----------------------------
+
+
+def serve_orset_files(N: int, R: int, E: int, seed: int, actors: list,
+                      opf: int = FLEET_OPF) -> list:
+    """One tenant's OR-Set op files in wire form, bench.py
+    --e2e-multitenant's layout: ``gen_columns`` rows (sentinel rows
+    dropped) grouped by actor, up to ``opf`` ops a file within one actor,
+    dense versions from 1."""
+    kind, member, actor, counter = gen_columns(N, R, E, seed)
+    live = actor < R
+    order = np.argsort(actor[live], kind="stable")
+    streams: dict = {}
+    for k, m, a, c in zip(kind[live][order].tolist(),
+                          member[live][order].tolist(),
+                          actor[live][order].tolist(),
+                          counter[live][order].tolist()):
+        ab = actors[a]
+        streams.setdefault(ab, []).append(
+            [0, m, [ab, c]] if k == 0 else [1, m, {ab: c}])
+    return actor_files(streams, opf)
+
+
+def serve_gcounter_files(N: int, R: int, seed: int, actors: list) -> list:
+    """One G-Counter tenant's op files: N increments over R actors, each
+    actor's dots dense from 1."""
+    rng = np.random.default_rng(seed)
+    who = rng.integers(0, R, N)
+    streams: dict = {}
+    for a in who.tolist():
+        ops = streams.setdefault(actors[a], [])
+        ops.append([actors[a], len(ops) + 1])
+    return actor_files(streams, FLEET_OPF)
+
+
+def serve_fleet_spec() -> list:
+    """(label, kind, files, snapshots) per tenant; ``files`` in wire form,
+    ``snapshots`` a list of (sealer, state obj, cursor obj)."""
+    from crdt_enc_tpu_torch import ORSet
+    from crdt_enc_tpu_torch.models.orset import op_from_obj
+
+    actors = actor_ids(FLEET_R)
+    spec = []
+    seed = SERVE_SEED * 10_000
+    n_gc = FLEET_GC
+    n_orset = FLEET_T - n_gc - FLEET_BIG - FLEET_DECLINE - FLEET_EMPTY
+    for t in range(n_orset):
+        seed += 1
+        files = serve_orset_files(FLEET_N, FLEET_R, FLEET_E, seed, actors)
+        snaps = []
+        if t < FLEET_SNAP:
+            # snapshots sealed by other replicas: each folds the first
+            # half of one actor's files, the cursor naming them
+            for i in range(FLEET_SNAPSHOTS):
+                ab = actors[i]
+                mine = [f for f in files if f[0] == ab]
+                mine = mine[: max(1, len(mine) // 2)]
+                st = ORSet()
+                for _, _, ops in mine:
+                    for o in ops:
+                        st.apply(op_from_obj(o))
+                snaps.append((uuid.UUID(int=(1 << 100) + t * 8 + i).bytes,
+                              st.to_obj(), {ab: mine[-1][1]}))
+        spec.append(("snapshots" if snaps else "orset", "orset", files,
+                     snaps))
+    for t in range(n_gc):
+        seed += 1
+        spec.append(("gcounter", "gcounter",
+                     serve_gcounter_files(FLEET_N, FLEET_R, seed, actors), []))
+    for t in range(FLEET_BIG):
+        seed += 1
+        spec.append(("oversize", "orset", serve_orset_files(
+            FLEET_BIG_N, FLEET_R, FLEET_E, seed, actors), []))
+    foreign = uuid.UUID(int=(1 << 120) + 1).bytes
+    for t in range(FLEET_DECLINE):
+        seed += 1
+        files = serve_orset_files(FLEET_N, FLEET_R, FLEET_E, seed, actors)
+        # a remove whose context names an actor the decoder's table (the
+        # listing plus the state's actors) does not hold: it declines
+        ab, v, ops = files[0]
+        files[0] = (ab, v, ops + [[1, 7, {foreign: 3}]])
+        spec.append(("decline", "orset", files, []))
+    for t in range(FLEET_EMPTY):
+        spec.append(("empty", "orset", [], []))
+    cap_actors = actor_ids(CAP_R)
+    for t in range(CAP_T):
+        seed += 1
+        spec.append(("cells_cap", "orset", serve_orset_files(
+            CAP_N, CAP_R, CAP_E, seed, cap_actors), []))
+    return spec
+
+
+async def seal_fleet(spec: list) -> tuple:
+    """Every tenant's encrypted in-memory remote (one template writer's
+    key and metadata, copied into each remote), its head files and
+    snapshots stored, and its tail (the last SERVE_TAIL_PCT% of its
+    files) sealed but held back: ``(remotes, tails)``, ``tails[t]`` a
+    list of (actor, version, blob)."""
+    import asyncio
+
+    from crdt_enc_tpu_torch import (
+        Core,
+        HostAccelerator,
+        MemoryRemote,
+        MemoryStorage,
+        orset_adapter,
+    )
+
+    template = MemoryRemote()
+    writer = await Core.open(catalogue_options(
+        MemoryStorage(template), orset_adapter(), HostAccelerator()))
+    remotes, tails = [], []
+    for label, kind, files, snaps in spec:
+        remote = MemoryRemote(metas=dict(template.metas))
+        store = MemoryStorage(remote)
+        n_tail = max(1, len(files) * SERVE_TAIL_PCT // 100) if files else 0
+        blobs = []
+        for b in range(0, len(files), COMPACT_WRITE_BATCH):
+            batch = files[b : b + COMPACT_WRITE_BATCH]
+            blobs += await asyncio.gather(*(writer._seal(ops)
+                                            for *_, ops in batch))
+        head = len(files) - n_tail
+        await asyncio.gather(*(store.store_ops(ab, v, blob) for (ab, v, _),
+                               blob in zip(files[:head], blobs[:head])))
+        for sealer, st, cursor in snaps:
+            await store.store_state(await writer._seal([st, cursor, sealer]))
+        remotes.append(remote)
+        tails.append([(ab, v, blob) for (ab, v, _), blob in
+                      zip(files[head:], blobs[head:])])
+    return remotes, tails
+
+
+def serve_open(remotes: list, spec: list, accel, strong: set) -> list:
+    """One open ``Core`` per tenant remote; the tenants in ``strong`` pin
+    their membership to themselves (``MembershipPolicy(expected=())``),
+    so their stable prefix is everything they folded."""
+    from crdt_enc_tpu_torch import (
+        Core,
+        MemoryStorage,
+        gcounter_adapter,
+        orset_adapter,
+    )
+    from crdt_enc_tpu_torch.read import MembershipPolicy
+
+    async def go():
+        cores = []
+        for t, (remote, (_, kind, _, _)) in enumerate(zip(remotes, spec)):
+            adapter = orset_adapter() if kind == "orset" else \
+                gcounter_adapter()
+            opts = catalogue_options(MemoryStorage(remote), adapter, accel)
+            if t in strong:
+                opts.membership = MembershipPolicy(expected=())
+            cores.append(await Core.open(opts))
+        return cores
+
+    return run_async(go())
+
+
+def profiled(fn, device: str):
+    """``fn()`` once, with the card's busy time from torch.profiler's CUDA
+    trace (kernels, copies, memsets summed).  Returns ``(result, wall s,
+    busy s or None)``; None where the trace holds no device time or on
+    the CPU."""
+    import torch
+
+    if device != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, None
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = 0.0
+    try:
+        for evt in prof.key_averages():
+            busy_us += getattr(evt, "self_device_time_total",
+                               getattr(evt, "self_cuda_time_total", 0))
+    except Exception:  # the profiler is a diagnostic only
+        busy_us = 0.0
+    return out, wall, (busy_us / 1e6 if busy_us > 0 else None)
+
+
+def nearest_rank_ms(samples: list, q: float) -> float | None:
+    if not samples:
+        return None
+    s = sorted(samples)
+    return s[max(0, int(np.ceil(q * len(s))) - 1)] * 1e3
+
+
+def serve_numbers(wall: float, busy, ops: int, latencies: list,
+                  snap: dict, launches: dict, peak) -> dict:
+    return {
+        "wall_s": wall,
+        "ops": ops,
+        "ops_per_s": ops / wall if wall > 0 else None,
+        "p50_ms": nearest_rank_ms(latencies, 0.50),
+        "p99_ms": nearest_rank_ms(latencies, 0.99),
+        "launches": launches,
+        "h2d_bytes": snap["counters"].get("h2d_bytes", 0),
+        "card_peak_bytes": peak,
+        "device_busy_s": busy,
+        "idle_share": None if busy is None else max(0.0, 1 - busy / wall),
+    }
+
+
+def print_serve(label: str, n: dict) -> None:
+    idle = ("not measured" if n["idle_share"] is None
+            else f"{100 * n['idle_share']:.2f}%")
+    p50 = "-" if n["p50_ms"] is None else f"{n['p50_ms']:.1f}"
+    p99 = "-" if n["p99_ms"] is None else f"{n['p99_ms']:.1f}"
+    rate = "-" if n["ops_per_s"] is None else f"{n['ops_per_s']:.0f}"
+    peak = ("-" if n["card_peak_bytes"] is None
+            else f"{n['card_peak_bytes'] / 1e9:.3f} GB")
+    print(f"  {label}: wall {n['wall_s']:.3f} s, {n['ops']} ops, {rate} ops/s, "
+          f"tenant p50 {p50} ms p99 {p99} ms, launches "
+          f"{ {k: v for k, v in n['launches'].items() if v} }, h2d "
+          f"{n['h2d_bytes']} B, card peak {peak}, card idle {idle}",
+          flush=True)
+
+
+def check_tenant_layout(device: str, rate: float) -> tuple:
+    """K2 through the tenant layout against its plain version at the
+    fleets' bucket shapes (live remove horizons in ``rm0``, padding rows
+    at ``actor == R_b`` in every tenant but the last, dummy slots):
+    ``(max_abs_err, times)``."""
+    import torch
+
+    from crdt_enc_tpu_torch.ops import orset as P
+
+    err, out = 0, {}
+    for label, (T, E, R, N) in {
+        "fleet_a_bucket": (1024, FLEET_E, 8, 512),
+        "cells_cap": (CAP_T, CAP_E, CAP_R, CAP_N),
+    }.items():
+        rng = np.random.default_rng(T + E)
+        hi = 1 << 20
+        clock0 = rng.integers(0, hi, (T, R)).astype(np.int32)
+        add0 = np.where(rng.random((T, E, R)) < 0.2,
+                        rng.integers(1, hi, (T, E, R)), 0)
+        add0 = np.minimum(add0, clock0[:, None, :])
+        # live remove horizons past the clock: the retire path of the fold
+        rm0 = np.where(rng.random((T, E, R)) < 0.1,
+                       rng.integers(1, 2 * hi, (T, E, R)), 0)
+        add0 = np.where(add0 > rm0, add0, 0).astype(np.int32)
+        rm0 = np.where(rm0 > clock0[:, None, :], rm0, 0).astype(np.int32)
+        kind = (rng.random((T, N)) < 0.1).astype(np.int8)
+        member = rng.integers(0, E, (T, N)).astype(np.int32)
+        actor = rng.integers(0, R, (T, N)).astype(np.int32)
+        counter = rng.integers(1, 2 * hi, (T, N)).astype(np.int32)
+        pad = rng.random((T, N)) < 0.2
+        pad[-1] = False
+        actor[pad] = R
+        counter[pad] = 4 * hi
+        # the last two slots are dummy slots: zero planes, all padding
+        clock0[-2:], add0[-2:], rm0[-2:] = 0, 0, 0
+        actor[-2:] = R
+        cpu = [torch.from_numpy(x) for x in
+               (clock0, add0, rm0, kind, member, actor, counter)]
+        want = P.orset_fold_tenants_plain(*cpu, num_members=E,
+                                          num_replicas=R)
+        dev = [x.to(device) for x in cpu]
+        got = P.orset_fold_tenants(*dev, num_members=E, num_replicas=R)
+        e = max(max_abs_err(w, g.cpu()) for w, g in zip(want, got))
+        err = max(err, e)
+        entry = {"T": T, "E": E, "R": R, "N": N, "max_abs_err": e}
+        if device == "cuda":
+            entry["ms"] = time_ms(lambda: P.orset_fold_tenants(
+                *dev, num_members=E, num_replicas=R))
+            entry["plain_ms"] = time_ms(lambda: P.orset_fold_tenants_plain(
+                *dev, num_members=E, num_replicas=R))
+            moved = 4 * T * R * 2 + 4 * T * E * R * 4 + 13 * T * N
+            entry["bound_ms"] = moved / rate * 1e3
+        out[label] = entry
+        print(f"  K2 tenant layout {label} (T={T}, E={E}, R={R}, N={N}): "
+              f"max_abs_err {e}"
+              + (f", {entry['ms']:.3f} ms (plain {entry['plain_ms']:.3f} ms, "
+                 f"bound {entry['bound_ms']:.3f} ms)" if "ms" in entry else ""),
+              flush=True)
+        del cpu, dev, got, want
+    return err, out
+
+
+def phase_serve(device: str, rate: float) -> dict:
+    """Phase 16: the port's FoldService over fleets (a) and (b), three
+    cycles, every tenant held byte-equal to the host loop's solo
+    ``compact()`` on a byte-identical copy, beside the sequential solo
+    loop with ``TorchAccelerator``."""
+    import torch
+
+    from crdt_enc_tpu_torch import (
+        HostAccelerator,
+        MemoryStorage,
+        TorchAccelerator,
+        canonical_bytes,
+    )
+    from crdt_enc_tpu_torch.obs import runtime as obs_runtime
+    from crdt_enc_tpu_torch.ops import orset as P
+    from crdt_enc_tpu_torch.serve import FoldService
+    from crdt_enc_tpu_torch.serve import service as service_mod
+    from crdt_enc_tpu_torch.utils import trace
+
+    out: dict = {}
+    err, out["tenant_layout"] = check_tenant_layout(device, rate)
+    out["max_abs_err"] = err
+    if err:
+        raise AssertionError("the tenant-layout fold disagrees with its plain "
+                             f"version (max_abs_err {err})")
+    t0 = time.perf_counter()
+    spec = serve_fleet_spec()
+    remotes, tails = run_async(seal_fleet(spec))
+    labels = [s[0] for s in spec]
+    n_ops = [sum(len(f[2]) for f in files) for _, _, files, _ in spec]
+    print(f"  {len(spec)} tenants ({ {k: labels.count(k) for k in dict.fromkeys(labels)} }), "
+          f"{sum(n_ops)} ops, {sum(len(f) for *_, f, _ in spec)} op files, "
+          f"sealed in {time.perf_counter() - t0:.1f} s", flush=True)
+    strong = {i for i, l in enumerate(labels) if l == "orset"}
+    strong = set(sorted(strong)[:SERVE_STRONG])
+    copies = {arm: [copy_memory_remote(r) for r in remotes]
+              for arm in ("serve", "torch", "host")}
+    del remotes
+    t0 = time.perf_counter()
+    served = serve_open(copies["serve"], spec, TorchAccelerator(device),
+                        strong)
+    solo_dev = serve_open(copies["torch"], spec, TorchAccelerator(device),
+                          set())
+    solo_host = serve_open(copies["host"], spec, HostAccelerator(), strong)
+    print(f"  {3 * len(spec)} cores opened in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # ops folded per cycle: the head, then the tail
+    head_ops, tail_ops = [], []
+    for (_, _, files, _), t in zip(spec, tails):
+        n_tail = sum(len(ops) for (ab, v, ops) in files[len(files) - len(t):]) \
+            if t else 0
+        tail_ops.append(n_tail)
+        head_ops.append(sum(len(ops) for *_, ops in files) - n_tail)
+    del spec
+    gc.collect()
+
+    service = FoldService(served)
+    layout_calls = [0]
+    real_layout = P.orset_fold_tenant_layout
+    plans = []  # what the planner returned this cycle: (buckets, solo)
+    real_plan = service_mod.plan_buckets
+
+    def counting_layout(*args, **kw):
+        layout_calls[0] += 1
+        return real_layout(*args, **kw)
+
+    def recording_plan(*args, **kw):
+        plan = real_plan(*args, **kw)
+        plans.append(plan)
+        return plan
+
+    P.orset_fold_tenant_layout = counting_layout
+    service_mod.plan_buckets = recording_plan
+    builds_after_first = None
+    try:
+        for cycle in (1, 2, 3):
+            if cycle == 2:
+                async def add_tails():
+                    for arm in copies.values():
+                        for i, t in enumerate(tails):
+                            store = MemoryStorage(arm[i])
+                            for ab, v, blob in t:
+                                await store.store_ops(ab, v, blob)
+                run_async(add_tails())
+            ops = sum(head_ops) if cycle == 1 else (
+                sum(tail_ops) if cycle == 2 else 0)
+            reset_launches()
+            layout_calls[0] = 0
+            plans.clear()
+            trace.reset()
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            builds0 = obs_runtime.build_count()
+            results, wall, busy = profiled(
+                lambda: run_async(service.run_cycle()), device)
+            snap = trace.snapshot()
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() if device == "cuda" \
+                else None
+            lat = [r.latency_s for r in results if r.sealed]
+            n = serve_numbers(wall, busy, ops, lat, snap, launches, peak)
+            paths = {}
+            for r in results:
+                paths[r.path] = paths.get(r.path, 0) + 1
+            n["paths"] = paths
+            n["orset_bucket_folds"] = layout_calls[0]
+            n["builds"] = obs_runtime.build_count() - builds0
+            n["counters"] = {k: snap["counters"].get(k, 0) for k in (
+                "serve_warm_hits", "serve_warm_misses", "delta_device_cuts",
+                "delta_files_sealed", "serve_noop_cycles", "serve_solo_spills",
+                "serve_continuations", "op_files_loaded")}
+            n["spans_s"] = {k: round(v["seconds"], 4) for k, v in
+                            snap["spans"].items() if k.startswith("serve.")
+                            or k.startswith("delta.")}
+            errors = [r.error for r in results if r.error]
+            print_serve(f"cycle {cycle} service", n)
+            print(f"    paths {paths}; bucket folds {layout_calls[0]}; "
+                  f"builds {n['builds']}; {n['counters']}", flush=True)
+            print(f"    spans {n['spans_s']}", flush=True)
+            if errors:
+                raise AssertionError(f"cycle {cycle}: tenant errors {errors[:3]}")
+            if cycle == 1:
+                # one K2 launch per OR-Set bucket the planner made, one per
+                # tenant it spilled to the solo path (one launch each at
+                # the oversize tenants' size)
+                (buckets, solo), = plans
+                orset_buckets = sum(b.kind == "orset" for b in buckets)
+                n["orset_buckets"] = orset_buckets
+                if layout_calls[0] != orset_buckets or \
+                        len(solo) != labels.count("oversize"):
+                    raise AssertionError(
+                        f"cycle 1: {layout_calls[0]} bucket folds for "
+                        f"{orset_buckets} OR-Set buckets, {len(solo)} spills "
+                        f"for {labels.count('oversize')} oversize tenants")
+            if cycle == 1 and device == "cuda":
+                want = orset_buckets + len(solo)
+                if launches["orset_fold"] != want:
+                    raise AssertionError(
+                        f"cycle 1: {launches['orset_fold']} orset_fold launches, "
+                        f"expected one per OR-Set bucket ({orset_buckets}) "
+                        f"plus one per solo spill ({len(solo)})")
+                if launches["orset_merge_many"] != labels.count("snapshots"):
+                    raise AssertionError(
+                        f"cycle 1: {launches['orset_merge_many']} K4 launches, "
+                        f"expected {labels.count('snapshots')}")
+            if cycle == 1:
+                builds_after_first = obs_runtime.build_count()
+            if cycle == 3:
+                if set(paths) != {"empty"} or n["counters"][
+                        "serve_noop_cycles"] != len(results):
+                    raise AssertionError(f"cycle 3 is not quiet: {paths}")
+                if any(launches.values()) or n["h2d_bytes"]:
+                    raise AssertionError("cycle 3 launched or uploaded")
+                if obs_runtime.build_count() != builds_after_first:
+                    raise AssertionError("a quiet cycle built a library")
+            out[f"cycle{cycle}"] = n
+            if cycle < 3:
+                for arm, cores, accel_label in (
+                        ("torch", solo_dev, "TorchAccelerator"),
+                        ("host", solo_host, "HostAccelerator")):
+                    reset_launches()
+                    trace.reset()
+                    lat = []
+
+                    async def loop(cores=cores, lat=lat):
+                        t_start = time.perf_counter()
+                        for c in cores:
+                            await c.compact()
+                            lat.append(time.perf_counter() - t_start)
+
+                    _, wall, busy = profiled(
+                        lambda: run_async(loop()),
+                        device if arm == "torch" else "cpu")
+                    sn = serve_numbers(wall, busy, ops, lat, trace.snapshot(),
+                                       read_launches(), None)
+                    print_serve(f"cycle {cycle} solo loop, {accel_label}", sn)
+                    out[f"cycle{cycle}_solo_{arm}"] = sn
+            # every tenant equal to the host loop's solo compaction
+            for i, (a, h) in enumerate(zip(served, solo_host)):
+                if a.with_state(canonical_bytes) != h.with_state(canonical_bytes):
+                    raise AssertionError(f"cycle {cycle}: tenant {i} "
+                                         f"({labels[i]}) differs from the host loop")
+                if cycle < 3 and solo_dev[i].with_state(canonical_bytes) != \
+                        h.with_state(canonical_bytes):
+                    raise AssertionError(f"cycle {cycle}: tenant {i}: the solo "
+                                         "TorchAccelerator loop differs")
+            if cycle == 2:
+                out["delta_checked"] = run_async(compare_deltas(
+                    served, solo_host, labels))
+            print(f"    cycle {cycle}: {len(served)} tenants byte-equal to the "
+                  "host loop", flush=True)
+        reads = run_async(strong_reads(service, served, solo_host, strong))
+        out["strong_reads"] = reads
+        print(f"  read_strong on {reads} tenants equals the host loop's strong "
+              "read", flush=True)
+    finally:
+        P.orset_fold_tenant_layout = real_layout
+        service_mod.plan_buckets = real_plan
+        service.close()
+    return out
+
+
+async def compare_deltas(served, solo_host, labels) -> int:
+    """Each served OR-Set tenant's cycle-2 delta equals the host loop's
+    (the host dict walk), the snapshot names aside (they address
+    ciphertexts).  Returns the number of deltas compared."""
+    from crdt_enc_tpu_torch.utils import codec
+
+    async def deltas(core):
+        out = []
+        for a in sorted(await core.storage.list_delta_actors()):
+            for _, v, raw in await core.storage.load_deltas([(a, 1)]):
+                obj = await core._open_sealed(raw)
+                out.append((v, codec.pack(obj[b"d"])))
+        return out
+
+    n = 0
+    for i, (a, h) in enumerate(zip(served, solo_host)):
+        if labels[i] == "gcounter":
+            continue
+        da, dh = await deltas(a), await deltas(h)
+        if da != dh:
+            raise AssertionError(f"tenant {i} ({labels[i]}): the device-cut "
+                                 "delta differs from the host dict walk")
+        n += len(da)
+    return n
+
+
+async def strong_reads(service, served, solo_host, strong) -> int:
+    for i in sorted(strong):
+        got = await service.read_strong(served[i])
+        want = await solo_host[i].read(linearizable=True)
+        if got.obj != want.obj or got.consistency != "strong":
+            raise AssertionError(f"tenant {i}: read_strong differs from the "
+                                 "host loop's strong read")
+        if not got.obj.get(b"e"):
+            raise AssertionError(f"tenant {i}: the strong read is empty")
+    return len(strong)
+
+
 # name -> (source, file:line of the TPU kernel's pallas_call, the Pallas
 # functions it stands for).  Both OR-Set entries run the bucketed kernels
 # of csrc/orset_fold.cu and differ in the range kernel's epilogue; K3
@@ -3204,7 +3764,7 @@ def main() -> int:
 
 def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
                       name, t_start) -> int:
-    """Phases 10 to 15 and the closing lines.  Phase 10's compaction remote
+    """Phases 10 to 16 and the closing lines.  Phase 10's compaction remote
     lives under ``root`` until phase 14 has compacted it twice more."""
     import torch
 
@@ -3271,6 +3831,16 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
           flush=True)
     print(device_line(), flush=True)
     catalogue = phase_catalogue("cuda", memory_rate(name))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"== 16. the multi-tenant fold service ({FLEET_T} tenants of "
+          f"{FLEET_N} ops, R={FLEET_R}, E={FLEET_E}, {FLEET_OPF}-op files; "
+          f"{CAP_T} tenants at the cells cap, E={CAP_E}, R={CAP_R}, "
+          f"N={CAP_N}; three cycles; encrypted MemoryStorage)", flush=True)
+    print(device_line(), flush=True)
+    serve = phase_serve("cuda", memory_rate(name))
+    errs["orset_fold"] = max(errs["orset_fold"], serve["max_abs_err"])
 
     kernels = []
     for kname, (source, replaces, pallas) in KERNELS.items():
@@ -3313,6 +3883,16 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        catalogue["lwwreg"]["max_abs_err"])
             entry["match"] = entry["max_abs_err"] == 0
+        entry["serve_launches"] = {
+            f"cycle{c}": serve[f"cycle{c}"]["launches"][kname]
+            for c in (1, 2, 3)}
+        if kname == "orset_fold":
+            entry["serving"] = {
+                "route": "tenant layout: (E_b, T*R_b) planes, padding at "
+                         "actor = T*R_b, one launch per OR-Set bucket",
+                "tenant_layout": serve["tenant_layout"],
+                "bucket_folds": {f"cycle{c}": serve[f"cycle{c}"][
+                    "orset_bucket_folds"] for c in (1, 2, 3)}}
         kernels.append(entry)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"compaction": compaction}), flush=True)
@@ -3322,6 +3902,8 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
         "plane_cache": plane_cache, "compaction": incremental,
         "plane_cache_compaction": cache_compaction}}), flush=True)
     print(json.dumps({"catalogue": catalogue}), flush=True)
+    print(json.dumps({"serve": serve}), flush=True)
+    print(device_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

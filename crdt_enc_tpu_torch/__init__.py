@@ -16,7 +16,10 @@ sparse regime included), G-/PN-Counter (and, per op, LWW-map) batches,
 ``fold_payloads`` for the rest of the catalogue (the LWW and multi-value
 registers on the device, the G-Set, sequence list and Merkle register on
 the host), and ``TorchAccelerator.merge_states`` for OR-Sets and
-multi-value registers.  Importing the package
+multi-value registers; strong reads (``Core.read(linearizable=True)``)
+and replication sampling; and the multi-tenant ``FoldService``, which
+compacts a fleet of small remotes in one K2 launch per bucket.
+Importing the package
 loads torch and numpy only when a name below is first touched (PEP 562),
 so ``import crdt_enc_tpu_torch`` stays cheap and never needs a GPU.
 """
@@ -62,6 +65,8 @@ _EXPORTS = {
     "PNCounter": ".models.counters",
     "Dot": ".models.vclock",
     "canonical_bytes": ".models.base",
+    "FoldService": ".serve.service",
+    "ServeConfig": ".serve.service",
 }
 
 __all__ = sorted(_EXPORTS)

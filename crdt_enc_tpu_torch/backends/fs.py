@@ -496,27 +496,38 @@ class FsStorage(Storage):
         self, actor_first_versions: list[tuple[Actor, int]]
     ) -> list[tuple[Actor, int, int]]:
         """Dense tail sizing without reading: the native ``scan_op_sizes``
-        pass, probe-prefiltered like ``load_ops``."""
+        pass, probe-prefiltered like ``load_ops``.  The actors scan in at
+        most ``FS_CONCURRENCY`` groups, one thread hop each: a replica
+        opening on thousands of logs pays their stat calls, not a hop
+        per log, and a latency-bound filesystem still sees that many
+        scans in flight."""
         actor_first_versions = await self._run(
             self._probe_actors, actor_first_versions
         )
 
-        def scan(actor: Actor, first: int) -> list[tuple[Actor, int, int]]:
+        def scan(group: list) -> list[tuple[Actor, int, int]]:
             lib = native.load()
-            d = self._ops_dir(actor).encode()
             out: list[tuple[Actor, int, int]] = []
-            v = first
-            while True:
-                sizes, exhausted = self._scan_sizes_native(lib, d, v)
-                out.extend((actor, v + i, int(s)) for i, s in enumerate(sizes))
-                v += len(sizes)
-                if exhausted:
-                    return out
+            for actor, first in group:
+                d = self._ops_dir(actor).encode()
+                v = first
+                while True:
+                    sizes, exhausted = self._scan_sizes_native(lib, d, v)
+                    out.extend(
+                        (actor, v + i, int(s)) for i, s in enumerate(sizes)
+                    )
+                    v += len(sizes)
+                    if exhausted:
+                        break
+            return out
 
-        per_actor = await asyncio.gather(
-            *(self._run(scan, a, f) for a, f in actor_first_versions)
-        )
-        return [item for chunk in per_actor for item in chunk]
+        n = len(actor_first_versions)
+        width = max(1, -(-n // FS_CONCURRENCY))
+        per_group = await asyncio.gather(*(
+            self._run(scan, actor_first_versions[i : i + width])
+            for i in range(0, n, width)
+        ))
+        return [item for chunk in per_group for item in chunk]
 
     async def store_ops(self, actor: Actor, version: int, data: bytes) -> None:
         path = os.path.join(self._ops_dir(actor), str(version))

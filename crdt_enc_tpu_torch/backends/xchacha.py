@@ -165,3 +165,14 @@ class XChaChaCryptor(Cryptor):
     async def decrypt_batch(self, key: VersionBytes, blobs: list) -> list:
         key.ensure_version(XCHACHA_KEY_VERSION_1)
         return await asyncio.to_thread(decrypt_blobs, key.content, blobs)
+
+    def decrypt_batch_fn(self, key: VersionBytes):
+        """The sync bulk open behind :meth:`decrypt_batch`, bound to
+        ``key`` (the fold service's one-hop decrypt of many tenants)."""
+        key.ensure_version(XCHACHA_KEY_VERSION_1)
+        material = key.content
+
+        def call(blobs: list) -> list:
+            return decrypt_blobs(material, blobs)
+
+        return call

@@ -48,23 +48,38 @@ so either package reads a chain the other sealed.
 
 Local fold checkpoints: with ``OpenOptions.checkpoint`` on (the
 default), ``compact()`` ends by sealing the state, the ingest cursor, the
-read snapshots, the cursor matrix, the delta consumption cursor and (when
-the state still equals it) the sealed snapshot's name into the storage's
-local-checkpoint slot (``save_checkpoint``), and ``open`` restores them
-after verifying the fingerprint (adapter, actor, data version, latest
-key, remote-meta hash), so a reopen ingests only the op tails past the
-cursor and extends its delta chain; any doubt falls back to the cold
-refold with the reason recorded.  The payload keys are the JAX package's
-(``fmt``, ``state``, ``cursor``, ``rs``, ``fp``, ``cm``, ``rd``,
-``snap``), so a checkpoint sealed by either package opens warm in the
-other; the strong-read slot ``sp`` is neither written nor read.
+read snapshots, the cursor matrix, the delta consumption cursor, the
+stable prefix and (when the state still equals it) the sealed snapshot's
+name into the storage's local-checkpoint slot (``save_checkpoint``), and
+``open`` restores them after verifying the fingerprint (adapter, actor,
+data version, latest key, remote-meta hash), so a reopen ingests only the
+op tails past the cursor and extends its delta chain; any doubt falls
+back to the cold refold with the reason recorded.  The payload keys are
+the JAX package's (``fmt``, ``state``, ``cursor``, ``rs``, ``fp``,
+``cm``, ``rd``, ``snap``, ``sp``), so a checkpoint sealed by either
+package opens warm in the other.
+
+Replication sampling and strong reads: every open, ``read_remote`` and
+compaction samples this replica's replication status
+(``replication_status``: watermark, backlog, divergence, checkpoint
+staleness; ``obs/replication.py``) into gauges, the live telemetry
+server and, after a compaction, the metrics sink (``CRDT_REPL_SAMPLE=0``
+opts out).  ``read(linearizable=True)`` answers from the stable prefix
+(``read/stable.py``): the fold of the ops every replica of the
+membership provably holds, refusing with ``StalenessError`` where the
+caller's bounds cannot be met; ``await_stable`` waits for coverage.
+
+Serving hooks: the multi-tenant fold service (``serve/service.py``)
+ingests through ``load_sealed_ops`` (list, load and unwrap, no decrypt),
+folds many tenants in one device launch, and seals each one through
+``_compact_seal(_backlog=, _packed_state=, _state_obj=, _delta_cut=)`` —
+the solo seal tail, with the service's pre-built checkpoint payload,
+snapshot object and device-cut delta, each accepted only while the
+state's mutation epoch still matches.
 
 Not copied (each still to port): the ``checkpoint_on_read`` reseal of
-consumer replicas, the serving tier's device-cut deltas, strong reads
-and the stable prefix, replication sampling and the metrics sink, the
-payload-stream branch of the bulk path (no accelerator of the port
-reaches it: OR-Sets take the session), the fold service's pre-packed
-checkpoint payload, and the serving front end ``load_sealed_ops``.
+consumer replicas and the payload-stream branch of the bulk path (no
+accelerator of the port reaches it: OR-Sets take the session).
 """
 
 from __future__ import annotations
@@ -72,11 +87,15 @@ from __future__ import annotations
 import asyncio
 import hashlib
 import logging
+import time
 import uuid
 from dataclasses import dataclass, field
 
+import numpy as np
+
 from ..models.mvreg import MVReg
 from ..models.vclock import Actor, Dot, VClock
+from ..read.stable import ReadResult
 from ..utils import codec, trace
 from ..utils.lockbox import LockBox
 from ..utils.version_bytes import VersionBytes
@@ -247,16 +266,6 @@ class Info:
 
 
 @dataclass
-class ReadResult:
-    """An eventual read: the state's object form and the ingest cursor it
-    reflects."""
-
-    obj: object
-    consistency: str
-    cursor: VClock
-
-
-@dataclass
 class OpenOptions:
     """Configuration-as-code (reference OpenOptions, lib.rs:725-732)."""
 
@@ -282,6 +291,10 @@ class OpenOptions:
     # delta chain`` before re-reading full snapshots (with a counted
     # fallback on any gap, GC'd link or fingerprint doubt).
     delta: bool = True
+    # strong-read membership policy (read/policy.py ``MembershipPolicy``)
+    # pinning the watermark's denominator (expected replicas, silence
+    # decay).  None = the observed replicas.
+    membership: object | None = None
 
 
 def unpack_checkpoint_state(adapter, fmt: int, st):
@@ -294,6 +307,13 @@ def unpack_checkpoint_state(adapter, fmt: int, st):
     if fmt == CHECKPOINT_FMT_OBJ:
         return adapter.state_from_obj(st)
     raise CoreError(f"unknown checkpoint format {fmt!r}")
+
+
+def _host(x):
+    """A plane as a numpy array, copied off the card where it lies."""
+    if hasattr(x, "cpu"):
+        return x.cpu().numpy()
+    return np.asarray(x)
 
 
 def _default_accelerator():
@@ -365,6 +385,20 @@ class Core:
         self._delta_enabled = opts.delta
         self._delta_base: dict | None = None
         self.last_delta_fallback_reason: str | None = None
+        # replication sampling (obs/replication.py) on every open,
+        # read_remote and compact; the last status is kept for callers
+        # that want the whole dict
+        self.last_replication_status: dict | None = None
+        # (cursor counters, read states) of the last durably sealed
+        # checkpoint: the replication status's staleness base
+        self._checkpoint_sig: tuple | None = None
+        # what the last _compact_seal depended on (_seal_signature): the
+        # fold service skips a quiet tenant's seal while it is unmoved
+        self._last_seal_sig: tuple | None = None
+        # strong reads: the stable prefix is made on the first
+        # linearizable read (or restored from the checkpoint's sp slot)
+        self._membership = opts.membership
+        self._stable = None
 
     # ------------------------------------------------------------------ open
     @classmethod
@@ -409,6 +443,9 @@ class Core:
                 )
         if opts.checkpoint:
             await core._open_from_checkpoint()
+        # replication status at open: the backlog gauge answers how much
+        # the first read_remote will fold
+        await core._sample_replication()
         return core
 
     async def _store_local_meta(self) -> None:
@@ -439,36 +476,275 @@ class Core:
         retained state reference used after the section raises."""
         return LockBox(self._data.state).with_(fn)
 
-    # ------------------------------------------------------ eventual reads
-    async def read(self) -> ReadResult:
-        """This replica's value: the live state's object form (eventual
-        consistency; the strong tier is not ported)."""
-        d = self._data
-        return ReadResult(
-            obj=self.adapter.state_to_obj(d.state),
-            consistency="eventual",
-            cursor=d.next_op_versions.copy(),
+    # ------------------------------------------------------- replication obs
+    async def replication_status(self, *, _backlog: list | None = None) -> dict:
+        """This replica's replication status: the causal stability
+        watermark, the op backlog past the local cursor (sized without
+        reading, ``Storage.stat_ops``), divergence from everything known
+        to exist, and checkpoint staleness.  Pure observation: nothing is
+        mutated and no op payload is read; the math is
+        :func:`crdt_enc_tpu_torch.obs.replication.compute_status`.
+
+        ``_backlog`` is the post-ingest fast path: an ingest that just
+        folded everything its own listing found passes ``[]`` instead of
+        paying a second per-actor storage probe."""
+        from ..obs import replication
+
+        with trace.span("repl.status"):
+            d = self._data
+            if _backlog is None:
+                actors = await self.storage.list_op_actors()
+                wanted = [
+                    (a, d.next_op_versions.get(a) + 1) for a in sorted(actors)
+                ]
+                backlog = (
+                    await self.storage.stat_ops(wanted) if wanted else []
+                )
+            else:
+                backlog = _backlog
+            # sync section: clocks snapshot + compute, no await between
+            ckpt = self._checkpoint_sig
+            status = replication.compute_status(
+                self.actor_id,
+                d.next_op_versions.copy(),
+                {a: c.copy() for a, c in d.cursor_matrix.items()},
+                backlog,
+                self._remote_id(),
+                dict(ckpt[0]) if ckpt is not None else None,
+                self._checkpoint_enabled,
+            )
+            if self._membership is not None:
+                # who the watermark's denominator excludes rides with
+                # every status (absent without a policy)
+                status["membership"] = self._membership.summary()
+        self.last_replication_status = status
+        return status
+
+    async def _sample_replication(
+        self, *, _backlog: list | None = None
+    ) -> dict | None:
+        """Status → gauges (``obs.replication.sample``), the freshness
+        SLO gauges and the live telemetry server, on every open,
+        read_remote and compact.  A failed probe logs at debug and
+        samples nothing: observability never fails the run it
+        observes."""
+        from ..obs import replication
+
+        try:
+            status = await self.replication_status(_backlog=_backlog)
+        except Exception:
+            logger.debug("replication status sampling failed", exc_info=True)
+            return None
+        replication.sample(status)
+        try:
+            from ..obs import live as obs_live
+            from ..obs import slo as obs_slo
+
+            obs_slo.sample_freshness(status)
+            obs_live.publish(status)
+        except Exception:
+            logger.debug("slo/live sampling failed", exc_info=True)
+        return status
+
+    # ---------------------------------------------------------------- reads
+    def _strong(self):
+        """The stable prefix, made on first use."""
+        if self._stable is None:
+            from ..read.stable import StablePrefix
+
+            self._stable = StablePrefix(self.adapter)
+        return self._stable
+
+    async def stable_prefix(self, *, refresh: bool = True):
+        """Advance the stable prefix to the current (policy-adjusted)
+        stability watermark and return its
+        :class:`~crdt_enc_tpu_torch.read.stable.StableView`.  With
+        ``refresh`` (default) ``read_remote()`` runs first, so the
+        watermark reflects the latest published cursors;
+        ``refresh=False`` trusts current knowledge (the fold service's
+        post-cycle reads).  Monotone: the frontier never regresses
+        within an incarnation."""
+        from ..read.stable import (
+            StableView,
+            effective_watermark,
+            find_holdouts,
         )
 
-    async def contains(self, member) -> bool:
-        """Point membership lookup for set-shaped states; ``TypeError``
-        for states without a ``contains``."""
-        probe = getattr(self._data.state, "contains", None)
+        if refresh:
+            await self.read_remote()
+        prefix = self._strong()
+        wm, union, replicas, excluded = effective_watermark(
+            self, policy=self._membership
+        )
+        await prefix.advance(self, wm)
+        # sync summary section
+        lag = sum(
+            c - prefix.cursor.get(a)
+            for a, c in union.counters.items()
+            if c > prefix.cursor.get(a)
+        )
+        wm_lag = sum(c - wm.get(a, 0) for a, c in union.counters.items())
+        view = StableView(
+            cursor=prefix.cursor.copy(),
+            watermark=dict(wm),
+            lag=lag,
+            watermark_lag=wm_lag,
+            excluded=tuple(sorted(a.hex() for a in excluded)),
+            holdouts=tuple(find_holdouts(self, wm, union, replicas)),
+            wedged={a.hex(): r for a, r in sorted(prefix.wedged.items())},
+        )
+        trace.gauge("read_stable_lag", lag)
+        return view
+
+    async def read(
+        self,
+        *,
+        linearizable: bool = False,
+        max_lag: int | None = None,
+        min_cursor: VClock | None = None,
+        refresh: bool = True,
+    ) -> ReadResult:
+        """Read this replica's value.  ``linearizable=False`` (default)
+        is the eventual tier: the live state's object form, no guarantee
+        beyond CRDT convergence.  ``linearizable=True`` answers from the
+        stable prefix, a fold every replica of the denominator provably
+        holds, and refuses with
+        :class:`~crdt_enc_tpu_torch.read.StalenessError` where the
+        caller's bounds cannot be met: ``max_lag`` bounds how many
+        versions the union may be ahead of the served frontier
+        (``lag_exceeded``), ``min_cursor`` demands coverage of a target
+        clock such as the caller's own last write (``uncovered_target``).
+        No silent fallback: a caller that accepts eventual values on
+        refusal catches the error and reads with ``linearizable=False``."""
+        from ..read.stable import StalenessError
+
+        if not linearizable:
+            if max_lag is not None or min_cursor is not None:
+                # bounds are strong-read only; dropping one would hand
+                # back an eventual value the caller bounded
+                raise ValueError(
+                    "max_lag/min_cursor require linearizable=True"
+                )
+            d = self._data
+            return ReadResult(
+                obj=self.adapter.state_to_obj(d.state),
+                consistency="eventual",
+                cursor=d.next_op_versions.copy(),
+            )
+        with trace.span("read.strong"):
+            trace.add("read_strong_total", 1)
+            view = await self.stable_prefix(refresh=refresh)
+            status = {
+                "watermark": {a.hex(): c for a, c in view.watermark.items()},
+                "lag": view.lag,
+                "watermark_lag": view.watermark_lag,
+                "excluded": list(view.excluded),
+                "holdouts": list(view.holdouts),
+                "wedged": dict(view.wedged),
+            }
+            if min_cursor is not None and not view.covers(min_cursor):
+                trace.add("read_strong_refusals", 1)
+                raise StalenessError(
+                    "uncovered_target",
+                    "stable prefix does not cover the requested clock "
+                    f"(holdouts: {', '.join(view.holdouts) or 'none'}); "
+                    "await_stable() or retry later",
+                    status=status,
+                )
+            if max_lag is not None and view.lag > max_lag:
+                trace.add("read_strong_refusals", 1)
+                raise StalenessError(
+                    "lag_exceeded",
+                    f"stable prefix lags the union by {view.lag} versions "
+                    f"(> max_lag {max_lag}); holdouts: "
+                    f"{', '.join(view.holdouts) or 'none'}"
+                    + (
+                        f"; policy excluded: {', '.join(view.excluded)}"
+                        if view.excluded else ""
+                    ),
+                    status=status,
+                )
+            prefix = self._strong()
+            return ReadResult(
+                obj=self.adapter.state_to_obj(prefix.state),
+                consistency="strong",
+                cursor=view.cursor,
+                view=view,
+            )
+
+    async def contains(self, member, **kw) -> bool:
+        """Point membership lookup (eventual, or linearizable with
+        ``linearizable=True``; the keywords of :meth:`read`) for
+        set-shaped states; ``TypeError`` for states without one."""
+        state = await self._read_state(**kw)
+        probe = getattr(state, "contains", None)
         if probe is None:
             raise TypeError(
-                f"{type(self._data.state).__name__} has no membership lookup"
+                f"{type(state).__name__} has no membership lookup"
             )
         return bool(probe(member))
 
-    async def value(self):
-        """Point value lookup for value-shaped states (counters)."""
-        state = self._data.state
+    async def value(self, **kw):
+        """Point value lookup (keywords of :meth:`read`) for
+        value-shaped states (counters, registers)."""
+        state = await self._read_state(**kw)
         probe = getattr(state, "value", None)
         if probe is None:
             probe = getattr(state, "read", None)
         if probe is None:
             raise TypeError(f"{type(state).__name__} has no value()")
         return probe() if callable(probe) else probe
+
+    async def _read_state(self, *, linearizable: bool = False, **kw):
+        """The live or stable state behind the point lookups, read-only
+        by contract."""
+        if not linearizable:
+            return self._data.state
+        await self.read(linearizable=True, **kw)  # advances + enforces
+        return self._strong().state
+
+    async def await_stable(
+        self,
+        target: VClock,
+        *,
+        timeout_s: float = 30.0,
+        poll_interval_s: float = 0.05,
+        on_poll=None,
+        clock=None,
+    ):
+        """Block until the stable prefix covers ``target`` (e.g. the
+        caller's own last-write clock: read-your-writes made strong),
+        re-reading the remote each poll.  Returns the covering
+        :class:`StableView`; raises ``StalenessError`` (``timeout``) when
+        ``timeout_s`` elapses first.  ``on_poll`` and ``clock`` replace
+        the asyncio sleep and the monotonic clock for deterministic
+        replays."""
+        from ..read.stable import StalenessError
+
+        clock = clock if clock is not None else time.monotonic
+        t0 = clock()
+        trace.add("read_await_total", 1)
+        with trace.span("read.await"):
+            refresh = False  # the first pass reuses current knowledge
+            while True:
+                view = await self.stable_prefix(refresh=refresh)
+                if view.covers(target):
+                    return view
+                refresh = True
+                if clock() - t0 >= timeout_s:
+                    trace.add("read_await_timeouts", 1)
+                    raise StalenessError(
+                        "timeout",
+                        f"watermark did not cover the target within "
+                        f"{timeout_s}s; holdouts: "
+                        f"{', '.join(view.holdouts) or 'none'}",
+                        status={"holdouts": list(view.holdouts),
+                                "excluded": list(view.excluded)},
+                    )
+                if on_poll is not None:
+                    await on_poll()
+                else:
+                    await asyncio.sleep(poll_interval_s)
 
     # ----------------------------------------------------------- key rotation
     async def _install_new_key(self) -> Key:
@@ -578,13 +854,20 @@ class Core:
                 return CHECKPOINT_FMT_ORSET, obj
         return CHECKPOINT_FMT_OBJ, self.adapter.state_to_obj(state)
 
-    async def save_checkpoint(self, *, _snap: tuple | None = None) -> bool:
+    async def save_checkpoint(self, *, _packed: tuple | None = None,
+                              _snap: tuple | None = None) -> bool:
         """Seal the materialized state, the ingest cursor and the
         read-snapshot set as this replica's local warm-open checkpoint
         (sealed with the data-key cryptor, stored through the storage's
         atomic local-checkpoint slot).  A later ``open`` restores it and
         ingests only the op tails past the cursor.  Returns False when
         checkpointing is off on this core.
+
+        ``_packed`` is the fold service's pre-packed state payload,
+        ``(fmt, obj, mut_epoch)``, packed from the dense planes it holds;
+        used only while the state's epoch still equals ``mut_epoch``,
+        else the live state is packed here, so the sealed (state,
+        cursor) pair cannot tear.
 
         ``_snap`` is ``(snapshot_name, mut_epoch)`` from the compaction's
         seal: when the live state provably still equals the just-sealed
@@ -598,7 +881,16 @@ class Core:
             # first await, so a concurrent apply cannot tear the (state,
             # cursor) pair
             d = self._data
-            fmt, st = self._pack_checkpoint_state()
+            if (
+                _packed is not None
+                and _packed[2] == getattr(d.state, "_mut", None)
+            ):
+                fmt, st = _packed[0], _packed[1]
+            else:
+                fmt, st = self._pack_checkpoint_state()
+            sig = (
+                dict(d.next_op_versions.counters), frozenset(d.read_states)
+            )
             payload = {
                 b"fmt": fmt,
                 b"state": st,
@@ -615,6 +907,11 @@ class Core:
                 # the epoch proves state == sealed snapshot — its name
                 b"rd": dict(sorted(d.read_deltas.items())),
             }
+            if self._stable is not None and self._stable.cursor.counters:
+                # the stable prefix only grows, so a warm reopen resumes
+                # the exposed strong-read frontier; observational, never
+                # fingerprinted (a bad slot costs a cold rebuild)
+                payload[b"sp"] = self._stable.to_obj()
             if (
                 _snap is not None
                 and _snap[1] is not None
@@ -623,6 +920,7 @@ class Core:
                 payload[b"snap"] = _snap[0].encode()
             blob = await self._seal(payload)
             await self.storage.store_local_checkpoint(blob)
+            self._checkpoint_sig = sig  # only a durable seal counts
             trace.add("checkpoint_bytes", len(blob))
         return True
 
@@ -646,8 +944,8 @@ class Core:
         cursor is still traceable against the remote listing.  A torn
         file, a decrypt failure or any mismatch falls back to the cold
         refold with the reason recorded — a checkpoint is a cache, never a
-        source of truth.  The strong-read slot ``sp`` of a JAX-sealed
-        checkpoint is ignored."""
+        source of truth.  The strong-read slot ``sp`` restores the stable
+        prefix; a malformed one only rebuilds the prefix cold."""
         raw = await self.storage.load_local_checkpoint()
         if raw is None:
             return False
@@ -711,6 +1009,21 @@ class Core:
             d.read_states = read_states
             d.cursor_matrix = cursor_matrix
             d.read_deltas = read_deltas
+            self._checkpoint_sig = (
+                dict(cursor.counters), frozenset(read_states)
+            )
+            sp = obj.get(b"sp")
+            if sp is not None:
+                try:
+                    from ..read.stable import StablePrefix
+
+                    self._stable = StablePrefix.from_obj(self.adapter, sp)
+                except Exception:
+                    logger.debug(
+                        "checkpoint stable-prefix slot undecodable; "
+                        "strong reads rebuild cold", exc_info=True,
+                    )
+                    self._stable = None
             # delta-base continuity: when the checkpoint proves it was
             # sealed WITH the snapshot (state == snapshot, name known),
             # the next compaction keeps extending the delta chain instead
@@ -935,12 +1248,17 @@ class Core:
         self._data.next_op_versions.apply(Dot(actor, version))
 
     # ----------------------------------------------------------- read_remote
-    async def read_remote(self) -> None:
+    async def read_remote(self, *, _sample: bool = True) -> None:
         """Ingest everything new: metadata, then snapshots, then op tails
-        (consumer path, lib.rs:390-399)."""
+        (consumer path, lib.rs:390-399).  ``_sample=False`` is compact's
+        inner call: it samples once itself, after the GC."""
         await self._read_remote_meta()
         await self._read_remote_states()
         await self._read_remote_ops()
+        if _sample:
+            # the ingest folded everything its own listing found: the
+            # backlog is empty as of that listing, no second probe
+            await self._sample_replication(_backlog=[])
 
     async def _read_remote_states(self) -> None:
         with trace.span("states.list"):
@@ -1551,30 +1869,80 @@ class Core:
             groups.append((key, idxs, [middles[i] for i in idxs]))
         return kept, groups
 
+    async def load_sealed_ops(self):
+        """The fold service's ingest front end (serve/service.py): list,
+        load and outer-unwrap every op file past the local cursor,
+        grouping the ciphertexts by sealing key, WITHOUT decrypting,
+        validating, folding or advancing any cursor.  Returns ``(actors,
+        files, groups)``, ``groups`` being ``[(key, idxs, middles)]``:
+        the service opens many tenants' groups in one worker-thread hop
+        (``Cryptor.decrypt_batch_fn``), validates through
+        :meth:`_validate_chunk` and advances cursors only after its fold
+        lands — the bulk ingest's discipline.  Nothing is decrypted here,
+        so nothing counts under ``bytes_decrypted``."""
+        with trace.span("ops.list"):
+            actors = await self.storage.list_op_actors()
+        wanted = [
+            (a, self._data.next_op_versions.get(a) + 1) for a in sorted(actors)
+        ]
+        if not wanted:
+            return [], [], []
+        with trace.span("ops.load"):
+            files = await self.storage.load_ops(wanted)
+        trace.add("op_files_loaded", len(files))
+        if not files:
+            return actors, [], []
+        files, groups = self._unwrap_op_files(files)
+        return actors, files, groups
+
     # --------------------------------------------------------------- compact
     async def compact(self) -> None:
         """Fold everything, snapshot, write-new-then-delete-old
         (north-star path, lib.rs:332-380)."""
         with trace.span("compact.ingest"):
-            await self.read_remote()
+            await self.read_remote(_sample=False)
         await self._compact_seal()
 
-    async def _compact_seal(self) -> None:
-        """Snapshot the CURRENT state + cursor, write the new snapshot and
-        its delta, then collect the deltas, snapshots and op files it
-        covers."""
+    async def _compact_seal(
+        self, *, _backlog: list | None = None,
+        _packed_state: tuple | None = None,
+        _state_obj: tuple | None = None,
+        _delta_cut: dict | None = None,
+    ) -> None:
+        """The seal tail of :meth:`compact`: snapshot the CURRENT state +
+        cursor, write the new snapshot and its delta, collect the deltas,
+        snapshots and op files it covers, reseal the warm-open
+        checkpoint, sample replication and append the sink record.
+
+        The fold service installs a batch-folded state and then runs this
+        same tail, so a served tenant's remote cannot drift from a solo
+        ``compact()``.  ``_backlog`` goes to the replication sample (the
+        service passes ``[]``: its ingest folded everything its listing
+        found, so N tenants pay no N per-actor storage probes).
+        ``_packed_state`` goes to :meth:`save_checkpoint`;
+        ``_state_obj`` is ``(obj, mut_epoch)``, a snapshot object built
+        from the fold's writeback, used only while the epoch still
+        matches (the canonical packer re-sorts maps, so an equivalent
+        object seals the same bytes); ``_delta_cut`` is the service's
+        device-cut delta, checked in :meth:`_plan_delta_seal`."""
         # sync section: the snapshot/cursor/delta-plan cut comes from ONE
         # loop slice — an await here would let an ingest interleave and
         # seal a torn (state, cursor, delta) triple
         d = self._data
-        state_obj = self.adapter.state_to_obj(d.state)
+        if _state_obj is not None and _state_obj[1] == getattr(
+            d.state, "_mut", None
+        ):
+            state_obj = _state_obj[0]
+        else:
+            state_obj = self.adapter.state_to_obj(d.state)
         cursor_obj = d.next_op_versions.to_obj()
         snap_mut = getattr(d.state, "_mut", None)
         with trace.span("compact.seal"):
             # packed once: the snapshot payload and the delta plan's next
             # base share these bytes
             state_bytes = codec.pack(state_obj)
-        delta_plan = self._plan_delta_seal(state_bytes, cursor_obj)
+        delta_plan = self._plan_delta_seal(state_bytes, cursor_obj,
+                                           _cut=_delta_cut)
         # sealer id: readers attribute the cursor to this replica
         payload = snapshot_payload(state_bytes, cursor_obj, self.actor_id)
         states_to_remove = sorted(d.read_states)
@@ -1624,13 +1992,57 @@ class Core:
         # sync bookkeeping section
         d.read_states.difference_update(stale_states)
         d.read_states.add(name)
+        # what this seal depended on, at the snapshot's epoch: the fold
+        # service skips the next seal while this has not moved (a
+        # mutation landing mid-seal keeps the epochs apart)
+        self._last_seal_sig = self._seal_signature(_mut=snap_mut)
         if self._checkpoint_enabled:
             # the freshly compacted state is the ideal warm-open resume
             # point: everything folded, op logs collected to the cursor
-            await self.save_checkpoint(_snap=(name, snap_mut))
+            await self.save_checkpoint(
+                _packed=_packed_state, _snap=(name, snap_mut)
+            )
+        # replication status after the GC and the checkpoint (backlog and
+        # staleness zero by construction): it rides into the sink record
+        status = await self._sample_replication(_backlog=_backlog)
+        from ..obs import sink as obs_sink
+
+        if obs_sink.default_sink() is not None:
+            # off the event loop: json.dumps and the append of a record
+            # that may carry a full event ring must not stall ingests
+            await asyncio.to_thread(
+                obs_sink.maybe_write,
+                "compact",
+                {"gc_op_actors": len(ops_to_remove),
+                 "gc_states": len(states_to_remove)},
+                status,
+            )
 
     # --------------------------------------------------------- delta sealing
-    def _plan_delta_seal(self, state_bytes: bytes, cursor_obj):
+    @property
+    def delta_base_name(self) -> str | None:
+        """Content-addressed name of the retained diff base (the last
+        snapshot this replica sealed), or None.  The fold service matches
+        it against a warm entry's ``seal_name`` to decide whether the
+        tenant's delta can be cut on the device this cycle."""
+        base = self._delta_base
+        return base["name"] if base is not None else None
+
+    def _seal_signature(self, _mut=None) -> tuple:
+        """Everything a re-seal of the current state depends on: the op
+        cursor, the read snapshot and delta sets, and the state's
+        mutation epoch (``_mut`` overrides the live one).  Two equal
+        signatures mean ``_compact_seal`` would publish the identical
+        snapshot and GC set, so the fold service may skip it."""
+        d = self._data
+        return (
+            tuple(sorted(d.next_op_versions.counters.items())),
+            frozenset(d.read_states),
+            tuple(sorted(d.read_deltas.items())),
+            getattr(d.state, "_mut", None) if _mut is None else _mut,
+        )
+
+    def _plan_delta_seal(self, state_bytes: bytes, cursor_obj, _cut=None):
         """Sync section of the delta seal: diff the about-to-be-sealed
         state against the retained base (this replica's previous
         snapshot) and hand the await half (:meth:`_seal_delta`) an
@@ -1641,7 +2053,12 @@ class Core:
         canonical packed state — which becomes the NEXT base even when no
         delta can be cut this round (first seal, no codec, failed diff);
         ``dobj`` is None then and consumers fall back to the full snapshot
-        for this link only."""
+        for this link only.
+
+        ``_cut`` is the fold service's device-cut delta: taken as the
+        plan's delta only while its base name and mutation epoch still
+        match this replica's base and state, with the base planes kept
+        for the self-verify."""
         if not self._delta_enabled or not getattr(
             self.storage, "has_deltas", False
         ):
@@ -1663,6 +2080,29 @@ class Core:
             }
             base = self._delta_base
             if base is None:
+                return plan
+            if (
+                _cut is not None
+                and _cut.get("base_name") == base["name"]
+                and _cut.get("mut") == getattr(self._data.state, "_mut", None)
+            ):
+                # device-cut: the service compared the base and post-fold
+                # planes on the card and built the wire object from the
+                # diff rows alone; no host walk, no host base bytes
+                plan["dobj"] = _cut["dobj"]
+                plan["base_planes"] = _cut.get("base_planes")
+                plan["base_name"] = base["name"]
+                plan["base_cursor"] = base["cursor"]
+                plan["device_cut"] = True
+                trace.add("delta_device_cuts", 1)
+                return plan
+            if base["bytes"] is None:
+                # a device-cut seal dropped the bytes and this cycle's cut
+                # does not line up (warm-tier eviction, an epoch bump):
+                # one snapshot-only link re-anchors the chain and
+                # re-retains the bytes
+                trace.add("delta_cut_fallbacks", 1)
+                trace.add("delta_seal_skipped", 1)
                 return plan
             try:
                 base_state = self.adapter.state_from_obj(
@@ -1687,18 +2127,22 @@ class Core:
         plan["base_cursor"] = base["cursor"]
         return plan
 
-    def _set_delta_base(self, name: str, state_bytes: bytes,
+    def _set_delta_base(self, name: str, state_bytes: bytes | None,
                         cursor_obj) -> None:
         """Retain the just-sealed snapshot as the next diff base.
         ``state_bytes`` is a resident O(state) canonical copy per Core —
         deliberate (the alternative is re-decrypting the sealed snapshot
         every compact) but not free, so its size is published
         (``delta_base_bytes``) and the subsystem is opt-out
-        (``OpenOptions.delta``)."""
+        (``OpenOptions.delta``).  A tenant whose seal rode the device cut
+        passes None: the warm tier's planes are the base, and the next
+        cycle cuts on the card again or seals one snapshot-only link that
+        re-retains the bytes."""
         self._delta_base = {
             "name": name, "bytes": state_bytes, "cursor": cursor_obj,
         }
-        trace.gauge("delta_base_bytes", len(state_bytes))
+        trace.gauge("delta_base_bytes",
+                    0 if state_bytes is None else len(state_bytes))
 
     def _verify_delta_plan(self, plan) -> bool:
         """The refusal-to-publish guard (worker thread — the plan owns
@@ -1709,6 +2153,17 @@ class Core:
         with trace.span("delta.verify"):
             try:
                 base_state = plan["base_state"]
+                if base_state is None:
+                    # device-cut plan: rebuild the base from the plan's
+                    # base planes (canonical by the fold's output law;
+                    # zero padding reconstructs to nothing)
+                    from ..ops.columnar import orset_planes_to_state
+
+                    clock, add, rm, members, replicas = plan["base_planes"]
+                    base_state = orset_planes_to_state(
+                        _host(clock), _host(add), _host(rm), members,
+                        replicas,
+                    )
                 plan["codec"].apply(base_state, plan["dobj"])
                 return (
                     codec.pack(self.adapter.state_to_obj(base_state))
@@ -1790,7 +2245,13 @@ class Core:
                 await self.storage.remove_deltas(
                     [(self.actor_id, version - MAX_CHAIN)]
                 )
-        self._set_delta_base(name, plan["new_bytes"], plan["cursor"])
+        # a published device cut proves the warm planes ARE this
+        # snapshot: drop the host base copy
+        self._set_delta_base(
+            name,
+            None if plan.get("device_cut") else plan["new_bytes"],
+            plan["cursor"],
+        )
 
     # ------------------------------------------------- remote meta lifecycle
     async def _read_remote_meta(self, force_notify: bool = False) -> None:

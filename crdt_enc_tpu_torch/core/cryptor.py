@@ -1,7 +1,6 @@
 """Cryptor port: abstract AEAD over opaque byte blobs.
 
-The port's copy of ``crdt_enc_tpu/core/cryptor.py``, without the
-serving layer's ``decrypt_batch_fn``.
+The port's copy of ``crdt_enc_tpu/core/cryptor.py``.
 
 Mirrors the reference Cryptor trait (crdt-enc/src/cryptor.rs:11-27): key
 generation plus encrypt/decrypt, where keys and ciphertexts are VersionBytes
@@ -34,6 +33,14 @@ class Cryptor(ABC):
         loop; bulk backends override with a parallel native path (the
         decrypt front end of streaming compaction, SURVEY.md §7 step 6)."""
         return [await self.decrypt(key, b) for b in blobs]
+
+    def decrypt_batch_fn(self, key: VersionBytes):
+        """Optional sync twin of :meth:`decrypt_batch`: a plain callable
+        ``(blobs) -> clears`` bound to ``key``, or None when the cipher
+        has no sync path that releases the interpreter lock.  The fold
+        service runs many tenants' decrypts inside one worker-thread hop
+        through it.  Must open exactly what ``decrypt_batch`` opens."""
+        return None
 
     async def init(self, core) -> None: ...
 

@@ -95,6 +95,46 @@ def orset_delta_diff(base: ORSet, new: ORSet):
     }
 
 
+def orset_delta_from_rows(
+    rows, *, members, replicas, row_width, base_clock, new_clock
+):
+    """The Orswot window delta from DEVICE-CUT diff rows instead of the
+    host dict walk: ``rows`` is the ``(idx, code, add_base, add_new,
+    rm_new)`` rows of one tenant that ``ops.orset.orset_plane_diff_rows_
+    tenants`` gathers (on the host, integer arrays), ``members`` / ``replicas`` the vocabulary item
+    lists the planes are indexed by, ``row_width`` the (padded) replica
+    width the flat indices were raveled with, and the clocks the dense
+    base and new clock rows.  Emits the object :func:`orset_delta_diff`
+    would (the canonical packer sorts map keys, so insertion order never
+    reaches the sealed bytes)."""
+    from ..ops.orset import DIFF_ADD, DIFF_HORIZON, DIFF_REMOVED
+
+    idx, code, add_b, add_n, rm_n = rows
+    adds: dict = {}
+    removed: dict = {}
+    horizons: dict = {}
+    for i in range(len(idx)):
+        k = int(code[i])
+        if not k:
+            continue
+        e, r = divmod(int(idx[i]), row_width)
+        member = members[e]
+        rep = replicas[r]
+        if k & DIFF_ADD:
+            adds.setdefault(member, {})[rep] = int(add_n[i])
+        if k & DIFF_REMOVED:
+            removed.setdefault(member, {})[rep] = int(add_b[i])
+        if k & DIFF_HORIZON:
+            horizons.setdefault(member, {})[rep] = int(rm_n[i])
+    return {
+        b"bc": {replicas[r]: int(c) for r, c in enumerate(base_clock) if c},
+        b"c": {replicas[r]: int(c) for r, c in enumerate(new_clock) if c},
+        b"e": adds,
+        b"x": removed,
+        b"t": horizons,
+    }
+
+
 def orset_delta_apply(state: ORSet, obj) -> None:
     """Fold one Orswot window delta into ``state`` (module docs)."""
     bc = VClock.from_obj(obj.get(b"bc"))

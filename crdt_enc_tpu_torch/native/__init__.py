@@ -29,6 +29,7 @@ import shutil
 import subprocess
 import sysconfig
 import threading
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -102,6 +103,7 @@ def _compile(out: Path, sources=SOURCES, flags=CXX_FLAGS) -> None:
     # build their own and the last rename wins with identical bytes
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [cxx, *flags, "-o", str(tmp), *(str(HERE / s) for s in sources)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -110,6 +112,9 @@ def _compile(out: Path, sources=SOURCES, flags=CXX_FLAGS) -> None:
             f"{proc.stdout}\n{proc.stderr}"
         )
     os.replace(tmp, out)
+    from ..obs import runtime
+
+    runtime.note_build("native", time.perf_counter() - t0)
 
 
 def load() -> ctypes.CDLL:

@@ -154,6 +154,16 @@ def orset_scan_vocab(state: ORSet, members: Vocab, replicas: Vocab) -> None:
         replicas.intern(r)
 
 
+def orset_fits_int32(state: ORSet) -> bool:
+    """Whether ``state``'s counters fit the int32 planes: its clock and
+    its remove horizons (an entry's dot never passes its actor's clock).
+    O(clock + deferred), no walk of the entries."""
+    top = max(state.clock.counters.values(), default=0)
+    for dfr in state.deferred.values():
+        top = max(top, max(dfr.values(), default=0))
+    return top <= 2**31 - 1
+
+
 def orset_state_to_planes(
     state: ORSet, members: Vocab, replicas: Vocab, *, scanned: bool = False
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -594,6 +604,27 @@ def orset_pack_checkpoint_rows(
         b"da": a_perm[da].tobytes(),
         b"dc": np.asarray(dc, np.int64).tobytes(),
     }
+
+
+def orset_pack_checkpoint_planes(
+    clock: np.ndarray, add: np.ndarray, rm: np.ndarray,
+    members: Vocab, replicas: Vocab,
+) -> dict:
+    """:func:`orset_pack_checkpoint` computed from dense canonical planes
+    (the fold service holds each tenant's folded planes): ``np.nonzero``
+    yields the entry and deferred row columns in row-major, so
+    member-contiguous, order, and the one row packer
+    (:func:`orset_pack_checkpoint_rows`) builds the payload.  Planes may
+    be bucket-padded: padded cells are zero and never name an index past
+    the vocabularies."""
+    clock = np.asarray(clock)
+    add = np.asarray(add)
+    rm = np.asarray(rm)
+    es, rs = np.nonzero(add)
+    ds, qs = np.nonzero(rm)
+    return orset_pack_checkpoint_rows(
+        clock, es, rs, add[es, rs], ds, qs, rm[ds, qs], members, replicas
+    )
 
 
 def orset_unpack_checkpoint(obj) -> ORSet:

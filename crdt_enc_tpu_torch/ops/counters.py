@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..models.counters import NEG, POS
-from .orset import common_device
+from .orset import common_device, tenant_columns
 
 
 def _segment_max(seg, vals, live, n_segments: int, like):
@@ -45,6 +45,22 @@ def gcounter_fold(clock0, actor, counter, *, num_replicas: int):
     live = (actor >= 0) & (actor < R)
     clock = torch.maximum(clock0, _segment_max(actor, counter, live, R, clock0))
     return clock, clock.sum(dtype=torch.int64)
+
+
+def gcounter_fold_tenants(clock0, actor, counter, *, num_replicas: int):
+    """The multi-tenant G-Counter fold (the JAX package's
+    ``gcounter_fold_tenants``): clocks ``(T, R)``, rows ``(T, N)`` with
+    per-tenant actors (``actor == R`` pads).  One ``gcounter_fold`` over
+    ``T·R`` replicas, tenant t's replica r at ``t·R + r`` (the tenant
+    layout of ``ops.orset.tenant_columns``).  Returns the ``(T, R)``
+    clocks."""
+    T = actor.shape[0]
+    R = num_replicas
+    clock, _value = gcounter_fold(
+        clock0.reshape(T * R), tenant_columns(actor, R), counter.reshape(-1),
+        num_replicas=T * R,
+    )
+    return clock.view(T, R)
 
 
 def pncounter_fold(p0, n0, sign, actor, counter, *, num_replicas: int):

@@ -88,7 +88,11 @@ def build(names=SOURCES) -> float:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
-    return time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    from ..obs import runtime
+
+    runtime.note_build("cuda", dt, len(todo))
+    return dt
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -10,6 +10,10 @@ contracts and argument names, on torch tensors.
   legal.
 * **merge**: the Orswot clock-filter merge as pure elementwise arithmetic
   over ``(E, R)`` planes.
+* **tenant folds** (the fold service's buckets): T tenants' folds as ONE
+  fold over ``(E, T·R)`` planes, tenant t's replica r in column
+  ``t·R + r`` (``orset_fold_tenants``), and the plane diff that cuts each
+  tenant's delta on the device (``orset_plane_diff*``).
 
 Counters are int32 and always ≥ 1 for real dots, so 0 is the universal
 "absent" value.  Padding rows carry the ``actor >= R`` sentinel and drop
@@ -146,6 +150,134 @@ def orset_fold(
         return orset_fold_cuda(*args, **kw)
     _cpu_only(*args)
     return orset_fold_plain(*args, **kw)
+
+
+# ------------------------------------------------------------ tenant folds
+# T tenants' (E, R) planes fold as one (E, T·R) fold: tenant t's replica r
+# is column t·R + r, so a row's cell is member·(T·R) + t·R + actor and the
+# replay gate reads clock0[t·R + r], the tenant's own clock.  The kernel's
+# actors are int32 and its cells int64, so T·R must stay below 2^31 (at the
+# bucket caps, 2^10 tenants of at most 2^20 cells, T·R ≤ 2^30).
+TENANT_COLUMNS_MAX = 2**31 - 1
+
+
+def tenant_columns(actor, num_replicas: int):
+    """Per-tenant actors ``(T, N)`` → columns of the tenant layout,
+    flattened ``(T·N,)``: ``t·R + actor`` for a row whose actor lies in
+    ``[0, R)``, and the layout's own padding sentinel ``T·R`` for every
+    other row.  A tenant's padding row (``actor == R``) must not become
+    ``t·R + R``, which is tenant t+1's column 0."""
+    T = actor.shape[0]
+    R = num_replicas
+    if T * R > TENANT_COLUMNS_MAX:
+        raise ValueError(
+            f"{T} tenants x {R} replicas = {T * R} columns: the tenant "
+            "layout needs fewer than 2^31"
+        )
+    base = torch.arange(T, dtype=torch.int32, device=actor.device)[:, None] * R
+    live = (actor >= 0) & (actor < R)
+    sentinel = torch.full((), T * R, dtype=torch.int32, device=actor.device)
+    return torch.where(live, actor.to(torch.int32) + base, sentinel).reshape(-1)
+
+
+def tenant_planes(plane, num_tenants: int):
+    """An ``(E, T·R)`` plane of the tenant layout as ``(T, E, R)``: a view,
+    no copy (``plane.view(E, T, R).permute(1, 0, 2)``)."""
+    E = plane.shape[0]
+    return plane.view(E, num_tenants, -1).permute(1, 0, 2)
+
+
+def orset_fold_tenant_layout(clock0, add0, rm0, kind, member, actor, counter,
+                             *, num_members: int, num_replicas: int):
+    """The fold of T tenants already in the tenant layout: ``clock0``
+    ``(T·R,)``, ``add0``/``rm0`` ``(E, T·R)``, op rows ``(T, N)`` with
+    per-tenant actors (``actor == R`` pads).  ONE ``orset_fold`` over the
+    ``(E, T·R)`` planes, so one K2 launch on CUDA tensors (the plain
+    version on CPU tensors), ``retire_rm=True``.  Returns ``(clock, add,
+    rm)`` in the same layout."""
+    T = kind.shape[0]
+    return orset_fold(
+        clock0, add0, rm0, kind.reshape(-1), member.reshape(-1),
+        tenant_columns(actor, num_replicas), counter.reshape(-1),
+        num_members=num_members, num_replicas=T * num_replicas,
+    )
+
+
+def orset_fold_tenants(clock0, add0, rm0, kind, member, actor, counter, *,
+                       num_members: int, num_replicas: int):
+    """The multi-tenant fold (the JAX package's ``orset_fold_tenants``, a
+    ``vmap`` of ``orset_fold``): ``clock0 (T, R)``, ``add0``/``rm0``
+    ``(T, E, R)``, op rows ``(T, N)``.  Tenants never interact; the
+    result equals T independent ``orset_fold`` calls
+    (:func:`orset_fold_tenants_plain`).  Lays the planes out as
+    ``(E, T·R)`` and folds them with :func:`orset_fold_tenant_layout`;
+    returns ``(T, R)`` and ``(T, E, R)`` views of the folded layout."""
+    T = kind.shape[0]
+    E, R = num_members, num_replicas
+    clock, add, rm = orset_fold_tenant_layout(
+        clock0.reshape(T * R),
+        add0.permute(1, 0, 2).reshape(E, T * R),
+        rm0.permute(1, 0, 2).reshape(E, T * R),
+        kind, member, actor, counter, num_members=E, num_replicas=R,
+    )
+    return clock.view(T, R), tenant_planes(add, T), tenant_planes(rm, T)
+
+
+def orset_fold_tenants_plain(clock0, add0, rm0, kind, member, actor, counter,
+                             *, num_members: int, num_replicas: int):
+    """The plain version of :func:`orset_fold_tenants`: one
+    ``orset_fold_plain`` per tenant, stacked."""
+    outs = [
+        orset_fold_plain(clock0[t], add0[t], rm0[t], kind[t], member[t],
+                         actor[t], counter[t], num_members=num_members,
+                         num_replicas=num_replicas)
+        for t in range(kind.shape[0])
+    ]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+
+
+# Diff codes of the device-cut delta (orset_plane_diff): which map of the
+# Orswot window delta a cell feeds, the ``e`` / ``x`` / ``t`` keys of
+# delta/codec.orset_delta_diff.
+DIFF_ADD = 1  # a window dot: add_n > the base clock
+DIFF_REMOVED = 2  # a dot-exact removal: a base slot absent from new
+DIFF_HORIZON = 4  # a remove horizon raised past the base's
+
+
+def orset_plane_diff(clock_b, add_b, rm_b, clock_n, add_n, rm_n):
+    """Mark every cell the host dict walk ``orset_delta_diff`` would emit,
+    comparing a sealed BASE state's canonical planes with the post-fold
+    NEW planes over one shared vocabulary.  Returns ``(code, count)``:
+    an int8 plane of ``DIFF_*`` bits and the number of marked cells.
+    The conditions are the walk's: add ``add_n > clock_b[r]``; removed
+    ``add_b > 0 and add_n == 0``; horizon ``rm_n > rm_b and rm_n >
+    clock_n[r]``.  Elementwise, so it also runs on the tenant layout's
+    ``(E, T·R)`` planes with ``(T·R,)`` clocks."""
+    add_bit = (add_n > clock_b[None, :]).to(torch.int8) * DIFF_ADD
+    rm_bit = ((add_b > 0) & (add_n == 0)).to(torch.int8) * DIFF_REMOVED
+    hz_bit = ((rm_n > rm_b) & (rm_n > clock_n[None, :])).to(
+        torch.int8) * DIFF_HORIZON
+    code = add_bit | rm_bit | hz_bit
+    return code, (code != 0).sum(dtype=torch.int64)
+
+
+def orset_plane_diff_rows_tenants(code, add_b, add_n, rm_n, num_tenants: int,
+                                  slots):
+    """The diff rows of the tenants at ``slots`` (an ascending int64
+    tensor of slot indices) from the tenant layout's ``(E, T·R)`` planes
+    in one gather: ``(tenant, idx, code, add_b, add_n, rm_n)``, sorted by
+    tenant, ``idx`` the flat index ``e·R + r`` within the tenant's own
+    ``(E, R)`` planes.  Rows of the other slots are never gathered, so
+    the one copy to the host grows with the selected tenants' diffs
+    only; the caller splits the rows by tenant.  ``torch.nonzero`` sizes
+    the result to the marked cells."""
+    T = num_tenants
+    R = code.shape[1] // T
+    nz = torch.nonzero(tenant_planes(code, T).index_select(0, slots))
+    t, e, r = slots[nz[:, 0]], nz[:, 1], nz[:, 2]  # slot-major
+    col = t * R + r
+    return (t, e * R + r, code[e, col], add_b[e, col], add_n[e, col],
+            rm_n[e, col])
 
 
 def orset_retire(clock, rm):

@@ -26,7 +26,7 @@ device, so device memory does not grow with the stream's length.
   release the interpreter lock), with a sequencer that hands them to the
   consumer in strict chunk order, so the folded bytes do not depend on
   the pool's width.  It is copied as it is: host threading, nothing of
-  JAX.
+  JAX;
 
 Exactness: chunked ≡ whole batch under the causal-delivery contract the
 core keeps (per-actor op files apply in version order): each chunk's

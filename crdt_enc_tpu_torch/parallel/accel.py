@@ -62,6 +62,7 @@ from ..ops.columnar import (
     counter_ops_to_columns,
     dense_to_vclock,
     lww_ops_to_columns,
+    orset_fits_int32,
     orset_fold_sparse_host,
     orset_ops_to_columns,
     orset_planes_to_state,
@@ -174,8 +175,17 @@ class TorchAccelerator(HostAccelerator):
 
     def _fold_orset(self, state: ORSet, ops: list) -> ORSet:
         members, replicas = Vocab(), Vocab()
-        with trace.span("fold.columns"):
-            cols = orset_ops_to_columns(ops, members, replicas)
+        try:
+            if not orset_fits_int32(state):
+                raise OverflowError("state counters past int32")
+            with trace.span("fold.columns"):
+                cols = orset_ops_to_columns(ops, members, replicas)
+        except OverflowError:
+            # a counter past 2^31 − 1, in the batch or the state, which
+            # the int32 columns and planes cannot hold (fold_payloads
+            # declines the same): the host loop folds; nothing was mutated
+            trace.add("fold_host_past_int32", 1)
+            return super().fold_ops(state, ops)
         return self._fold_orset_columns(
             state, cols.kind, cols.member, cols.actor, cols.counter,
             members, replicas,
@@ -367,7 +377,8 @@ class TorchAccelerator(HostAccelerator):
         arithmetic to put on the device: hashing, ordering, DAG
         bookkeeping).  Returns False — with ``state`` untouched — where the
         caller must decode per op and call ``fold_ops`` instead: any other
-        state type, a payload the native decoder declines (unknown actor,
+        state type, an OR-Set whose counters pass int32, a payload the
+        native decoder declines (unknown actor,
         counter past int32, a map remove over 64 actors, a child dot that
         is not its map dot), a key or member vocabulary that collapses as
         Python values, and an LWW timestamp outside [0, 2^62).  OR-Set
@@ -386,7 +397,7 @@ class TorchAccelerator(HostAccelerator):
             return self._fold_seqlist_payloads(state, payloads)
         if isinstance(state, MerkleReg):
             return self._fold_merklereg_payloads(state, payloads)
-        if not isinstance(state, ORSet):
+        if not isinstance(state, ORSet) or not orset_fits_int32(state):
             return False
         actors_sorted = self._orset_actor_table(
             state, actors_hint, self._plane_cache_for(state))
@@ -574,6 +585,8 @@ class TorchAccelerator(HostAccelerator):
         checks it before it starts any pipeline machinery."""
         from .session import session_supported
 
+        if isinstance(state, ORSet) and not orset_fits_int32(state):
+            return False  # the session's int32 planes cannot hold it
         return session_supported(state)
 
     def open_fold_session(self, state, actors_hint=()):
@@ -582,6 +595,8 @@ class TorchAccelerator(HostAccelerator):
         core then takes its whole-batch flow."""
         from .session import open_fold_session
 
+        if not self.can_open_fold_session(state):
+            return None
         return open_fold_session(self, state, actors_hint)
 
     def fold_encrypted_stream(self, state, key: bytes, blobs: list, *,
@@ -817,7 +832,10 @@ class TorchAccelerator(HostAccelerator):
     def merge_states(self, state, others: list):
         if not others:
             return state
-        if isinstance(state, ORSet) and len(others) + 1 >= 3:
+        if (isinstance(state, ORSet) and len(others) + 1 >= 3
+                and all(map(orset_fits_int32, (state, *others)))):
+            # (a counter past int32, which the planes cannot hold, takes
+            # the host merge)
             return self._merge_orsets(state, others)
         if isinstance(state, MVReg):
             total = len(state.vals) + sum(len(o.vals) for o in others)

@@ -835,3 +835,85 @@ def test_plane_cache_finalizer_frees_the_card(dev):
     gc.collect()
     assert accel._plane_cache is None
     assert held - torch.cuda.memory_allocated() >= plane_bytes
+
+
+# ---- the fold service's tenant layout: one K2 launch per bucket -------------
+
+
+def tenant_batch(T, E, R, N, seed, *, device="cpu"):
+    """T tenants' canonical planes and op rows.  Every tenant but the last
+    carries padding rows (``actor == R``) whose counters exceed the next
+    tenant's clock, so a padding row mapped into tenant t+1's column 0
+    would show; the last two slots of T ≥ 4 are dummy slots (zero
+    planes, all padding)."""
+    rng = np.random.default_rng(seed)
+    hi = 1 << 20
+    clock0 = rng.integers(0, hi, (T, R)).astype(np.int32)
+    add0 = np.where(rng.random((T, E, R)) < 0.2,
+                    rng.integers(1, hi, (T, E, R)), 0)
+    add0 = np.minimum(add0, clock0[:, None, :])
+    rm0 = np.where(rng.random((T, E, R)) < 0.1,
+                   rng.integers(1, 2 * hi, (T, E, R)), 0)
+    add0 = np.where(add0 > rm0, add0, 0)
+    rm0 = np.where(rm0 > clock0[:, None, :], rm0, 0)
+    kind = (rng.random((T, N)) < 0.3).astype(np.int8)
+    member = rng.integers(0, E, (T, N)).astype(np.int32)
+    actor = rng.integers(0, R, (T, N)).astype(np.int32)
+    counter = rng.integers(1, 2 * hi, (T, N)).astype(np.int32)
+    pad = rng.random((T, N)) < 0.2
+    pad[-1] = False
+    actor[pad] = R
+    counter[pad] = 4 * hi
+    if T >= 4:
+        clock0[-2:] = 0
+        add0[-2:] = 0
+        rm0[-2:] = 0
+        actor[-2:] = R
+    return [torch.from_numpy(x.astype(d)).to(device) for x, d in (
+        (clock0, np.int32), (add0, np.int32), (rm0, np.int32), (kind, np.int8),
+        (member, np.int32), (actor, np.int32), (counter, np.int32))]
+
+
+def test_tenant_layout_on_cpu_tensors_launches_nothing():
+    before = dict(F.launches)
+    args = tenant_batch(5, 6, 4, 40, 1)
+    got = P.orset_fold_tenants(*args, num_members=6, num_replicas=4)
+    assert_equal(got, P.orset_fold_tenants_plain(*args, num_members=6,
+                                                 num_replicas=4))
+    assert F.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E,R,N", [
+    (1, 64, 8, 384),  # a bucket of one
+    (7, 64, 8, 384),
+    (1024, 64, 8, 384),  # the tenants cap at the serving shape
+    (16, 1024, 1024, 32768),  # the cells cap: E·R = 2^20 per tenant
+])
+def test_tenant_layout_fold_matches_plain(dev, row_path, T, E, R, N):
+    """The bucket fold (``orset_fold_tenants``: the tenants' planes side by
+    side as ``(E, T·R)``, padding at the layout's sentinel ``T·R``) is ONE
+    ``orset_fold`` launch and equals the per-tenant plain folds."""
+    cpu = tenant_batch(T, E, R, N, T + E)
+    want = P.orset_fold_tenants_plain(*cpu, num_members=E, num_replicas=R)
+    before = F.launches["orset_fold"]
+    got = P.orset_fold_tenants(*(x.to(dev) for x in cpu), num_members=E,
+                               num_replicas=R)
+    torch.cuda.synchronize()
+    assert F.launches["orset_fold"] == before + 1
+    assert_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gcounter_tenant_fold_on_the_card_matches_the_cpu(dev):
+    from crdt_enc_tpu_torch.ops.counters import gcounter_fold_tenants
+
+    rng = np.random.default_rng(4)
+    T, R, N = 256, 8, 384
+    clock0 = torch.from_numpy(rng.integers(0, 99, (T, R)).astype(np.int32))
+    actor = torch.from_numpy(rng.integers(0, R + 1, (T, N)).astype(np.int32))
+    counter = torch.from_numpy(rng.integers(1, 200, (T, N)).astype(np.int32))
+    want = gcounter_fold_tenants(clock0, actor, counter, num_replicas=R)
+    got = gcounter_fold_tenants(clock0.to(dev), actor.to(dev),
+                                counter.to(dev), num_replicas=R)
+    assert torch.equal(got.cpu(), want)

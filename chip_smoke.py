@@ -130,6 +130,27 @@ Phases:
    strong read; the quiet cycle launches, uploads and builds nothing.
    Per cycle: wall, tenant p50/p99, ops/s, launches, ``h2d_bytes``, card
    memory peak and the card's idle share (torch.profiler);
+17. the fleet daemon: (a) a ``FleetDaemon`` over phase 16's fleets (a) and
+   (b) in two byte-identical copies, one of ``TorchAccelerator`` tenants
+   and one of ``HostAccelerator`` tenants (whose buckets fold with the
+   plain versions on the host), batch 256 and ``seal_empty=False``; 16
+   plain OR-Set tenants refuse their op listing for six cycles, back off,
+   park in the quarantine ring and return once healed.  It cycles until
+   every other tenant with ops has sealed, appends phase 16's 10% tails,
+   cycles until the backlog is zero and through one quiet cycle, then
+   drains.  Each cycle: both copies schedule, poll, back off and
+   quarantine the same tenants and seal the same bytes; K2 launches once
+   per OR-Set bucket the planner made plus once per solo spill, K4 once
+   per snapshot tenant's first compaction; nothing builds after cycle 1.
+   After the drain every tenant reopens warm with equal bytes, and
+   ``/healthz`` of the card daemon's live server shows the quarantine and
+   the recovery.  Per cycle: wall, tenants compacted and polled, ops
+   folded, tenant p50/p99, K2/K4 launches, ``h2d_bytes``, the card's idle
+   share and the daemon's gauges; the drain's wall.  (b) ``python -m
+   crdt_enc_tpu_torch.tools.daemon run`` in process over 8 encrypted
+   FsStorage tenants at fleet (a)'s shape (3 cycles, a live endpoint on an
+   ephemeral port): exit 0, K2 launched, each tenant reopened warm and
+   equal to a host-loop ``compact()`` of a copy of its remote;
 then the kernels line and the result line.  Phase 5 also times the merge
 at the compaction's own shape (S = 9, E = 4,096, R = 5,000) against its
 plain version, and phases 5 and 9 give the merge and K3's shape their
@@ -240,6 +261,25 @@ FLEET_GC, FLEET_BIG, FLEET_BIG_N = FLEET_T // 8, 8, 40_000
 FLEET_DECLINE, FLEET_EMPTY, FLEET_SNAP, FLEET_SNAPSHOTS = 8, 16, 16, 3
 CAP_T, CAP_E, CAP_R, CAP_N = 16, 1024, 1024, 32_768
 SERVE_TAIL_PCT, SERVE_SEED, SERVE_STRONG = 10, 23, 8
+# phase 17: the fleet daemon over phase 16's fleets (a) and (b) in two
+# byte-identical copies (the card's and the host reference's), with
+# DAEMON_FLAKY plain OR-Set tenants whose op listing fails for the first
+# DAEMON_OUTAGE cycles.  The default DaemonConfig (batch 256,
+# seal_empty=False) but for the quarantine ring: a tenant parks after 3
+# failures and one parked tenant is re-probed every cycle (the default
+# ring re-probes one tenant every 16 cycles, so 16 tenants parked in one
+# cycle would take 256 cycles to return), and the admission gate's
+# per-tenant estimate, which is the fleet's mean plane bytes (the default
+# estimate, 1 MiB a tenant, admits 256 tenants under the warm tier's
+# 256 MiB).  The entry point runs CLI_T FsStorage tenants at fleet (a)'s
+# shape for CLI_CYCLES cycles.  Once the daemon settles, every
+# DAEMON_SOLO_EVERY-th tenant, every tenant of a special class and every
+# flaky tenant of the card's copy is held against a host-loop compact()
+# of a copy of its remote, independent of the service and the daemon.
+DAEMON_FLAKY, DAEMON_OUTAGE, DAEMON_MAX_CYCLES = 16, 6, 40
+DAEMON_SOLO_EVERY = 8
+DAEMON_QUARANTINE_AFTER, DAEMON_PROBE_EVERY = 3, 1
+CLI_T, CLI_CYCLES, CLI_SEED = 8, 3, 29
 
 # peak device-memory rates (NVIDIA data sheets); float32 outside the
 # tensor cores is the table's nearest rate for the kernels' int32 ALU work
@@ -1269,7 +1309,8 @@ def compaction_options(root, local: str, remote, accel, **kw):
         storage=FsStorage(os.path.join(root, local), str(remote)),
         cryptor=XChaChaCryptor(), key_cryptor=PlainKeyCryptor(),
         adapter=orset_adapter(), supported_data_versions=(version,),
-        current_data_version=version, create=True, accelerator=accel, **kw,
+        current_data_version=version, accelerator=accel,
+        **{"create": True, **kw},
     )
 
 
@@ -3634,6 +3675,485 @@ async def strong_reads(service, served, solo_host, strong) -> int:
     return len(strong)
 
 
+# ---- the fleet daemon (phase 17) -------------------------------------------
+
+
+def flaky_storage_class():
+    """An in-memory storage whose op listing fails while ``broken``: the
+    storage outage the daemon's backoff and quarantine exist for."""
+    from crdt_enc_tpu_torch import MemoryStorage
+
+    class FlakyStorage(MemoryStorage):
+        broken = False
+
+        async def list_op_actors(self):
+            if self.broken:
+                raise OSError("injected outage")
+            return await super().list_op_actors()
+
+    return FlakyStorage
+
+
+def daemon_open(remotes: list, kinds: list, accel, flaky: set) -> tuple:
+    """One open ``Core`` per tenant remote (``kinds``: "orset" or
+    "gcounter"; the tenants in ``flaky`` behind
+    :func:`flaky_storage_class`): ``(cores, storages)``."""
+    from crdt_enc_tpu_torch import (
+        Core,
+        MemoryStorage,
+        gcounter_adapter,
+        orset_adapter,
+    )
+
+    flaky_cls = flaky_storage_class()
+
+    async def go():
+        cores, stores = [], []
+        for t, (remote, kind) in enumerate(zip(remotes, kinds)):
+            adapter = orset_adapter() if kind == "orset" else \
+                gcounter_adapter()
+            store = (flaky_cls if t in flaky else MemoryStorage)(remote)
+            cores.append(await Core.open(catalogue_options(store, adapter,
+                                                           accel)))
+            stores.append(store)
+        return cores, stores
+
+    return run_async(go())
+
+
+def capture_service(daemon) -> list:
+    """Record every ``FoldService.run_cycle`` the daemon makes: a list of
+    result lists, appended per service cycle."""
+    got = []
+    real = daemon.service.run_cycle
+
+    async def run_cycle(tenants=None):
+        results = await real(tenants)
+        got.append(results)
+        return results
+
+    daemon.service.run_cycle = run_cycle
+    return got
+
+
+def fleet_plane_bytes() -> list:
+    """Each tenant's int32 planes (clock, add, rm) at its full width."""
+    n_a = FLEET_T - FLEET_EMPTY
+    return [4 * (FLEET_R + 2 * FLEET_E * FLEET_R)] * n_a + [0] * FLEET_EMPTY \
+        + [4 * (CAP_R + 2 * CAP_E * CAP_R)] * CAP_T
+
+
+def daemon_cfg():
+    from crdt_enc_tpu_torch.serve import DaemonConfig
+
+    planes = fleet_plane_bytes()
+    return DaemonConfig(quarantine_after=DAEMON_QUARANTINE_AFTER,
+                        quarantine_probe_every=DAEMON_PROBE_EVERY,
+                        tenant_cost_bytes=-(-sum(planes) // len(planes)))
+
+
+def outcomes(report: dict) -> dict:
+    """tid -> outcome, the fold path left out (a spilled tenant folds
+    ``solo`` on the card and ``perop`` on the host reference)."""
+    return {tid: ("sealed" if r["outcome"] == "sealed" else
+                  "error" if r["outcome"] == "error" else
+                  "polled" if r["outcome"] == "polled" else "visited")
+            for tid, r in report["results"].items()}
+
+
+def daemon_entries(daemon) -> list:
+    return [(tid, e.state, e.failures, e.eligible_at, e.last_sealed,
+             e.quarantined_at) for tid in daemon.tenant_ids
+            for e in [daemon.entry(tid)]]
+
+
+def healthz_daemon(port: int) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                timeout=10) as resp:
+        return json.loads(resp.read())["daemon"]
+
+
+def phase_daemon(device: str) -> dict:
+    """Phase 17a: a ``FleetDaemon`` over the card's copy of phase 16's
+    fleet and one over the host reference's copy, cycle by cycle: the
+    same schedule, the same bytes, K2 once per planned OR-Set bucket and
+    solo spill, K4 once per snapshot tenant's first compaction; a sample
+    of the card's tenants equal to host-loop ``compact()`` of copies of
+    their remotes once the daemon settles."""
+    from crdt_enc_tpu_torch import (
+        Core,
+        HostAccelerator,
+        MemoryStorage,
+        TorchAccelerator,
+        canonical_bytes,
+        gcounter_adapter,
+        orset_adapter,
+    )
+    from crdt_enc_tpu_torch.obs import runtime as obs_runtime
+    from crdt_enc_tpu_torch.ops import orset as P
+    from crdt_enc_tpu_torch.serve import FleetDaemon
+    from crdt_enc_tpu_torch.serve import service as service_mod
+    from crdt_enc_tpu_torch.serve.daemon import ACTIVE
+    from crdt_enc_tpu_torch.utils import trace
+
+    cfg = daemon_cfg()
+    out: dict = {"config": {
+        "batch": cfg.batch, "seal_empty": cfg.serve.seal_empty,
+        "quarantine_after": cfg.quarantine_after,
+        "quarantine_probe_every": cfg.quarantine_probe_every,
+        "tenant_cost_bytes": cfg.tenant_cost_bytes,
+        "flaky": DAEMON_FLAKY, "outage_cycles": DAEMON_OUTAGE}}
+    t0 = time.perf_counter()
+    spec = serve_fleet_spec()
+    remotes, tails = run_async(seal_fleet(spec))
+    labels = [s[0] for s in spec]
+    orset_plain = [i for i, l in enumerate(labels) if l == "orset"]
+    flaky = set(orset_plain[-DAEMON_FLAKY:])
+    with_ops = {i for i, (_, _, files, _) in enumerate(spec) if files}
+    snapshot_tenants = {i for i, l in enumerate(labels) if l == "snapshots"}
+    kinds = [kind for _, kind, _, _ in spec]
+    ops_per = [sum(len(f[2]) for f in files) for _, _, files, _ in spec]
+    del spec
+    copies = {arm: [copy_memory_remote(r) for r in remotes]
+              for arm in ("card", "host")}
+    sample = sorted({i for i in range(len(labels))
+                     if i % DAEMON_SOLO_EVERY == 0}
+                    | {i for i, l in enumerate(labels)
+                       if l not in ("orset", "gcounter")} | flaky)
+    solo = {i: copy_memory_remote(remotes[i]) for i in sample}
+    del remotes
+    accels = {"card": TorchAccelerator(device), "host": HostAccelerator()}
+    fleet = {arm: daemon_open(copies[arm], kinds, accels[arm], flaky)
+             for arm in ("card", "host")}
+    print(f"  {len(labels)} tenants x 2 copies opened in "
+          f"{time.perf_counter() - t0:.1f} s ({sum(ops_per)} ops; flaky "
+          f"tenants {sorted(flaky)[:3]}...)", flush=True)
+    gc.collect()
+    daemons = {"card": FleetDaemon(fleet["card"][0], daemon_cfg(),
+                                   live_port=0),
+               "host": FleetDaemon(fleet["host"][0], daemon_cfg())}
+    served = capture_service(daemons["card"])
+    live_port = daemons["card"].service.live.port
+    tid_index = {f"t{i}": i for i in range(len(labels))}
+
+    layout_calls = [0]
+    real_layout = P.orset_fold_tenant_layout
+    plans = []
+    real_plan = service_mod.plan_buckets
+
+    def counting_layout(*args, **kw):
+        layout_calls[0] += 1
+        return real_layout(*args, **kw)
+
+    def recording_plan(*args, **kw):
+        plan = real_plan(*args, **kw)
+        plans.append(plan)
+        return plan
+
+    def set_broken(flag: bool) -> None:
+        for arm in fleet:
+            for t in flaky:
+                fleet[arm][1][t].broken = flag
+
+    P.orset_fold_tenant_layout = counting_layout
+    service_mod.plan_buckets = recording_plan
+    cycles = []
+    compacted_once: set = set()
+    health_quarantined = None
+    tails_added_at = quiet_cycle = None
+    set_broken(True)
+    try:
+        for cycle in range(1, DAEMON_MAX_CYCLES + 1):
+            if cycle == DAEMON_OUTAGE + 1:
+                set_broken(False)
+            # -- the card's cycle: counts from 0 just before, read just after
+            reset_launches()
+            layout_calls[0] = 0
+            plans.clear()
+            served.clear()
+            trace.reset()
+            builds0 = obs_runtime.build_count()
+            report, wall, busy = profiled(
+                lambda: run_async(daemons["card"].run_cycle()), device)
+            launches = read_launches()
+            snap = trace.snapshot()
+            card_plans = list(plans)
+            card_layout = layout_calls[0]
+            results = [r for rs in served for r in rs]
+            # -- the host reference's cycle
+            t_host = time.perf_counter()
+            host_report = run_async(daemons["host"].run_cycle())
+            host_wall = time.perf_counter() - t_host
+            builds = obs_runtime.build_count() - builds0
+            # -- the same schedule, the same bytes
+            if host_report["selected"] != report["selected"] or \
+                    outcomes(host_report) != outcomes(report):
+                raise AssertionError(f"daemon cycle {cycle}: the card and the "
+                                     "host reference scheduled differently")
+            if daemon_entries(daemons["card"]) != daemon_entries(daemons["host"]):
+                raise AssertionError(f"daemon cycle {cycle}: tenant entries "
+                                     "differ between the copies")
+            sealed = [tid for tid, r in report["results"].items()
+                      if r["outcome"] == "sealed"]
+            for tid in sealed:
+                i = tid_index[tid]
+                if fleet["card"][0][i].with_state(canonical_bytes) != \
+                        fleet["host"][0][i].with_state(canonical_bytes):
+                    raise AssertionError(f"daemon cycle {cycle}: tenant {tid} "
+                                         f"({labels[i]}) differs from the host "
+                                         "reference")
+            # -- K2 once per planned OR-Set bucket and solo spill, K4 once
+            # per snapshot tenant's first compaction
+            orset_buckets = sum(b.kind == "orset" for bs, _ in card_plans
+                                for b in bs)
+            spills = sum(len(solo) for _, solo in card_plans)
+            first = {tid_index[tid] for tid, r in report["results"].items()
+                     if r["outcome"] not in ("polled", "error")} - compacted_once
+            compacted_once |= first
+            want_k4 = len(first & snapshot_tenants)
+            if card_layout != orset_buckets:
+                raise AssertionError(f"daemon cycle {cycle}: {card_layout} "
+                                     f"bucket folds for {orset_buckets} OR-Set "
+                                     "buckets")
+            if device == "cuda":
+                if launches["orset_fold"] != orset_buckets + spills:
+                    raise AssertionError(
+                        f"daemon cycle {cycle}: {launches['orset_fold']} "
+                        f"orset_fold launches, expected {orset_buckets} "
+                        f"buckets + {spills} solo spills")
+                if launches["orset_merge_many"] != want_k4:
+                    raise AssertionError(
+                        f"daemon cycle {cycle}: {launches['orset_merge_many']} "
+                        f"K4 launches, expected {want_k4} snapshot tenants")
+            if cycle > 1 and builds:
+                raise AssertionError(f"daemon cycle {cycle} built {builds} "
+                                     "libraries")
+            h = daemons["card"].health()
+            n = serve_numbers(wall, busy, sum(r.rows for r in results),
+                              [r.latency_s for r in results if r.sealed],
+                              snap, launches, None)
+            n.update({
+                "cycle": cycle,
+                "host_wall_s": host_wall,
+                "compacted": len(report["selected"]),
+                "polled": sum(r["outcome"] == "polled"
+                              for r in report["results"].values()),
+                "sealed": len(sealed),
+                "errors": sum(r["outcome"] == "error"
+                              for r in report["results"].values()),
+                "orset_buckets": orset_buckets, "solo_spills": spills,
+                "k4_expected": want_k4, "builds": builds,
+                "states": report["states"],
+                "gauges": {k: v for k, v in snap["gauges"].items()
+                           if k.startswith("daemon_")},
+                "counters": {k: v for k, v in snap["counters"].items()
+                             if k.startswith("daemon_")},
+                "spans_s": {k: round(v["seconds"], 4) for k, v in
+                            snap["spans"].items() if k.startswith("daemon.")},
+            })
+            cycles.append(n)
+            idle = ("not measured" if n["idle_share"] is None
+                    else f"{100 * n['idle_share']:.2f}%")
+            p50 = "-" if n["p50_ms"] is None else f"{n['p50_ms']:.1f}"
+            p99 = "-" if n["p99_ms"] is None else f"{n['p99_ms']:.1f}"
+            print(f"  cycle {cycle}: wall {wall:.3f} s (host reference "
+                  f"{host_wall:.3f} s), compacted {n['compacted']}, polled "
+                  f"{n['polled']}, sealed {n['sealed']}, errors {n['errors']}, "
+                  f"{n['ops']} ops folded, tenant p50 {p50} ms p99 {p99} ms, "
+                  f"K2 {launches['orset_fold']} ({orset_buckets} buckets + "
+                  f"{spills} spills), K4 {launches['orset_merge_many']}, h2d "
+                  f"{n['h2d_bytes']} B, card idle {idle}, states "
+                  f"{report['states']}, gauges {n['gauges']}", flush=True)
+            if h["quarantined"] == DAEMON_FLAKY and health_quarantined is None:
+                health_quarantined = healthz_daemon(live_port)
+                print(f"    /healthz daemon section: {health_quarantined}",
+                      flush=True)
+            if cycle == quiet_cycle:
+                if n["ops"] or launches["orset_fold"] or \
+                        launches["orset_merge_many"]:
+                    raise AssertionError("the quiet daemon cycle folded or "
+                                         "launched")
+                break
+            entries = [daemons["card"].entry(f"t{i}")
+                       for i in range(len(labels))]
+            if tails_added_at is None:
+                if all(entries[i].last_sealed >= 0 for i in with_ops - flaky):
+                    async def add_tails():
+                        for arm in copies.values():
+                            for i, t in enumerate(tails):
+                                store = MemoryStorage(arm[i])
+                                for ab, v, blob in t:
+                                    await store.store_ops(ab, v, blob)
+                    run_async(add_tails())
+                    tails_added_at = cycle
+                    print(f"    every tenant with ops but the flaky ones has "
+                          f"sealed: 10% tails appended after cycle {cycle}",
+                          flush=True)
+            elif all(e.state == ACTIVE for e in entries) and all(
+                    entries[i].last_sealed > tails_added_at for i in with_ops) \
+                    and not any(
+                        (c.last_replication_status or {}).get(
+                            "backlog", {}).get("files", 1)
+                        for c in fleet["card"][0]):
+                quiet_cycle = cycle + 1  # the backlog is zero: one quiet cycle
+        else:
+            raise AssertionError(f"the daemon did not settle within "
+                                 f"{DAEMON_MAX_CYCLES} cycles")
+        if health_quarantined is None:
+            raise AssertionError("the flaky tenants were never all quarantined")
+        health_recovered = healthz_daemon(live_port)
+        print(f"    /healthz daemon section before the drain: "
+              f"{health_recovered}", flush=True)
+        if health_recovered["quarantined"] or health_recovered["active"] != \
+                len(labels):
+            raise AssertionError("the quarantined tenants did not recover")
+        for i, (a, b) in enumerate(zip(fleet["card"][0], fleet["host"][0])):
+            if a.with_state(canonical_bytes) != b.with_state(canonical_bytes):
+                raise AssertionError(f"tenant {i} ({labels[i]}) differs from "
+                                     "the host reference after the daemon run")
+
+        async def solo_check():
+            # the tails land in the solo copies too; a fresh host-loop
+            # replica then compacts each one, with no service or daemon
+            t_s = time.perf_counter()
+            for i in sample:
+                store = MemoryStorage(solo[i])
+                for ab, v, blob in tails[i]:
+                    await store.store_ops(ab, v, blob)
+                adapter = orset_adapter() if kinds[i] == "orset" else \
+                    gcounter_adapter()
+                ref = await Core.open(catalogue_options(store, adapter,
+                                                        HostAccelerator()))
+                await ref.compact()
+                if ref.with_state(canonical_bytes) != \
+                        fleet["card"][0][i].with_state(canonical_bytes):
+                    raise AssertionError(
+                        f"tenant {i} ({labels[i]}) differs from a host-loop "
+                        "compact() of a copy of its remote")
+            return time.perf_counter() - t_s
+
+        solo_wall = run_async(solo_check())
+        print(f"  {len(sample)} tenants of the card's copy (every "
+              f"{DAEMON_SOLO_EVERY}th, every special class, every flaky one) "
+              f"equal to a host-loop compact() of a copy of their remotes "
+              f"({solo_wall:.1f} s)", flush=True)
+        t_drain = time.perf_counter()
+        errs = run_async(daemons["card"].drain())
+        drain_wall = time.perf_counter() - t_drain
+        errs_host = run_async(daemons["host"].drain())
+        if errs or errs_host:
+            raise AssertionError(f"drain checkpoint failures: {errs} {errs_host}")
+        print(f"  drain: {drain_wall:.3f} s ({len(labels)} checkpoints)",
+              flush=True)
+
+        async def reopen_all():
+            t_r = time.perf_counter()
+            for i, (core, store) in enumerate(zip(*fleet["card"])):
+                again = await Core.open(catalogue_options(
+                    store, core.adapter, accels["card"]))
+                if not again.opened_from_checkpoint or again.with_state(
+                        canonical_bytes) != core.with_state(canonical_bytes):
+                    raise AssertionError(
+                        f"tenant {i} ({labels[i]}): the warm reopen after the "
+                        f"drain differs ({again.checkpoint_fallback_reason})")
+            return time.perf_counter() - t_r
+
+        reopen_wall = run_async(reopen_all())
+        print(f"  {len(labels)} tenants reopened warm from the drain's "
+              f"checkpoints in {reopen_wall:.1f} s, bytes equal", flush=True)
+    finally:
+        P.orset_fold_tenant_layout = real_layout
+        service_mod.plan_buckets = real_plan
+        for d in daemons.values():
+            if d.state != "drained":
+                d.service.close()
+    out.update({
+        "tenants": len(labels), "cycles": cycles,
+        "tails_after_cycle": tails_added_at, "quiet_cycle": quiet_cycle,
+        "healthz_quarantined": health_quarantined,
+        "healthz_recovered": health_recovered,
+        "solo_checked": len(sample), "solo_check_s": solo_wall,
+        "drain_s": drain_wall, "reopen_warm_s": reopen_wall,
+        "launches": {k: sum(c["launches"][k] for c in cycles)
+                     for k in KERNELS},
+    })
+    return out
+
+
+def phase_daemon_cli(device: str, root: str) -> dict:
+    """Phase 17b: ``python -m crdt_enc_tpu_torch.tools.daemon run`` in
+    process over CLI_T encrypted FsStorage tenants at fleet (a)'s shape,
+    each then reopened warm by a host-loop core and equal to a host-loop
+    ``compact()`` of a copy of its remote."""
+    import asyncio
+
+    from crdt_enc_tpu_torch import Core, FsStorage, HostAccelerator, \
+        canonical_bytes
+    from crdt_enc_tpu_torch.tools import daemon as daemon_cli
+
+    base = os.path.join(root, "daemon_cli")
+    actors = actor_ids(FLEET_R)
+    t0 = time.perf_counter()
+
+    async def write():
+        for t in range(CLI_T):
+            remote = os.path.join(base, f"r{t}")
+            writer = await Core.open(compaction_options(
+                base, f"w{t}", remote, HostAccelerator()))
+            files = serve_orset_files(FLEET_N, FLEET_R, FLEET_E,
+                                      CLI_SEED * 100 + t, actors)
+            blobs = await asyncio.gather(*(writer._seal(ops)
+                                           for *_, ops in files))
+            store = FsStorage(os.path.join(base, f"w{t}"), remote)
+            await asyncio.gather(*(store.store_ops(ab, v, blob) for
+                                   (ab, v, _), blob in zip(files, blobs)))
+            shutil.copytree(remote, os.path.join(base, f"h{t}"))
+
+    run_async(write())
+    print(f"  {CLI_T} FsStorage tenants written under {base} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    argv = ["run", "--device", device, "--cycles", str(CLI_CYCLES),
+            "--port", "0", "--interval", "0"]
+    for t in range(CLI_T):
+        argv += ["--tenant",
+                 f"{os.path.join(base, f'l{t}')}={os.path.join(base, f'r{t}')}"]
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = daemon_cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"  tools.daemon run: exit {rc} in {wall:.2f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if rc != 0:
+        raise AssertionError(f"tools.daemon run exited {rc}")
+    if device == "cuda" and launches["orset_fold"] < 1:
+        raise AssertionError("tools.daemon run launched no orset_fold")
+
+    async def check():
+        for t in range(CLI_T):
+            served = await Core.open(compaction_options(
+                base, f"l{t}", os.path.join(base, f"r{t}"), HostAccelerator(),
+                create=False))
+            host = await Core.open(compaction_options(
+                base, f"hl{t}", os.path.join(base, f"h{t}"),
+                HostAccelerator()))
+            await host.compact()
+            if not served.opened_from_checkpoint:
+                raise AssertionError(f"CLI tenant {t} did not reopen warm")
+            if served.with_state(canonical_bytes) != host.with_state(
+                    canonical_bytes):
+                raise AssertionError(f"CLI tenant {t} differs from the host "
+                                     "loop's compact()")
+
+    run_async(check())
+    print(f"  {CLI_T} tenants reopened warm, each equal to a host-loop "
+          "compact() of a copy", flush=True)
+    return {"tenants": CLI_T, "cycles": CLI_CYCLES, "exit": rc,
+            "wall_s": wall, "launches": launches}
+
+
 # name -> (source, file:line of the TPU kernel's pallas_call, the Pallas
 # functions it stands for).  Both OR-Set entries run the bucketed kernels
 # of csrc/orset_fold.cu and differ in the range kernel's epilogue; K3
@@ -3764,7 +4284,7 @@ def main() -> int:
 
 def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
                       name, t_start) -> int:
-    """Phases 10 to 16 and the closing lines.  Phase 10's compaction remote
+    """Phases 10 to 17 and the closing lines.  Phase 10's compaction remote
     lives under ``root`` until phase 14 has compacted it twice more."""
     import torch
 
@@ -3841,6 +4361,17 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     print(device_line(), flush=True)
     serve = phase_serve("cuda", memory_rate(name))
     errs["orset_fold"] = max(errs["orset_fold"], serve["max_abs_err"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"== 17. the fleet daemon (FleetDaemon over phase 16's {FLEET_T} + "
+          f"{CAP_T} tenants, the card's copy and the host reference's; "
+          f"{DAEMON_FLAKY} tenants down for {DAEMON_OUTAGE} cycles; then "
+          f"tools.daemon run over {CLI_T} FsStorage tenants)", flush=True)
+    print(device_line(), flush=True)
+    daemon = phase_daemon("cuda")
+    gc.collect()
+    daemon["cli"] = phase_daemon_cli("cuda", root)
 
     kernels = []
     for kname, (source, replaces, pallas) in KERNELS.items():
@@ -3886,6 +4417,10 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
         entry["serve_launches"] = {
             f"cycle{c}": serve[f"cycle{c}"]["launches"][kname]
             for c in (1, 2, 3)}
+        entry["daemon_launches"] = {
+            "fleet": daemon["launches"][kname],
+            "per_cycle": [c["launches"][kname] for c in daemon["cycles"]],
+            "cli": daemon["cli"]["launches"][kname]}
         if kname == "orset_fold":
             entry["serving"] = {
                 "route": "tenant layout: (E_b, T*R_b) planes, padding at "
@@ -3903,6 +4438,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
         "plane_cache_compaction": cache_compaction}}), flush=True)
     print(json.dumps({"catalogue": catalogue}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
+    print(json.dumps({"daemon": daemon}), flush=True)
     print(device_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ hand-written CUDA kernel for Hopper (``csrc/``), built on first use.
 The port covers the compaction front end: ``Core`` (open, apply_ops,
 read_remote, compact, and the local fold checkpoint that lets a
 replica reopen warm) over the ``FsStorage`` / ``MemoryStorage``,
-``XChaChaCryptor`` and ``PlainKeyCryptor`` plugins, with the native
+``XChaChaCryptor``, ``IdentityCryptor``, ``PlainKeyCryptor``,
+``PassphraseKeyCryptor`` and ``GpgKeyCryptor`` plugins, with the native
 decrypt and payload decode and the native state assembly and canonical
 packer (``native/``), and the accelerator boundary ``Core`` uses:
 ``TorchAccelerator.fold_ops`` and ``fold_payloads`` for OR-Set (the
@@ -17,8 +18,10 @@ sparse regime included), G-/PN-Counter (and, per op, LWW-map) batches,
 registers on the device, the G-Set, sequence list and Merkle register on
 the host), and ``TorchAccelerator.merge_states`` for OR-Sets and
 multi-value registers; strong reads (``Core.read(linearizable=True)``)
-and replication sampling; and the multi-tenant ``FoldService``, which
-compacts a fleet of small remotes in one K2 launch per bucket.
+and replication sampling; the multi-tenant ``FoldService``, which
+compacts a fleet of small remotes in one K2 launch per bucket; and the
+``FleetDaemon`` that runs it as a supervised process
+(``python -m crdt_enc_tpu_torch.tools.daemon run``).
 Importing the package
 loads torch and numpy only when a name below is first touched (PEP 562),
 so ``import crdt_enc_tpu_torch`` stays cheap and never needs a GPU.
@@ -36,6 +39,9 @@ _EXPORTS = {
     "MemoryStorage": ".backends.memory",
     "XChaChaCryptor": ".backends.xchacha",
     "PlainKeyCryptor": ".backends.plain_keys",
+    "IdentityCryptor": ".backends.identity_crypto",
+    "PassphraseKeyCryptor": ".backends.passphrase_keys",
+    "GpgKeyCryptor": ".backends.gpg_keys",
     "orset_adapter": ".core.adapters",
     "gcounter_adapter": ".core.adapters",
     "pncounter_adapter": ".core.adapters",
@@ -67,6 +73,8 @@ _EXPORTS = {
     "canonical_bytes": ".models.base",
     "FoldService": ".serve.service",
     "ServeConfig": ".serve.service",
+    "FleetDaemon": ".serve.daemon",
+    "DaemonConfig": ".serve.daemon",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -5,8 +5,8 @@ Structurally the reference's gpgme backend (crdt-enc-gpgme/src/lib.rs:34-129)
 — own remote-meta MVReg, decode-on-notify, encode-and-persist on set_keys —
 with identity key protection, which is exactly what the reference's WIP
 backend does too (its PGP calls are commented out, lib.rs:95-98, 118-121).
-The JAX package's protect/unprotect hooks and its trust fixpoint serve its
-asymmetric backends, which the port does not copy.
+A backend that really protects the blob overrides the two transforms
+(``passphrase_keys``, ``gpg_keys``).
 """
 
 from __future__ import annotations
@@ -21,6 +21,16 @@ from ..utils.versions import KEYS_META_VERSION_1, SUPPORTED_KEYS_META_VERSIONS
 
 
 class PlainKeyCryptor(KeyCryptor):
+    # Subclasses that really protect the blob stamp their own meta version so
+    # a reader with the wrong backend fails the version check, not the parse.
+    META_VERSION = KEYS_META_VERSION_1
+    SUPPORTED_META_VERSIONS = SUPPORTED_KEYS_META_VERSIONS
+    # Exception types from _unprotect that skip just that register value
+    # (some backends cannot open every concurrent value, e.g. a blob
+    # sealed to a recipient set this replica is not in); an entirely
+    # unreadable register still raises.
+    DECODE_TOLERATES: tuple = ()
+
     def __init__(self):
         self._reg = MVReg()
         self._core = None
@@ -28,13 +38,41 @@ class PlainKeyCryptor(KeyCryptor):
     async def init(self, core) -> None:
         self._core = core
 
+    async def _protect(self, raw: bytes) -> bytes:
+        """Hook: encrypt the serialized Keys blob (identity here)."""
+        return raw
+
+    async def _unprotect(self, vb) -> bytes:
+        """Hook: decrypt a Keys blob (identity here)."""
+        return vb.content
+
+    def _trust_epoch(self):
+        """Hook: a value that changes whenever ``_unprotect`` learns to open
+        blobs it previously could not (e.g. a grown recipient roster).
+        Backends with monotone trust growth return something comparable so
+        ``set_remote_meta`` can re-decode to a fixpoint; the identity
+        backend's trust never changes."""
+        return None
+
     async def set_remote_meta(self, reg: MVReg) -> None:
         """Converged key metadata arrived: fold into our register, decode the
-        Keys CRDT, install on the core (gpgme lib.rs:79-105)."""
+        Keys CRDT, install on the core (gpgme lib.rs:79-105).
+
+        Decoding runs to a trust fixpoint: one register value's roster may
+        introduce the identity that signed ANOTHER concurrent value, and
+        MVReg iteration order is arbitrary — a single pass would
+        tolerate-skip the not-yet-trusted value and silently drop its key
+        material.  Trust growth is monotone, so re-running the decode
+        whenever a pass grew trust terminates."""
         self._reg.merge(reg)
-        keys = decode_version_bytes_mvreg(
-            self._reg, SUPPORTED_KEYS_META_VERSIONS, Keys
-        )
+        while True:
+            epoch = self._trust_epoch()
+            keys = await decode_version_bytes_mvreg(
+                self._reg, self.SUPPORTED_META_VERSIONS, Keys,
+                transform=self._unprotect, tolerate=self.DECODE_TOLERATES,
+            )
+            if self._trust_epoch() == epoch:
+                break
         if keys is not None and self._core is not None:
             self._core.set_keys(keys)
 
@@ -43,8 +81,12 @@ class PlainKeyCryptor(KeyCryptor):
         hand the register to the core for persistence (gpgme lib.rs:107-129)."""
         if self._core is None:
             raise RuntimeError("key cryptor not initialized")
-        encode_version_bytes_mvreg(
-            self._reg, keys, self._core.actor_id, KEYS_META_VERSION_1
+        await encode_version_bytes_mvreg(
+            self._reg,
+            keys,
+            self._core.actor_id,
+            self.META_VERSION,
+            transform=self._protect,
         )
         snapshot = MVReg.from_obj(self._reg.to_obj())
         await self.set_remote_meta(snapshot)

@@ -10,7 +10,9 @@ what the registry and the replication sampler maintain:
 * ``GET /healthz``  — JSON, schema-stamped like a sink record: per-remote
   device health (the watermark, backlog and divergence each
   ``Core.replication_status()`` computed at its last sample, and the
-  watermark's age) plus the last published service-cycle summaries.
+  watermark's age), the last published service-cycle summaries and the
+  fleet daemon's control-plane section (``daemon``, empty until a
+  ``FleetDaemon`` publishes).
 * ``GET /snapshot`` — the full ``record.snapshot()`` as JSON.
 
 Never on the hot path: the server runs ``serve_forever`` on one daemon
@@ -135,6 +137,9 @@ class LiveTelemetryServer:
         self._devices: dict[tuple[str, str], dict] = {}
         # source name -> last cycle summary (FoldService)
         self._cycles: dict[str, dict] = {}
+        # the owning FleetDaemon's control-plane health (serve/daemon.py):
+        # uptime, cycles, backoff/quarantine counts, drain state
+        self._daemon: dict = {}
 
     # ---------------------------------------------------------- lifecycle
     @property
@@ -200,6 +205,14 @@ class LiveTelemetryServer:
         with self._lock:
             self._cycles[source] = dict(summary)
 
+    def publish_daemon(self, info: dict) -> None:
+        """Store the fleet daemon's control-plane health (the dict
+        :meth:`crdt_enc_tpu_torch.serve.daemon.FleetDaemon.health` builds:
+        uptime, cycles, backoff/quarantine counts, degraded flag, drain
+        state).  Last write wins — one daemon owns a server."""
+        with self._lock:
+            self._daemon = dict(info)
+
     # ---------------------------------------------------------- read side
     def health(self) -> dict:
         """The ``/healthz`` payload: schema-stamped like a sink record,
@@ -207,6 +220,7 @@ class LiveTelemetryServer:
         with self._lock:
             devices = {k: dict(v) for k, v in self._devices.items()}
             cycles = {k: dict(v) for k, v in self._cycles.items()}
+            daemon = dict(self._daemon)
         now = time.time()
         remotes: dict[str, dict] = {}
         for (remote_id, actor), entry in sorted(devices.items()):
@@ -229,6 +243,9 @@ class LiveTelemetryServer:
             "ts": round(time.time(), 3),
             "remotes": remotes,
             "cycles": cycles,
+            # empty until a FleetDaemon publishes — the key is always
+            # present so scrapers can probe daemon liveness uniformly
+            "daemon": daemon,
         }
 
 
@@ -298,3 +315,4 @@ def publish(status: dict) -> None:
     srv = default_server()
     if srv is not None:
         srv.publish_health(status)
+

@@ -76,7 +76,8 @@ from .warm import DEFAULT_BYTE_BUDGET, PlaneWarmTier
 
 logger = logging.getLogger("crdt_enc_tpu_torch.serve")
 
-#: concurrent tenant ingests and seals (a bounded asyncio semaphore)
+#: concurrent tenant ingests and seals (a bounded asyncio semaphore); the
+#: daemon's stat-only polls share the bound
 IO_WIDTH = 16
 
 
@@ -89,6 +90,9 @@ class ServeConfig:
     tenants_cap: int = bucketing.DEFAULT_TENANTS_CAP
     # the warm plane tier's budget (serve.warm), in summed plane bytes
     warm_bytes: int = DEFAULT_BYTE_BUDGET
+    # seal a snapshot for a tenant with no new ops (a solo compact's
+    # behaviour); off, a quiet tenant costs nothing per cycle (the daemon)
+    seal_empty: bool = True
 
 
 @dataclass
@@ -191,8 +195,10 @@ def _decode_gcounter_columns(adapter, payloads, actors_sorted):
 
 
 def _tenant_device(w) -> torch.device:
-    """The device a tenant's accelerator folds on (the card by default)."""
-    return torch.device(getattr(w.core.accel, "device", None) or "cuda")
+    """The device a tenant's accelerator folds on: a ``TorchAccelerator``'s
+    own device (the card by default), the CPU for the host reference
+    (``HostAccelerator``, which has no device)."""
+    return torch.device(getattr(w.core.accel, "device", None) or "cpu")
 
 
 class FoldService:
@@ -200,13 +206,14 @@ class FoldService:
 
     ``tenants`` are OPEN :class:`~crdt_enc_tpu_torch.core.core.Core`
     handles, each attached to its own remote; ``run_cycle`` is one
-    ``compact()`` of every tenant.  Each bucket folds on the device of
-    its first tenant's accelerator (``TorchAccelerator().device``, the
-    card, unless the tenants were opened with
-    ``TorchAccelerator(device="cpu")``).  Concurrent local ``apply_ops``
-    are honoured (the fold phase is one sync section); a second
-    concurrent compactor on the same tenant is the caller's bug, as it
-    always was.
+    ``compact()`` of every tenant.  Tenants are bucketed per device, and
+    each bucket folds on the device its tenants' accelerators share
+    (``TorchAccelerator().device``, the card, unless the tenants were
+    opened with ``TorchAccelerator(device="cpu")``; the CPU's plain
+    versions for tenants of the host reference, ``HostAccelerator``).
+    Concurrent local ``apply_ops`` are honoured (the fold phase is one
+    sync section); a second concurrent compactor on the same tenant is
+    the caller's bug, as it always was.
     """
 
     def __init__(self, tenants, config: ServeConfig | None = None,
@@ -536,7 +543,10 @@ class FoldService:
         cycle, so plane capture, launch, writeback and cursor advance
         never interleave with a concurrent apply."""
         by_idx: dict[int, _TenantWork] = {}
-        shapes: list[TenantShape] = []
+        # tenants are planned per device, so a bucket never mixes tenants
+        # whose accelerators fold on different devices
+        shapes: dict[torch.device, list[TenantShape]] = {}
+        buckets = []
         with trace.span("serve.plan"):
             for w in works:
                 if not (w.ok and w.kind and w.payloads):
@@ -558,17 +568,19 @@ class FoldService:
                 shape = prepared[0]
                 w.prepared = prepared[1]
                 by_idx[w.idx] = w
-                shapes.append(shape)
-            buckets, solo = plan_buckets(
-                shapes,
-                rows_cap=self.config.rows_cap,
-                cells_cap=self.config.cells_cap,
-                tenants_cap=self.config.tenants_cap,
-            )
-            for key in solo:
-                by_idx[key].result.path = "solo"
-                trace.add("serve_solo_spills", 1)
-                del by_idx[key]
+                shapes.setdefault(_tenant_device(w), []).append(shape)
+            for dev_shapes in shapes.values():
+                dev_buckets, solo = plan_buckets(
+                    dev_shapes,
+                    rows_cap=self.config.rows_cap,
+                    cells_cap=self.config.cells_cap,
+                    tenants_cap=self.config.tenants_cap,
+                )
+                buckets += dev_buckets
+                for key in solo:
+                    by_idx[key].result.path = "solo"
+                    trace.add("serve_solo_spills", 1)
+                    del by_idx[key]
         trace.gauge("serve_buckets", len(buckets))
         for bi, bucket in enumerate(buckets):
             try:
@@ -949,6 +961,9 @@ class FoldService:
                     # and sample are all skipped; a tenant never sealed
                     # seals even with no new ops, as a solo compact does
                     trace.add("serve_noop_cycles", 1)
+                    w.result.latency_s = time.perf_counter() - t0
+                    return
+                if w.result.path == "empty" and not self.config.seal_empty:
                     w.result.latency_s = time.perf_counter() - t0
                     return
                 try:

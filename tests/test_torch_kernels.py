@@ -917,3 +917,80 @@ def test_gcounter_tenant_fold_on_the_card_matches_the_cpu(dev):
     got = gcounter_fold_tenants(clock0.to(dev), actor.to(dev),
                                 counter.to(dev), num_replicas=R)
     assert torch.equal(got.cpu(), want)
+
+
+# ---- the fleet daemon ------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_fleet_daemon_cycle_launches_one_fold_per_bucket(dev, monkeypatch):
+    """One ``FleetDaemon`` cycle over 64 small OR-Set tenants on the card
+    launches ``orset_fold`` exactly once per OR-Set bucket the planner
+    made (none spills at this size), and every tenant's bytes equal a
+    copy of the fleet run by a daemon over ``HostAccelerator`` tenants."""
+    import asyncio
+
+    import crdt_enc_tpu_torch as T
+    from crdt_enc_tpu_torch.serve import service as service_mod
+    from crdt_enc_tpu_torch.utils.versions import DEFAULT_DATA_VERSION_1
+
+    plans = []
+    real_plan = service_mod.plan_buckets
+
+    def recording_plan(*args, **kw):
+        plans.append(real_plan(*args, **kw))
+        return plans[-1]
+
+    monkeypatch.setattr(service_mod, "plan_buckets", recording_plan)
+
+    def opts(storage, accel, create=True):
+        return T.OpenOptions(
+            storage=storage, cryptor=T.IdentityCryptor(),
+            key_cryptor=T.PlainKeyCryptor(), adapter=T.orset_adapter(),
+            supported_data_versions=(DEFAULT_DATA_VERSION_1,),
+            current_data_version=DEFAULT_DATA_VERSION_1, create=create,
+            accelerator=accel)
+
+    async def go():
+        fleets = {"card": [], "host": []}
+        for t in range(64):
+            remote = T.MemoryRemote()
+            w = await T.Core.open(opts(T.MemoryStorage(remote),
+                                       T.HostAccelerator()))
+            for i in range(12 + t % 9):
+                m = b"t%d-%d" % (t, i % 7)
+                await w.update(lambda s, m=m, w=w, i=i: s.rm_ctx(m)
+                               if i % 5 == 4 and m in s.entries
+                               else s.add_ctx(w.actor_id, m))
+            ident = T.MemoryStorage(remote)
+            await T.Core.open(opts(ident, T.HostAccelerator()))
+            for arm, accel in (("card", T.TorchAccelerator()),
+                               ("host", T.HostAccelerator())):
+                copy = T.MemoryRemote(
+                    metas=dict(remote.metas), states=dict(remote.states),
+                    ops={a: dict(d) for a, d in remote.ops.items()})
+                st = T.MemoryStorage(copy)
+                st._local_meta = ident._local_meta
+                fleets[arm].append(await T.Core.open(opts(st, accel,
+                                                          create=False)))
+        card = T.FleetDaemon(fleets["card"])
+        host = T.FleetDaemon(fleets["host"])
+        before = F.launches["orset_fold"]
+        plans.clear()
+        report = await card.run_cycle()
+        launched = F.launches["orset_fold"] - before
+        (buckets, solo), = plans
+        host_report = await host.run_cycle()
+        assert F.launches["orset_fold"] - before == launched
+        assert solo == []
+        assert launched == sum(b.kind == "orset" for b in buckets) >= 1
+        assert len(report["selected"]) == 64
+        assert all(r["outcome"] == "sealed" for r in report["results"].values())
+        assert report["selected"] == host_report["selected"]
+        for a, b in zip(fleets["card"], fleets["host"]):
+            assert a.with_state(T.canonical_bytes) == b.with_state(
+                T.canonical_bytes)
+        await card.drain()
+        await host.drain()
+
+    asyncio.run(go())

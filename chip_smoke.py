@@ -151,6 +151,23 @@ Phases:
    FsStorage tenants at fleet (a)'s shape (3 cycles, a live endpoint on an
    ephemeral port): exit 0, K2 launched, each tenant reopened warm and
    equal to a host-loop ``compact()`` of a copy of its remote;
+18. the adversarial simulator (``crdt_enc_tpu_torch.sim``), whose odd
+   replicas, ``service`` steps and ``daemon`` steps fold on the card
+   while even replicas, the oracle refold and fsck stay on the host
+   reference: (a) the fleet-scale schedule (seed 42, 8 replicas x 500
+   steps, every fault class) twice on the card and once on the CPU
+   (plain versions): ok, every fault class fired, a service cycle, three
+   equal fingerprints, K2 launched in the card run; (b) 32 all-vocabulary
+   schedules (4 replicas x 100 steps, deltas, daemon and strong reads) at
+   P = 8 through one ``PopulationSubstrate(device="cuda")``: no
+   violation, 24 refills, every fault class fired, the first four equal
+   to their serial card runs and all 32 fingerprints equal to the same
+   population on the CPU; (c) bench.py's simulator shape (8 replicas x
+   250 steps, 4 serial schedules and 16 at P = 8) on the card, again
+   under torch.profiler for the card's idle share, and on the CPU:
+   schedules/s, steps/s, launches, ``h2d_bytes``; (d) ``tools.sim
+   replay tests/data/sim`` and ``tools.daemon selftest --device cuda`` in
+   process, each exit 0, the selftest launching K2;
 then the kernels line and the result line.  Phase 5 also times the merge
 at the compaction's own shape (S = 9, E = 4,096, R = 5,000) against its
 plain version, and phases 5 and 9 give the merge and K3's shape their
@@ -280,6 +297,16 @@ DAEMON_FLAKY, DAEMON_OUTAGE, DAEMON_MAX_CYCLES = 16, 6, 40
 DAEMON_SOLO_EVERY = 8
 DAEMON_QUARANTINE_AFTER, DAEMON_PROBE_EVERY = 3, 1
 CLI_T, CLI_CYCLES, CLI_SEED = 8, 3, 29
+# phase 18: the adversarial simulator at the JAX package's own acceptance
+# sizes: the fleet-scale schedule (seed 42, 8 replicas x 500 steps, every
+# fault class; tests/test_simulation.py), the 32-schedule all-vocabulary
+# population at P = 8 (4 replicas x 100 steps, 6 members;
+# tests/test_population.py) and bench.py's simulator shape (8 replicas x
+# 250 steps, seeds 0-3 serial and 0-15 at P = 8).
+SIM_FLEET = (42, 8, 500)
+SIM_POP_N, SIM_POP_P, SIM_POP_R, SIM_POP_STEPS, SIM_POP_MEMBERS = \
+    32, 8, 4, 100, 6
+SIM_BENCH_R, SIM_BENCH_STEPS, SIM_BENCH_SERIAL, SIM_BENCH_POP = 8, 250, 4, 16
 
 # peak device-memory rates (NVIDIA data sheets); float32 outside the
 # tensor cores is the table's nearest rate for the kernels' int32 ALU work
@@ -4154,6 +4181,238 @@ def phase_daemon_cli(device: str, root: str) -> dict:
             "wall_s": wall, "launches": launches}
 
 
+def sim_counters() -> dict:
+    from crdt_enc_tpu_torch.utils import trace
+
+    return dict(trace.snapshot()["counters"])
+
+
+def sim_run(label: str, fn, device: str, *, profile: bool = False) -> dict:
+    """``fn()`` once with the kernel counts zeroed before and read after
+    (and, with ``profile``, the card's busy time from torch.profiler):
+    ``{"out", "wall_s", "launches", "h2d_bytes", "device_busy_s",
+    "idle_share"}``."""
+    before = sim_counters().get("h2d_bytes", 0)
+    reset_launches()
+    if profile:
+        out, wall, busy = profiled(fn, device)
+    else:
+        t0 = time.perf_counter()
+        out = fn()
+        wall, busy = time.perf_counter() - t0, None
+    launches = read_launches()
+    run = {"out": out, "wall_s": wall, "launches": launches,
+           "h2d_bytes": sim_counters().get("h2d_bytes", 0) - before,
+           "device_busy_s": busy,
+           "idle_share": None if busy is None else max(0.0, 1 - busy / wall)}
+    print(f"  {label}: {wall:.2f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, h2d "
+          f"{run['h2d_bytes']} B"
+          + ("" if busy is None else
+             f", card busy {busy:.3f} s, idle share {run['idle_share']:.4f}"),
+          flush=True)
+    return run
+
+
+def sim_fired(results) -> set:
+    return {k for r in results for k, v in r.fault_stats.items() if v}
+
+
+def sim_numbers(run: dict, results) -> dict:
+    steps = sum(r.steps_run for r in results)
+    return {"schedules": len(results), "steps": steps,
+            "wall_s": run["wall_s"],
+            "schedules_per_s": len(results) / run["wall_s"],
+            "steps_per_s": steps / run["wall_s"],
+            "launches": run["launches"], "h2d_bytes": run["h2d_bytes"],
+            "device_busy_s": run["device_busy_s"],
+            "idle_share": run["idle_share"]}
+
+
+def phase_sim(device: str) -> dict:
+    """Phase 18: the adversarial simulator with its device replicas, its
+    service and its daemon folding on ``device``, held against the same
+    histories folded with the kernels' plain versions on the CPU.
+
+    (a) the fleet-scale schedule twice on the device and once on the CPU:
+    ok, every fault class fired, a service cycle ran, three equal
+    fingerprints, K2 launched in the first device run; (b) the
+    32-schedule population at P = 8 through one device substrate: no
+    violation, 24 refills, every fault class fired, serial equality of
+    the first four on the device, and every fingerprint equal to the same
+    population through a CPU substrate; (c) bench.py's shape, serial and
+    at P = 8, on the device (timed, then again under torch.profiler for
+    the idle share) and on the CPU; (d) ``tools.sim replay`` of the
+    committed fixtures and ``tools.daemon selftest`` in process."""
+    import logging
+
+    from crdt_enc_tpu_torch.sim import (
+        FaultConfig,
+        PopulationReport,
+        PopulationSubstrate,
+        generate,
+        run_population,
+        run_schedule,
+        verify_serial_equality,
+    )
+    from crdt_enc_tpu_torch.tools import daemon as daemon_cli
+    from crdt_enc_tpu_torch.tools import sim as sim_cli
+
+    # the quarantine warnings of torn reads are the faults doing their
+    # work: counted in the results, not logged a line each
+    log = logging.getLogger("crdt_enc_tpu_torch")
+    level = log.level
+    log.setLevel(logging.ERROR)
+    out: dict = {}
+    try:
+        faults = FaultConfig.all_faults()
+        seed, n, steps = SIM_FLEET
+        fleet = generate(seed, n, steps, faults)
+        card = sim_run(f"(a) fleet {n}x{steps} on {device}",
+                       lambda: run_schedule(fleet, device=device), device)
+        again = sim_run(f"(a) fleet again on {device}",
+                        lambda: run_schedule(fleet, device=device), device)
+        plain = sim_run("(a) fleet on cpu (plain versions)",
+                        lambda: run_schedule(fleet, device="cpu"), "cpu")
+        res = card["out"]
+        for r in (res, again["out"], plain["out"]):
+            if not r.ok:
+                raise AssertionError(f"fleet schedule violated: {r.violation}")
+        missing = set(FaultConfig.CLASSES) - sim_fired([res])
+        if missing:
+            raise AssertionError(f"fault classes never fired: {missing}")
+        if res.service_cycles < 1:
+            raise AssertionError("no service cycle in the fleet schedule")
+        fps = {res.fingerprint, again["out"].fingerprint,
+               plain["out"].fingerprint}
+        if len(fps) != 1:
+            raise AssertionError(f"fleet fingerprints differ: {fps}")
+        if device == "cuda" and card["launches"]["orset_fold"] < 1:
+            raise AssertionError("the fleet schedule launched no orset_fold")
+        out["fleet"] = {
+            "seed": seed, "replicas": n, "steps": steps,
+            "fingerprint": res.fingerprint,
+            "fault_stats": dict(res.fault_stats),
+            "checks": res.checks_run, "service_cycles": res.service_cycles,
+            "quarantined": res.quarantined,
+            "transient": res.transient_missing_key,
+            "device": sim_numbers(card, [res]),
+            "device_again": sim_numbers(again, [again["out"]]),
+            "cpu": sim_numbers(plain, [plain["out"]])}
+        print(f"  (a) ok, fingerprint {res.fingerprint[:16]} on both runs and "
+              f"the CPU, faults {dict(res.fault_stats)}, "
+              f"{res.service_cycles} service cycles, {res.checks_run} checks",
+              flush=True)
+
+        def population(dev):
+            scheds = [generate(s, SIM_POP_R, SIM_POP_STEPS, faults,
+                               members=SIM_POP_MEMBERS, deltas=True,
+                               daemon=True, strong_reads=True)
+                      for s in range(SIM_POP_N)]
+            sub = PopulationSubstrate(dev)
+            try:
+                return run_population(scheds, population=SIM_POP_P,
+                                      substrate=sub)
+            finally:
+                sub.close()
+
+        pop = sim_run(f"(b) population {SIM_POP_N} at P={SIM_POP_P} on "
+                      f"{device}", lambda: population(device), device)
+        pop_cpu = sim_run("(b) population on cpu", lambda: population("cpu"),
+                          "cpu")
+        rep = pop["out"]
+        if rep.violations:
+            raise AssertionError(f"population violations: "
+                                 f"{[(s.seed, r.violation) for s, r in rep.violations]}")
+        if rep.refills != SIM_POP_N - SIM_POP_P:
+            raise AssertionError(f"population refills {rep.refills}")
+        missing = set(FaultConfig.CLASSES) - sim_fired(rep.results)
+        if missing:
+            raise AssertionError(f"population: classes never fired {missing}")
+        sample = PopulationReport(schedules=rep.schedules[:4],
+                                  results=rep.results[:4])
+        problems = verify_serial_equality(sample, device=device)
+        if problems:
+            raise AssertionError(f"serial equality: {problems}")
+        differ = [s.seed for s, a, b in zip(rep.schedules, rep.results,
+                                             pop_cpu["out"].results)
+                  if a.fingerprint != b.fingerprint]
+        if differ:
+            raise AssertionError(f"population fingerprints differ from the "
+                                 f"CPU's for seeds {differ}")
+        out["population"] = {
+            "schedules": SIM_POP_N, "lanes": SIM_POP_P,
+            "refills": rep.refills,
+            "strong_reads": sum(r.strong_reads for r in rep.results),
+            "strong_timeouts": sum(r.strong_timeouts for r in rep.results),
+            "daemon_cycles": sum(r.daemon_cycles for r in rep.results),
+            "service_cycles": sum(r.service_cycles for r in rep.results),
+            "device": sim_numbers(pop, rep.results),
+            "cpu": sim_numbers(pop_cpu, pop_cpu["out"].results)}
+        print(f"  (b) no violation, {rep.refills} refills, serial equality "
+              f"on 4, {SIM_POP_N} fingerprints equal to the CPU's; "
+              f"{out['population']['strong_reads']} strong reads, "
+              f"{out['population']['daemon_cycles']} daemon cycles",
+              flush=True)
+
+        def bench(dev, lanes):
+            if lanes == 1:
+                return [run_schedule(generate(s, SIM_BENCH_R, SIM_BENCH_STEPS,
+                                              faults), device=dev)
+                        for s in range(SIM_BENCH_SERIAL)]
+            return run_population(
+                [generate(s, SIM_BENCH_R, SIM_BENCH_STEPS, faults)
+                 for s in range(SIM_BENCH_POP)],
+                population=lanes, device=dev).results
+
+        print(device_line(), flush=True)
+        thr = {}
+        for mode, lanes in (("serial", 1), (f"p{SIM_POP_P}", SIM_POP_P)):
+            runs = {}
+            for dev, prof in ((device, False), (device, True), ("cpu", False)):
+                key = dev + ("_profiled" if prof else "")
+                runs[key] = sim_run(
+                    f"(c) {mode} {SIM_BENCH_R}x{SIM_BENCH_STEPS} on {key}",
+                    lambda dev=dev: bench(dev, lanes), dev, profile=prof)
+                bad = [r.violation for r in runs[key]["out"] if not r.ok]
+                if bad:
+                    raise AssertionError(f"bench schedules violated: {bad}")
+            fps = {tuple(r.fingerprint for r in v["out"])
+                   for v in runs.values()}
+            if len(fps) != 1:
+                raise AssertionError(f"(c) {mode}: fingerprints differ")
+            thr[mode] = {k: sim_numbers(v, v["out"]) for k, v in runs.items()}
+            d = thr[mode][device]
+            print(f"  (c) {mode}: {d['schedules_per_s']:.3f} schedules/s, "
+                  f"{d['steps_per_s']:.1f} steps/s on {device}; "
+                  f"{thr[mode]['cpu']['schedules_per_s']:.3f} schedules/s "
+                  "on cpu", flush=True)
+        out["throughput"] = thr
+
+        fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests", "data", "sim")
+        replay = sim_run("(d) tools.sim replay tests/data/sim",
+                         lambda: sim_cli.main(["replay", "--device", device,
+                                               fixtures]), device)
+        if replay["out"] != 0:
+            raise AssertionError(f"tools.sim replay exited {replay['out']}")
+        selftest = sim_run("(d) tools.daemon selftest",
+                           lambda: daemon_cli.main(["selftest", "--device",
+                                                    device]), device)
+        if selftest["out"] != 0:
+            raise AssertionError(f"selftest exited {selftest['out']}")
+        if device == "cuda" and selftest["launches"]["orset_fold"] < 1:
+            raise AssertionError("the selftest launched no orset_fold")
+        out["replay"] = {"exit": replay["out"], "wall_s": replay["wall_s"],
+                         "launches": replay["launches"]}
+        out["selftest"] = {"exit": selftest["out"],
+                           "wall_s": selftest["wall_s"],
+                           "launches": selftest["launches"]}
+    finally:
+        log.setLevel(level)
+    return out
+
+
 # name -> (source, file:line of the TPU kernel's pallas_call, the Pallas
 # functions it stands for).  Both OR-Set entries run the bucketed kernels
 # of csrc/orset_fold.cu and differ in the range kernel's epilogue; K3
@@ -4284,7 +4543,7 @@ def main() -> int:
 
 def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
                       name, t_start) -> int:
-    """Phases 10 to 17 and the closing lines.  Phase 10's compaction remote
+    """Phases 10 to 18 and the closing lines.  Phase 10's compaction remote
     lives under ``root`` until phase 14 has compacted it twice more."""
     import torch
 
@@ -4373,6 +4632,16 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     gc.collect()
     daemon["cli"] = phase_daemon_cli("cuda", root)
 
+    print(f"== 18. the adversarial simulator (fleet {SIM_FLEET[1]} replicas x "
+          f"{SIM_FLEET[2]} steps; {SIM_POP_N} schedules at P={SIM_POP_P}; "
+          f"bench shape {SIM_BENCH_R}x{SIM_BENCH_STEPS}; tools.sim replay, "
+          "tools.daemon selftest)", flush=True)
+    print(device_line(), flush=True)
+    t0 = time.perf_counter()
+    sim = phase_sim("cuda")
+    sim["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 18 wall {sim['wall_s']:.1f} s", flush=True)
+
     kernels = []
     for kname, (source, replaces, pallas) in KERNELS.items():
         entry = {
@@ -4421,6 +4690,15 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
             "fleet": daemon["launches"][kname],
             "per_cycle": [c["launches"][kname] for c in daemon["cycles"]],
             "cli": daemon["cli"]["launches"][kname]}
+        entry["sim_launches"] = {
+            "fleet": sim["fleet"]["device"]["launches"][kname],
+            "population": sim["population"]["device"]["launches"][kname],
+            "bench_serial": sim["throughput"]["serial"]["cuda"]["launches"][
+                kname],
+            f"bench_p{SIM_POP_P}": sim["throughput"][f"p{SIM_POP_P}"]["cuda"][
+                "launches"][kname],
+            "replay": sim["replay"]["launches"][kname],
+            "selftest": sim["selftest"]["launches"][kname]}
         if kname == "orset_fold":
             entry["serving"] = {
                 "route": "tenant layout: (E_b, T*R_b) planes, padding at "
@@ -4439,6 +4717,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     print(json.dumps({"catalogue": catalogue}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"daemon": daemon}), flush=True)
+    print(json.dumps({"sim": sim}), flush=True)
     print(device_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

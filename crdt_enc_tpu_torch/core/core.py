@@ -297,6 +297,32 @@ class OpenOptions:
     membership: object | None = None
 
 
+async def open_sealed_blob(
+    keys: Keys, cryptor, raw: bytes, supported_data_versions=None
+):
+    """Unwrap one three-layer sealed blob: outer container → key id →
+    cipher middle → inner data version → payload object.  The one
+    implementation of the wire contract: the core and the fsck tool both
+    go through here.  ``supported_data_versions=None`` skips the inner
+    data-version check (diagnostic callers that do not know the
+    application's version set)."""
+    outer = VersionBytes.deserialize(raw).ensure_versions(
+        SUPPORTED_CONTAINER_VERSIONS
+    )
+    key_id, middle = codec.unpack(outer.content)
+    key = keys.get_key(bytes(key_id))
+    if key is None:
+        raise MissingKeyError(
+            f"blob sealed with unknown key {uuid.UUID(bytes=bytes(key_id))}; "
+            "key metadata may not have synced yet"
+        )
+    clear = await cryptor.decrypt(key.material, bytes(middle))
+    inner = VersionBytes.deserialize(clear)
+    if supported_data_versions is not None:
+        inner.ensure_versions(supported_data_versions)
+    return codec.unpack(inner.content)
+
+
 def unpack_checkpoint_state(adapter, fmt: int, st):
     """Decode a checkpoint's state payload: the one implementation of the
     format dispatch."""
@@ -1066,23 +1092,9 @@ class Core:
         ).serialize()
 
     async def _open_sealed(self, raw: bytes):
-        """Unwrap one three-layer sealed blob: outer container → key id →
-        cipher middle → inner data version → payload object."""
-        outer = VersionBytes.deserialize(raw).ensure_versions(
-            SUPPORTED_CONTAINER_VERSIONS
+        return await open_sealed_blob(
+            self._data.keys, self.cryptor, raw, self.supported_data_versions
         )
-        key_id, middle = codec.unpack(outer.content)
-        key = self._data.keys.get_key(bytes(key_id))
-        if key is None:
-            raise MissingKeyError(
-                f"blob sealed with unknown key {uuid.UUID(bytes=bytes(key_id))}; "
-                "key metadata may not have synced yet"
-            )
-        clear = await self.cryptor.decrypt(key.material, bytes(middle))
-        inner = VersionBytes.deserialize(clear).ensure_versions(
-            self.supported_data_versions
-        )
-        return codec.unpack(inner.content)
 
     def _note_quarantine(self, family: str, ident: str, exc: Exception) -> None:
         """One quarantined synced file: counted under

@@ -253,3 +253,8 @@ def format_snapshot(snap: dict) -> str:
     for k in sorted(snap.get("gauges", ())):
         lines.append(f"{k} = {snap['gauges'][k]} (gauge)")
     return "\n".join(lines) if lines else "(no spans recorded)"
+
+
+def report() -> str:
+    """The registry's phase table as :func:`format_snapshot` renders it."""
+    return format_snapshot(snapshot())

@@ -1,2 +1,3 @@
 """Operational tools around the port's core: the fleet daemon's entry
-point (:mod:`.daemon`)."""
+point (:mod:`.daemon`: ``run`` and ``selftest``), the remote integrity
+checker (:mod:`.fsck`) and the simulator's entry point (:mod:`.sim`)."""

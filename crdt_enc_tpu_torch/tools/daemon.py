@@ -1,4 +1,4 @@
-"""Fleet daemon entry point: the port's copy of the ``run`` subcommand of
+"""Fleet daemon entry point: the port's copy of
 ``crdt_enc_tpu/tools/daemon.py``.
 
     python -m crdt_enc_tpu_torch.tools.daemon run \\
@@ -6,6 +6,9 @@
         --tenant /var/crdt/localB=/mnt/remoteB \\
         [--device cuda] [--port 9464] [--interval 1.0] [--cycles 0] \\
         [--deltas]
+
+    python -m crdt_enc_tpu_torch.tools.daemon selftest \\
+        [--device cuda] [--tenants 6] [--cycles 6] [--faulty 2] [--seed 0]
 
 ``run`` opens one fs-backed :class:`~crdt_enc_tpu_torch.core.core.Core` per
 ``--tenant LOCAL=REMOTE`` pair (XChaCha data cryptor, plain key wrap,
@@ -16,6 +19,15 @@ in-flight cycle finishes, every tenant seals a warm-open checkpoint, the
 live endpoint stops.  ``--cycles N`` bounds the loop (smoke runs).
 ``--port`` serves ``/metrics`` + ``/healthz`` (with the ``daemon``
 control-plane section) from the daemon's own live telemetry server.
+
+``selftest`` is the bounded smoke: an in-memory fleet with the
+simulator's fault injector armed on some tenants and one tenant whose op
+listing fails runs N supervised cycles — tenant errors must be isolated
+into backoff/quarantine while healthy tenants keep sealing — then the
+faults heal, the fleet recovers, the daemon drains, and every remote
+must fsck clean AND refold cold on the host reference byte-identical to
+the daemon's live tenant state.  Exit 0 on a clean pass, 1 on any failed
+expectation.
 
 ``--device`` names the device every tenant folds on: ``cuda`` (the
 default, the card) or ``cpu`` (the plain PyTorch versions of the
@@ -42,22 +54,53 @@ class DeviceUnavailableError(RuntimeError):
     """``--device`` names a device this machine does not have."""
 
 
-def _accelerator(device):
-    """A tenant's accelerator on ``device`` (a ``torch.device``); raises
-    :class:`DeviceUnavailableError` where that device is absent."""
+def device_or_exit(spec: str):
+    """``--device`` for a CLI: ``(torch.device, None)``, or ``(None, exit
+    code)`` after printing why — 2 for a usage error (not a device, or
+    neither cpu nor cuda), 1 with :class:`DeviceUnavailableError` for a
+    card this machine lacks."""
     import torch
 
-    from ..parallel.accel import TorchAccelerator
+    try:
+        device = torch.device(spec)
+    except RuntimeError as e:
+        print(f"--device: {e}", file=sys.stderr)
+        return None, 2
+    if device.type not in ("cpu", "cuda"):
+        print(f"--device wants cpu or cuda, got {spec!r}", file=sys.stderr)
+        return None, 2
+    try:
+        _require(device)
+    except DeviceUnavailableError as e:
+        print(f"DeviceUnavailableError: {e}", file=sys.stderr)
+        return None, 1
+    return device, None
+
+
+def _require(device) -> None:
+    """Raise :class:`DeviceUnavailableError` where ``device`` (a
+    ``torch.device``) is a card this machine lacks."""
+    import torch
 
     if device.type == "cuda" and not torch.cuda.is_available():
         raise DeviceUnavailableError(
             f"--device {device}: CUDA is not available on this machine "
             "(pass --device cpu to fold with the plain PyTorch versions)"
         )
+
+
+def _accelerator(device):
+    """A tenant's accelerator on ``device`` (a ``torch.device``); raises
+    :class:`DeviceUnavailableError` where that device is absent."""
+    from ..parallel.accel import TorchAccelerator
+
+    _require(device)
     return TorchAccelerator(device, min_device_batch=1)
 
 
-def _open_opts(storage, accel, *, create: bool, deltas: bool):
+def _open_opts(storage, accel, *, create: bool, deltas: bool,
+               identity: bool = False):
+    from ..backends.identity_crypto import IdentityCryptor
     from ..backends.plain_keys import PlainKeyCryptor
     from ..backends.xchacha import XChaChaCryptor
     from ..core.adapters import orset_adapter
@@ -66,7 +109,7 @@ def _open_opts(storage, accel, *, create: bool, deltas: bool):
 
     return OpenOptions(
         storage=storage,
-        cryptor=XChaChaCryptor(),
+        cryptor=IdentityCryptor() if identity else XChaChaCryptor(),
         key_cryptor=PlainKeyCryptor(),
         adapter=orset_adapter(),
         supported_data_versions=(DEFAULT_DATA_VERSION_1,),
@@ -79,8 +122,6 @@ def _open_opts(storage, accel, *, create: bool, deltas: bool):
 
 # ---------------------------------------------------------------- run
 async def _run(args) -> int:
-    import torch
-
     from ..backends.fs import FsStorage
     from ..core.core import Core
     from ..serve import DaemonConfig, FleetDaemon
@@ -97,20 +138,10 @@ async def _run(args) -> int:
         print("run: at least one --tenant LOCAL=REMOTE required",
               file=sys.stderr)
         return 2
-    try:
-        device = torch.device(args.device)
-    except RuntimeError as e:
-        print(f"--device: {e}", file=sys.stderr)
-        return 2
-    if device.type not in ("cpu", "cuda"):
-        print(f"--device wants cpu or cuda, got {args.device!r}",
-              file=sys.stderr)
-        return 2
-    try:
-        accels = [_accelerator(device) for _ in pairs]
-    except DeviceUnavailableError as e:
-        print(f"DeviceUnavailableError: {e}", file=sys.stderr)
-        return 1
+    device, rc = device_or_exit(args.device)
+    if device is None:
+        return rc
+    accels = [_accelerator(device) for _ in pairs]
 
     cores = [
         await Core.open(_open_opts(
@@ -144,6 +175,153 @@ def _cmd_run(args) -> int:
     return asyncio.run(_run(args))
 
 
+# ----------------------------------------------------------- selftest
+async def _selftest(args) -> int:
+    from ..backends.memory import MemoryRemote, MemoryStorage
+    from ..backends.plain_keys import PlainKeyCryptor
+    from ..core.adapters import HostAccelerator
+    from ..core.core import Core
+    from ..models import canonical_bytes
+    from ..serve import DaemonConfig, FleetDaemon, ServeConfig
+    from ..sim import DeterministicCryptor, FaultConfig, FaultyStorage
+    from .fsck import fsck_remote
+
+    device, rc = device_or_exit(args.device)
+    if device is None:
+        return rc
+
+    class _FlakyStorage(MemoryStorage):
+        """Deterministic outage: tenant 0's remote refuses listings
+        while ``broken`` — the guaranteed-error half of the smoke (the
+        seeded FaultyStorage half exercises the survivable damage
+        classes, whose tenant-level escalation is probabilistic)."""
+
+        broken = False
+
+        async def list_op_actors(self):
+            if self.broken:
+                raise OSError("selftest: remote unreachable")
+            return await super().list_op_actors()
+
+    T, faulty = args.tenants, min(1 + args.faulty, args.tenants)
+    remotes = [MemoryRemote() for _ in range(T)]
+    cores = []
+    wrappers = []
+    flaky = None
+    for t, remote in enumerate(remotes):
+        writer = await Core.open(_open_opts(
+            MemoryStorage(remote), HostAccelerator(), create=True,
+            deltas=True, identity=True,
+        ))
+        for i in range(24):
+            m = b"t%d-%d" % (t, i % 11)
+            await writer.update(
+                lambda s, m=m: s.add_ctx(writer.actor_id, m)
+            )
+        if t == 0:
+            storage = flaky = _FlakyStorage(remote)
+        else:
+            storage = MemoryStorage(remote)
+            if t < faulty:
+                storage = FaultyStorage(
+                    storage, FaultConfig.all_faults(),
+                    seed=args.seed, name=f"t{t}",
+                )
+                storage.heal()  # open clean; arm once admitted
+                wrappers.append(storage)
+        cores.append(await Core.open(_open_opts(
+            storage, _accelerator(device), create=True, deltas=True,
+            identity=True,
+        )))
+
+    cfg = DaemonConfig(
+        interval_s=0.0, max_idle_cycles=1, quarantine_after=2,
+        quarantine_probe_every=3, backoff_base=1.0, backoff_cap=2.0,
+        breaker_after=T + 1, serve=ServeConfig(seal_empty=False),
+    )
+    daemon = FleetDaemon(cores, cfg, seed=args.seed)
+    for w in wrappers:
+        w.arm()
+    flaky.broken = True
+
+    failures: list[str] = []
+    for _ in range(args.cycles):
+        report = await daemon.run_cycle()
+        h = daemon.health()
+        print(
+            f"cycle {report['cycle']}: selected={len(report['selected'])} "
+            f"errors={h['last_cycle']['errors']} backoff={h['backoff']} "
+            f"quarantined={h['quarantined']}", file=sys.stderr,
+        )
+    # isolation checks: the flaky tenant must have failed into the
+    # backoff/quarantine machine, and every HEALTHY tenant must have
+    # kept sealing through the fault phase — tenant failures never
+    # poison the cycle
+    t0 = daemon.entry("t0")
+    if t0.failures == 0 and t0.state == "active":
+        failures.append("flaky tenant t0 never entered backoff/quarantine")
+    for t in range(faulty, T):
+        entry = daemon.entry(f"t{t}")
+        if entry is None or entry.last_sealed < 0:
+            failures.append(
+                f"healthy tenant t{t} never sealed while peers faulted"
+            )
+
+    # heal: the transient faults clear, the backoff re-probe path must
+    # bring every tenant back to sealing
+    flaky.broken = False
+    for w in wrappers:
+        w.heal()
+    for _ in range(max(6, 2 * cfg.quarantine_probe_every)):
+        await daemon.run_cycle()
+        if all(
+            daemon.entry(tid).state == "active"
+            and daemon.entry(tid).last_sealed >= 0
+            for tid in daemon.tenant_ids
+        ):
+            break
+    else:
+        failures.append("fleet did not recover to all-active after heal")
+
+    await daemon.drain()
+    if daemon.state != "drained":
+        failures.append(f"drain left state {daemon.state!r}")
+
+    # post-drain audit: every remote fscks clean and refolds cold on the
+    # host reference to the daemon tenant's live state (the
+    # no-divergence oracle)
+    for t, (core, remote) in enumerate(zip(cores, remotes)):
+        report = await fsck_remote(
+            MemoryStorage(remote), DeterministicCryptor(f"selftest{t}"),
+            PlainKeyCryptor(), deep=True,
+        )
+        if not report.ok:
+            failures.append(f"tenant {t}: fsck errors: {report.issues[:3]}")
+        cold = await Core.open(_open_opts(
+            MemoryStorage(remote), HostAccelerator(), create=True,
+            deltas=False, identity=True,
+        ))
+        await cold.read_remote()
+        if cold.with_state(canonical_bytes) != core.with_state(
+            canonical_bytes
+        ):
+            failures.append(f"tenant {t}: cold refold diverges from daemon")
+
+    for line in failures:
+        print(f"SELFTEST FAIL: {line}", file=sys.stderr)
+    if not failures:
+        print(
+            f"selftest OK: {T} tenants ({faulty} faulted), "
+            f"{daemon.cycle} cycles, drained, fsck clean",
+            file=sys.stderr,
+        )
+    return 1 if failures else 0
+
+
+def _cmd_selftest(args) -> int:
+    return asyncio.run(_selftest(args))
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     ap = argparse.ArgumentParser(
@@ -169,6 +347,18 @@ def main(argv=None) -> int:
     p_run.add_argument("--deltas", action="store_true",
                        help="delta-state replication on every tenant")
     p_run.set_defaults(fn=_cmd_run)
+
+    p_st = sub.add_parser(
+        "selftest", help="bounded in-memory smoke with injected faults"
+    )
+    p_st.add_argument("--device", default="cuda",
+                      help="device the tenants fold on: cuda or cpu")
+    p_st.add_argument("--tenants", type=int, default=6)
+    p_st.add_argument("--cycles", type=int, default=6)
+    p_st.add_argument("--faulty", type=int, default=2,
+                      help="tenants wrapped in the all-fault injector")
+    p_st.add_argument("--seed", type=int, default=0)
+    p_st.set_defaults(fn=_cmd_selftest)
 
     try:
         args = ap.parse_args(argv)

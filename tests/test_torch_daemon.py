@@ -1025,3 +1025,113 @@ def test_daemon_publishes_to_the_configured_default_server(monkeypatch):
     finally:
         live._reset()
         jlive._reset()
+
+
+# ------------------------------------------------- crash/reopen (kill)
+
+
+@pytest.mark.parametrize("backend", ["memory", "fs"])
+def test_sigkill_reopen_converges_warm_and_fsck_clean(backend, tmp_path):
+    """A daemon abandoned mid-flight with no drain loses nothing durable:
+    every tenant reopens warm from the cycle-sealed checkpoint, a
+    post-reopen write mints fresh dots, the fleet converges with a cold
+    reader, and each package's fsck reads the remote clean — in both
+    packages, with the same outcome and the same fsck report."""
+    import crdt_enc_tpu.sim as jsim
+    import crdt_enc_tpu_torch.sim as psim
+    from crdt_enc_tpu.backends import FsStorage as JFsStorage
+    from crdt_enc_tpu.tools.fsck import fsck_remote as jfsck
+    from crdt_enc_tpu_torch.backends import FsStorage
+    from crdt_enc_tpu_torch.tools.fsck import fsck_remote as pfsck
+
+    extra = {"port": (FsStorage, pfsck, psim.DeterministicCryptor),
+             "jax": (JFsStorage, jfsck, jsim.DeterministicCryptor)}
+
+    async def scenario(side, root):
+        Fs, fsck_remote, Det = extra[side.name]
+        remotes = [side.Remote() for _ in range(3)]
+
+        def storage(i, tag):
+            if backend == "memory":
+                return side.Storage(remotes[i])
+            return Fs(str(root / f"{tag}-{i}"), str(root / f"remote-{i}"))
+
+        for i in range(3):
+            w = await side.Core.open(side.opts(storage(i, "w")))
+            for k in range(18):
+                m = b"k%d-%d" % (i, k % 13)
+                await w.update(lambda s, m=m, w=w: s.add_ctx(w.actor_id, m))
+        tenant_storages = [storage(i, "t") for i in range(3)]
+        cores = [await side.Core.open(side.opts(st))
+                 for st in tenant_storages]
+        daemon = side.Daemon(cores, quick_cfg(side))
+        await daemon.run_cycle()
+        del daemon, cores  # no drain, no close
+        out = []
+        for i, st in enumerate(tenant_storages):
+            c = await side.Core.open(side.opts(st, create=False))
+            warm = c.opened_from_checkpoint
+            await c.update(lambda s, c=c: s.add_ctx(c.actor_id,
+                                                    b"post-kill-%d" % i))
+            await c.compact()
+            cold = await side.Core.open(side.opts(storage(i, "cold")))
+            await cold.read_remote()
+            report = await fsck_remote(storage(i, "fsck"), Det(f"k{i}"),
+                                       side.opts(None).key_cryptor,
+                                       deep=True)
+            out.append((warm, cold.with_state(side.canonical)
+                        == c.with_state(side.canonical), report.ok,
+                        [(x.severity, x.family) for x in report.issues],
+                        report.state_files, report.op_files))
+        return out
+
+    port = run(scenario(PORT, tmp_path / "port"))
+    jax = run(scenario(JAX, tmp_path / "jax"))
+    assert port == jax
+    assert all(warm and same and ok for warm, same, ok, *_ in port)
+
+
+# --------------------------------------------------- sim vocabulary
+
+
+def test_sim_daemon_vocabulary_schedule_roundtrip():
+    import crdt_enc_tpu.sim as jsim
+    from crdt_enc_tpu_torch.sim import FaultConfig, Schedule, generate
+
+    sched = generate(3, 4, 200, FaultConfig.none(), daemon=True)
+    assert "daemon" in {s.kind for s in sched.steps}
+    assert sched.to_obj() == jsim.generate(
+        3, 4, 200, jsim.FaultConfig.none(), daemon=True).to_obj()
+    again = Schedule.from_obj(sched.to_obj())
+    assert again.daemon and [s.to_obj() for s in again.steps] == [
+        s.to_obj() for s in sched.steps]
+    plain = generate(3, 4, 200, FaultConfig.none())
+    assert [s.to_obj() for s in plain.steps] == [
+        s.to_obj() for s in generate(3, 4, 200, FaultConfig.none(),
+                                     daemon=False).steps]
+    assert not any(s.kind in ("daemon", "ddrain") for s in plain.steps)
+
+
+def test_sim_daemon_schedule_runs_clean():
+    """A no-fault daemon-vocabulary schedule runs a real FleetDaemon
+    inside the port's simulator (tenants folding through the plain
+    versions) with the JAX run's fingerprint and five daemon cycles."""
+    import crdt_enc_tpu.sim as jsim
+    import crdt_enc_tpu_torch.sim as psim
+
+    results = []
+    for pkg, kw in ((jsim, {}), (psim, {"device": "cpu"})):
+        S = pkg.Step
+        sched = pkg.Schedule(
+            seed=11, n_replicas=3, daemon=True,
+            steps=[S("add", 0, 1), S("add", 1, 2), S("daemon"),
+                   S("add", 2, 3), S("daemon"), S("crash", 1),
+                   S("daemon"), S("reopen", 1), S("daemon"),
+                   S("ddrain"), S("add", 0, 4), S("daemon")],
+            faults=pkg.FaultConfig.none(),
+        )
+        results.append(pkg.run_schedule(sched, **kw))
+    jres, pres = results
+    assert pres.ok, pres.violation
+    assert pres.daemon_cycles == jres.daemon_cycles == 5
+    assert pres.fingerprint == jres.fingerprint

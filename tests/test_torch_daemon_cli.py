@@ -10,7 +10,9 @@ and each tenant's state, cursor and sealed snapshot payloads are equal
 across the packages (tolerance 0; the snapshot ciphertexts differ only by
 their nonces, so the payloads are compared decrypted).  Usage errors exit
 2, ``--device cuda`` without a card stops with ``DeviceUnavailableError``
-and exit 1, and SIGTERM drains a running process.
+and exit 1, and SIGTERM drains a running process.  ``selftest --device
+cpu`` (faulted tenants, recovery, drain, fsck and a host-reference cold
+refold of every tenant) passes with the JAX selftest's cycle lines.
 """
 
 from __future__ import annotations
@@ -125,7 +127,7 @@ def test_run_seals_what_the_jax_cli_seals(tmp_path, deltas):
 
 @pytest.mark.parametrize("argv", [
     [],
-    ["selftest"],
+    ["selftest", "--tenants", "six"],
     ["run"],
     ["run", "--tenant", "no-equals-sign"],
     ["run", "--tenant", "=remote"],
@@ -187,3 +189,30 @@ def test_sigterm_drains_a_running_daemon(tmp_path):
     assert proc.returncode == 0, err
     assert "drained after" in err
     assert all(warm for warm, *_ in run(reopened(tmp_path, "port")))
+
+
+def selftest_lines(err: str) -> list:
+    return [ln for ln in err.splitlines()
+            if ln.startswith(("cycle ", "selftest OK", "SELFTEST FAIL"))]
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_selftest_cpu_matches_the_jax_selftest(capsys, seed):
+    """``selftest --device cpu``: exit 0, fsck clean, and per cycle the
+    same selections, errors, backoffs and quarantines as the JAX
+    package's selftest."""
+    args = ["selftest", "--seed", str(seed)]
+    assert daemon_cli.main(args + ["--device", "cpu"]) == 0
+    port = selftest_lines(capsys.readouterr().err)
+    assert jdaemon_cli.main(args) == 0
+    jax = selftest_lines(capsys.readouterr().err)
+    assert port == jax
+    assert port[-1].startswith("selftest OK: 6 tenants (3 faulted)")
+
+
+def test_selftest_cuda_without_a_card_is_a_named_error(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["--device", "cuda"]):
+        assert daemon_cli.main(["selftest"] + extra) == 1
+        assert capsys.readouterr().err.startswith(
+            "DeviceUnavailableError: --device cuda")

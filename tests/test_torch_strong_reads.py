@@ -4,11 +4,12 @@ the checkpoint's ``sp`` slot.
 
 The applicable cases of tests/test_strong_reads.py, run on the port with
 ``XChaChaCryptor`` and ``TorchAccelerator(device="cpu",
-min_device_batch=1)``.  The oracle is the JAX package's
-``crdt_enc_tpu.sim.linearize.check_strong_read`` (imported by this test
-only): every strong read must equal the host fold of exactly the op
-prefix its cursor names, never regress within an incarnation, and cover
-what a successful ``await_stable`` promised.  The membership policy is
+min_device_batch=1)``.  The oracle is the port's
+``crdt_enc_tpu_torch.sim.linearize.check_strong_read``: every strong read
+must equal the host fold of exactly the op prefix its cursor names, never
+regress within an incarnation, and cover what a successful
+``await_stable`` promised.  One case holds it equal to the JAX package's
+checker on the same op log and results, defects included.  The membership policy is
 held against the JAX one on the same observations, and a checkpoint's
 ``sp`` slot opens warm across the packages both ways.
 """
@@ -27,7 +28,7 @@ from crdt_enc_tpu.core import OpenOptions as JOpenOptions
 from crdt_enc_tpu.core import adapters as jadapters
 from crdt_enc_tpu.models.vclock import VClock as JVClock
 from crdt_enc_tpu.read import MembershipPolicy as JMembershipPolicy
-from crdt_enc_tpu.sim.linearize import check_strong_read
+from crdt_enc_tpu.sim import linearize as jlinearize
 from crdt_enc_tpu_torch import (
     Core,
     FsStorage,
@@ -45,6 +46,7 @@ from crdt_enc_tpu_torch import (
 from crdt_enc_tpu_torch.models.vclock import VClock
 from crdt_enc_tpu_torch.read import MembershipPolicy, StalenessError
 from crdt_enc_tpu_torch.serve import FoldService, ServeConfig
+from crdt_enc_tpu_torch.sim.linearize import check_strong_read
 from crdt_enc_tpu_torch.utils import trace
 from crdt_enc_tpu_torch.utils.versions import DEFAULT_DATA_VERSION_1
 
@@ -178,6 +180,49 @@ def test_strong_read_exact_oracle_fold_memory():
         assert not await b.contains(b"zzz", linearizable=True)
 
     run(scenario())
+
+
+def test_strong_read_checker_equals_the_jax_checker():
+    """The port's checker and the JAX package's give the same verdict on
+    the same op log and strong reads: a clean read, a regressed cursor, an
+    uncovered read-your-writes target, a phantom op and a forged value."""
+    import dataclasses
+
+    async def scenario():
+        remote = MemoryRemote()
+        a = await Core.open(make_opts(MemoryStorage(remote)))
+        b = await Core.open(make_opts(MemoryStorage(remote)))
+        oplog: dict = {}
+        for m in (b"x", b"y"):
+            await _write(a, m, oplog)
+        await _write(b, b"z", oplog)
+        await a.compact()
+        r1 = await b.read(linearizable=True)
+        await _write(a, b"w", oplog)
+        await a.compact()
+        r2 = await b.read(linearizable=True)
+        return oplog, r1, r2, a.actor_id
+
+    oplog, r1, r2, actor = run(scenario())
+    bigger = VClock(dict(r2.cursor.counters))
+    bigger.counters[actor] = bigger.get(actor) + 5
+    forged = ORSet()
+    forged.add_ctx(b"\x01" * 16, b"not-in-the-log")
+    cases = [
+        (oplog, r2, None, None),
+        (oplog, r2, r1.cursor, None),
+        (oplog, r1, r2.cursor, None),  # cursor regressed
+        (oplog, r1, None, bigger),  # await target not covered
+        (oplog, dataclasses.replace(r2, cursor=bigger), None, None),
+        (oplog, dataclasses.replace(r2, obj=forged.to_obj()), None, None),
+    ]
+    verdicts = []
+    for log, res, prev, target in cases:
+        port = check_strong_read(log, res, prev, ryw_target=target)
+        jax = jlinearize.check_strong_read(log, res, prev, ryw_target=target)
+        assert port == jax
+        verdicts.append(port is None)
+    assert verdicts == [True, True, False, False, False, False]
 
 
 def test_strong_read_exact_oracle_fold_fs(tmp_path):

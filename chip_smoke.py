@@ -168,6 +168,32 @@ Phases:
    schedules/s, steps/s, launches, ``h2d_bytes``; (d) ``tools.sim
    replay tests/data/sim`` and ``tools.daemon selftest --device cuda`` in
    process, each exit 0, the selftest launching K2;
+19. the operator's read side, the migration tools and the device-decode
+   experiment: (a) phase 10's config-3 op files, encrypted, through
+   ``TorchAccelerator.fold_encrypted_stream`` (the port's own chunking and
+   producer count) with events on, recorded through ``MetricsSink``,
+   byte-equal to the host loop; ``obs_report export-trace --check-overlap
+   stream.ingest:stream.reduce`` exits 0 (chunk k+1's ingest started
+   inside chunk k's reduce), then ``report``, ``prom``, ``gap``; (b)
+   ``diff`` against a second run; (c) four ``Core``s on the card, each
+   compacting its own replica of one encrypted FsStorage remote (one
+   tenant of phase 16's shape) later in its history, each with its own
+   sink file: ``obs_report fleet`` exits 0 and its stable watermark is the
+   pointwise min of the four cursors; (d) a ``FoldService`` over phase
+   16's mix at 256 tenants, three cycles with the sink on: ``slo`` exits
+   0, ``gap`` on cycle 1 names its critical path; (e) ``gap`` and
+   ``trend`` over BENCH_LOCAL.jsonl and ``fleet`` over the committed
+   device files, equal to the committed goldens; (f) ``simcov`` over
+   phase 18's co-fire matrix; (g) ``export_reference`` (log mode) of a
+   64-writer MVReg history (32 files x 8 ops each) to the reference
+   format, ``import_reference --compact --device cuda`` into an encrypted
+   FsStorage remote and the same import with ``HostAccelerator``, equal
+   canonical states; exported back and imported again, the same bytes;
+   (h) bench.py's device-decode shape (200,000 add ops, 100,000 actors,
+   48 ops a file): the device arm on the card, the host vectorized arm
+   and the native decoder, equal columns, ``h2d_bytes`` equal to the
+   upload, each arm's time; a fold session with ``CRDT_DEVICE_DECODE``
+   on and off, equal state bytes;
 then the kernels line and the result line.  Phase 5 also times the merge
 at the compaction's own shape (S = 9, E = 4,096, R = 5,000) against its
 plain version, and phases 5 and 9 give the merge and K3's shape their
@@ -307,6 +333,20 @@ SIM_FLEET = (42, 8, 500)
 SIM_POP_N, SIM_POP_P, SIM_POP_R, SIM_POP_STEPS, SIM_POP_MEMBERS = \
     32, 8, 4, 100, 6
 SIM_BENCH_R, SIM_BENCH_STEPS, SIM_BENCH_SERIAL, SIM_BENCH_POP = 8, 250, 4, 16
+# phase 19: (c) OBS_FLEET_DEVICES cores over one tenant of phase 16's shape;
+# (d) phase 16's mix at 1/OBS_SCALE of its size (256 tenants: 32
+# G-Counters, 2 with 3 snapshots, 1 oversize, 1 decline, 2 empty); (g) the
+# reference example's MVReg<_, Uuid> as MIG_ACTORS writers x MIG_FILES op
+# files x MIG_OPS ops, written in MIG_GROUPS turns a round (256 files a
+# writer took 303 s on the card's machine, ~3 ms an exported and ~7 ms an
+# imported file on its 9p root, so the depth is cut to 32); (h) bench.py's
+# device_decode_exp shape (bench.py:541): DD_N add ops over DD_R actors,
+# DD_OPF ops a file, each arm's best of DD_ITERS, the session fed DD_CHUNKS
+# packed chunks
+OBS_FLEET_DEVICES, OBS_FLEET_SEED, OBS_SCALE = 4, 37, 8
+MIG_ACTORS, MIG_FILES, MIG_OPS, MIG_GROUPS, MIG_SEED = 64, 32, 8, 8, 31
+DD_N, DD_R, DD_OPF, DD_ITERS, DD_SEED, DD_CHUNKS = \
+    200_000, 100_000, 48, 5, 7, 8
 
 # peak device-memory rates (NVIDIA data sheets); float32 outside the
 # tensor cores is the table's nearest rate for the kernels' int32 ALU work
@@ -3210,22 +3250,27 @@ def serve_gcounter_files(N: int, R: int, seed: int, actors: list) -> list:
     return actor_files(streams, FLEET_OPF)
 
 
-def serve_fleet_spec() -> list:
+def serve_fleet_spec(scale: int = 1, cap: bool = True) -> list:
     """(label, kind, files, snapshots) per tenant; ``files`` in wire form,
-    ``snapshots`` a list of (sealer, state obj, cursor obj)."""
+    ``snapshots`` a list of (sealer, state obj, cursor obj).  ``scale``
+    divides every class's count (phase 19's mix); ``cap`` adds fleet (b),
+    the tenants at the cells cap."""
     from crdt_enc_tpu_torch import ORSet
     from crdt_enc_tpu_torch.models.orset import op_from_obj
 
     actors = actor_ids(FLEET_R)
     spec = []
     seed = SERVE_SEED * 10_000
-    n_gc = FLEET_GC
-    n_orset = FLEET_T - n_gc - FLEET_BIG - FLEET_DECLINE - FLEET_EMPTY
+    n_gc, n_big, n_decline, n_empty, n_snap = (
+        n if scale == 1 else max(1, n // scale)
+        for n in (FLEET_GC, FLEET_BIG, FLEET_DECLINE, FLEET_EMPTY,
+                  FLEET_SNAP))
+    n_orset = FLEET_T // scale - n_gc - n_big - n_decline - n_empty
     for t in range(n_orset):
         seed += 1
         files = serve_orset_files(FLEET_N, FLEET_R, FLEET_E, seed, actors)
         snaps = []
-        if t < FLEET_SNAP:
+        if t < n_snap:
             # snapshots sealed by other replicas: each folds the first
             # half of one actor's files, the cursor naming them
             for i in range(FLEET_SNAPSHOTS):
@@ -3244,12 +3289,12 @@ def serve_fleet_spec() -> list:
         seed += 1
         spec.append(("gcounter", "gcounter",
                      serve_gcounter_files(FLEET_N, FLEET_R, seed, actors), []))
-    for t in range(FLEET_BIG):
+    for t in range(n_big):
         seed += 1
         spec.append(("oversize", "orset", serve_orset_files(
             FLEET_BIG_N, FLEET_R, FLEET_E, seed, actors), []))
     foreign = uuid.UUID(int=(1 << 120) + 1).bytes
-    for t in range(FLEET_DECLINE):
+    for t in range(n_decline):
         seed += 1
         files = serve_orset_files(FLEET_N, FLEET_R, FLEET_E, seed, actors)
         # a remove whose context names an actor the decoder's table (the
@@ -3257,10 +3302,10 @@ def serve_fleet_spec() -> list:
         ab, v, ops = files[0]
         files[0] = (ab, v, ops + [[1, 7, {foreign: 3}]])
         spec.append(("decline", "orset", files, []))
-    for t in range(FLEET_EMPTY):
+    for t in range(n_empty):
         spec.append(("empty", "orset", [], []))
     cap_actors = actor_ids(CAP_R)
-    for t in range(CAP_T):
+    for t in range(CAP_T if cap else 0):
         seed += 1
         spec.append(("cells_cap", "orset", serve_orset_files(
             CAP_N, CAP_R, CAP_E, seed, cap_actors), []))
@@ -4247,6 +4292,7 @@ def phase_sim(device: str) -> dict:
     import logging
 
     from crdt_enc_tpu_torch.sim import (
+        CoFireMatrix,
         FaultConfig,
         PopulationReport,
         PopulationSubstrate,
@@ -4349,6 +4395,13 @@ def phase_sim(device: str) -> dict:
             "service_cycles": sum(r.service_cycles for r in rep.results),
             "device": sim_numbers(pop, rep.results),
             "cpu": sim_numbers(pop_cpu, pop_cpu["out"].results)}
+        # the fault x vocabulary co-fire matrix of (a) and (b), which
+        # phase 19 renders with obs_report simcov
+        coverage = CoFireMatrix()
+        coverage.record(fleet, res)
+        for s, r in zip(rep.schedules, rep.results):
+            coverage.record(s, r)
+        out["coverage"] = coverage.to_obj()
         print(f"  (b) no violation, {rep.refills} refills, serial equality "
               f"on 4, {SIM_POP_N} fingerprints equal to the CPU's; "
               f"{out['population']['strong_reads']} strong reads, "
@@ -4410,6 +4463,630 @@ def phase_sim(device: str) -> dict:
                            "launches": selftest["launches"]}
     finally:
         log.setLevel(level)
+    return out
+
+
+# ---- phase 19: the operator's read side, migration, device decode ----------
+
+
+def captured(fn) -> tuple:
+    """``fn()`` (an entry point's ``main``) with its output captured:
+    ``(exit code, stdout, stderr)``."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn()
+    return rc, out.getvalue(), err.getvalue()
+
+
+def obs_cli(argv: list) -> tuple:
+    """``python -m crdt_enc_tpu_torch.tools.obs_report ARGV`` in process."""
+    from crdt_enc_tpu_torch.tools import obs_report
+
+    return captured(lambda: obs_report.main(list(argv)))
+
+
+def expect_cli(label: str, argv: list, rc: int = 0, show: bool = True) -> str:
+    """Run ``obs_report ARGV``; fail unless it exits ``rc``.  Prints the
+    output indented (or its line count) and returns it."""
+    got, out, err = obs_cli(argv)
+    if got != rc:
+        raise AssertionError(f"obs_report {' '.join(argv[:1])} ({label}) "
+                             f"exited {got}, expected {rc}: {err.strip()}")
+    if show:
+        for line in out.rstrip("\n").splitlines():
+            print(f"    {line}", flush=True)
+    else:
+        print(f"    ({len(out.splitlines())} lines)", flush=True)
+    return out
+
+
+def obs_stream_run(label: str, accel, key, blobs, actors, host: bytes,
+                   path: str) -> dict:
+    """(a): one recorded ``fold_encrypted_stream`` with events on, written
+    through ``MetricsSink`` to ``path``; the state byte-equal to the host
+    loop's.  Returns the session mode, launches, wall and spans."""
+    from crdt_enc_tpu_torch import ORSet, canonical_bytes
+    from crdt_enc_tpu_torch.obs import sink as obs_sink
+    from crdt_enc_tpu_torch.utils import trace
+
+    sessions = []
+    real_open = accel.open_fold_session
+
+    def capture(*args, **kw):
+        s = real_open(*args, **kw)
+        sessions.append(s)
+        return s
+
+    accel.open_fold_session = capture
+    trace.reset()
+    trace.enable_events()
+    reset_launches()
+    state = ORSet()
+    try:
+        t0 = time.perf_counter()
+        if not accel.fold_encrypted_stream(state, key, blobs,
+                                           actors_hint=actors):
+            raise AssertionError(f"{label}: fold_encrypted_stream declined")
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        rec = obs_sink.MetricsSink(path).write(
+            label, meta={"wall_s": wall, "mode": sessions[0].mode})
+    finally:
+        trace.enable_events(False)
+        del accel.open_fold_session
+    same = canonical_bytes(state) == host
+    print(f"  {label}: session mode {sessions[0].mode}, "
+          f"{rec['gauges'].get('stream_producers')} producers, wall "
+          f"{wall:.3f} s, launches { {k: v for k, v in launches.items() if v} }"
+          f", {len(rec.get('events', ()))} events, bytes equal to the host "
+          f"loop: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{label}: state differs from the host loop")
+    return {"mode": sessions[0].mode, "wall_s": wall, "launches": launches,
+            "events": len(rec.get("events", ())),
+            "producers": rec["gauges"].get("stream_producers"),
+            "spans_s": {k: v["seconds"] for k, v in rec["spans"].items()}}
+
+
+def phase_obs_stream(device: str, root: str) -> dict:
+    """(a) and (b): phase 10's config-3 op files, encrypted, through
+    ``TorchAccelerator.fold_encrypted_stream`` twice with events on, each
+    run a sink record; the overlap proof, report, prom, gap and diff."""
+    import secrets
+
+    from crdt_enc_tpu_torch import (
+        HostAccelerator, ORSet, TorchAccelerator, canonical_bytes,
+        orset_adapter,
+    )
+    from crdt_enc_tpu_torch.backends.xchacha import encrypt_blob
+    from crdt_enc_tpu_torch.obs import attribution, sink as obs_sink
+    from crdt_enc_tpu_torch.utils import codec
+
+    t0 = time.perf_counter()
+    actors = actor_ids(N_REPLICAS)
+    files = compaction_files(gen_columns(N_ROWS, N_REPLICAS, N_MEMBERS, SEED),
+                             actors)
+    n_ops = sum(len(f[3]) for f in files)
+    key = secrets.token_bytes(32)
+    blobs = [encrypt_blob(key, codec.pack(ops)) for *_, ops in files]
+    adapter = orset_adapter()
+    ops = [adapter.op_from_obj(o) for *_, wire in files for o in wire]
+    del files
+    t1 = time.perf_counter()
+    host = canonical_bytes(HostAccelerator().fold_ops(ORSet(), ops))
+    host_s = time.perf_counter() - t1
+    del ops
+    print(f"  (a) {len(blobs)} encrypted op files, {n_ops} ops (phase 10's "
+          f"files) made in {t1 - t0:.1f} s; host loop {host_s:.2f} s",
+          flush=True)
+    accel = TorchAccelerator(device)
+    paths = [os.path.join(root, f"obs_stream_{i}.jsonl") for i in (1, 2)]
+    runs = [obs_stream_run(f"(a) stream run {i + 1}", accel, key, blobs,
+                           sorted(actors), host, p)
+            for i, p in enumerate(paths)]
+    a = runs[0]
+    trace_path = os.path.join(root, "obs_stream_trace.json")
+    print("  (a) obs_report export-trace --check-overlap "
+          "stream.ingest:stream.reduce", flush=True)
+    overlap_out = expect_cli("overlap", [
+        "export-trace", paths[0], "-o", trace_path,
+        "--check-overlap", "stream.ingest:stream.reduce"])
+    print("  (a) obs_report report", flush=True)
+    expect_cli("report", ["report", paths[0]])
+    prom = expect_cli("prom", ["prom", paths[0]], show=False)
+    print("  (a) obs_report gap", flush=True)
+    expect_cli("gap", ["gap", paths[0]])
+    rec = obs_sink.read_records(paths[0])[-1]
+    report = attribution.from_record(rec)
+    print(f"  (b) obs_report diff run 1 -> run 2", flush=True)
+    expect_cli("diff", ["diff", paths[0], paths[1]])
+    return {"ops": n_ops, "files": len(blobs), "host_loop_s": host_s,
+            "runs": runs, "overlap": overlap_out.strip().splitlines()[-1],
+            "prom_lines": len(prom.splitlines()),
+            "stages_s": {k: v["seconds"] for k, v in report["stages"].items()},
+            "critical_path": report["critical_path"],
+            "wall_s_events": report["wall_s"],
+            "overlap_x": report.get("overlap_x"),
+            "overlapped_chunks": report.get("overlapped_chunks"),
+            "launches": {k: sum(r["launches"][k] for r in runs)
+                         for k in runs[0]["launches"]}}
+
+
+def phase_obs_fleet(device: str, root: str) -> dict:
+    """(c): four port ``Core``s on ``device`` as four devices, each
+    compacting its own replica of one encrypted FsStorage remote (one
+    tenant of phase 16's shape) at a later point of its history and
+    writing its own sink file; ``obs_report fleet`` over the four."""
+    import asyncio
+
+    from crdt_enc_tpu_torch import Core, FsStorage, HostAccelerator, \
+        TorchAccelerator
+    from crdt_enc_tpu_torch.obs import sink as obs_sink
+
+    base = os.path.join(root, "obs_fleet")
+    remote = os.path.join(base, "remote")
+    actors = actor_ids(FLEET_R)
+    files = serve_orset_files(FLEET_N, FLEET_R, FLEET_E, OBS_FLEET_SEED,
+                              actors)
+    # staged in version order, so every stage leaves each actor's log dense
+    files.sort(key=lambda f: (f[1], f[0]))
+    parts = np.array_split(np.arange(len(files)), OBS_FLEET_DEVICES)
+    paths = [os.path.join(base, f"device{i}.jsonl")
+             for i in range(OBS_FLEET_DEVICES)]
+    reset_launches()
+
+    async def go():
+        writer = await Core.open(compaction_options(base, "writer", remote,
+                                                    HostAccelerator()))
+        store = FsStorage(os.path.join(base, "writer"), remote)
+        cores, expect = [], []
+        seen: dict = {}
+        for i, part in enumerate(parts):
+            batch = [files[j] for j in part.tolist()]
+            blobs = await asyncio.gather(*(writer._seal(ops)
+                                           for *_, ops in batch))
+            for (ab, v, _), blob in zip(batch, blobs):
+                await store.store_ops(ab, v, blob)
+                seen[ab] = max(seen.get(ab, 0), v)
+            expect.append(dict(seen))
+            obs_sink.configure(paths[i])
+            try:
+                c = await Core.open(compaction_options(
+                    base, f"device{i}", remote, TorchAccelerator(device)))
+                await c.compact()
+            finally:
+                obs_sink.configure(None)
+            cores.append(c)
+        return cores, expect
+
+    t0 = time.perf_counter()
+    cores, expect = run_async(go())
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    clocks = [c.info().next_op_versions for c in cores]
+    for c, want in zip(clocks, expect):
+        if dict(c.counters) != want:
+            raise AssertionError("a device's cursor is not the history it "
+                                 "was given")
+    watermark = {}
+    for a in set().union(*(c.counters for c in clocks)):
+        lo = min(c.get(a) for c in clocks)
+        if lo:
+            watermark[a.hex()] = lo
+    print(f"  (c) {len(files)} op files ({FLEET_N} ops) over "
+          f"{OBS_FLEET_DEVICES} devices, compacted in {wall:.2f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print("  (c) obs_report fleet", flush=True)
+    expect_cli("fleet", ["fleet", *paths])
+    rc, out, err = obs_cli(["fleet", "--json", *paths])
+    rep = json.loads(out)
+    [rem] = rep["remotes"]
+    same = rem["stable_watermark"] == dict(sorted(watermark.items()))
+    print(f"  (c) fleet watermark {sum(rem['stable_watermark'].values())} "
+          f"versions over {len(rem['stable_watermark'])} actors; equal to "
+          f"the pointwise min of the four cursors: {same}", flush=True)
+    if rc != 0 or not same or rep["n_devices"] != OBS_FLEET_DEVICES:
+        raise AssertionError(f"fleet report: exit {rc}, watermark "
+                             f"{rem['stable_watermark']} != {watermark}")
+    return {"devices": OBS_FLEET_DEVICES, "ops": FLEET_N,
+            "files": len(files), "wall_s": wall, "launches": launches,
+            "watermark": rem["stable_watermark"], "lag": rem["lag"],
+            "converged": rem["converged"]}
+
+
+def phase_obs_service(device: str, root: str) -> dict:
+    """(d): a ``FoldService`` over phase 16's mix at 1/OBS_SCALE of its
+    size, three cycles (all ops, 10% tails, quiet) with the sink on;
+    ``obs_report slo`` over the file and ``gap`` on cycle 1's record."""
+    from crdt_enc_tpu_torch import MemoryStorage, TorchAccelerator
+    from crdt_enc_tpu_torch.obs import sink as obs_sink
+    from crdt_enc_tpu_torch.serve import FoldService
+    from crdt_enc_tpu_torch.utils import trace
+
+    t0 = time.perf_counter()
+    spec = serve_fleet_spec(scale=OBS_SCALE, cap=False)
+    labels = [s[0] for s in spec]
+    remotes, tails = run_async(seal_fleet(spec))
+    cores = serve_open(remotes, spec, TorchAccelerator(device), set())
+    print(f"  (d) {len(spec)} tenants "
+          f"({ {k: labels.count(k) for k in dict.fromkeys(labels)} }) sealed "
+          f"and opened in {time.perf_counter() - t0:.1f} s", flush=True)
+    del spec
+    path = os.path.join(root, "obs_service.jsonl")
+    service = FoldService(cores)
+    cycles = []
+    reset_launches()
+    obs_sink.configure(path)
+    try:
+        for cycle in (1, 2, 3):
+            if cycle == 2:
+                async def add_tails():
+                    for remote, t in zip(remotes, tails):
+                        store = MemoryStorage(remote)
+                        for ab, v, blob in t:
+                            await store.store_ops(ab, v, blob)
+                run_async(add_tails())
+            trace.reset()
+            t1 = time.perf_counter()
+            results = run_async(service.run_cycle())
+            wall = time.perf_counter() - t1
+            errors = [r.error for r in results if r.error]
+            if errors:
+                raise AssertionError(f"(d) cycle {cycle}: tenant errors "
+                                     f"{errors[:3]}")
+            sealed = sum(1 for r in results if r.sealed)
+            cycles.append({"wall_s": wall, "sealed": sealed})
+            print(f"  (d) cycle {cycle}: {wall:.3f} s, {sealed} tenants "
+                  "sealed", flush=True)
+    finally:
+        obs_sink.configure(None)
+        service.close()
+    launches = read_launches()
+    print(f"  (d) launches over the three cycles "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print("  (d) obs_report slo", flush=True)
+    expect_cli("slo", ["slo", path])
+    print("  (d) obs_report gap on cycle 1's record", flush=True)
+    gap = expect_cli("gap", ["gap", path, "--label", "serve_cycle",
+                             "--index", "0"])
+    critical = next(ln for ln in gap.splitlines()
+                    if ln.startswith("critical path:"))
+    print(f"  (d) cycle 1 {critical}", flush=True)
+    return {"tenants": len(labels), "cycles": cycles, "launches": launches,
+            "critical_path": critical.split(":", 1)[1].strip(),
+            "records": len(open(path).read().splitlines())}
+
+
+def phase_obs_committed(sim: dict, root: str) -> dict:
+    """(e) the committed records and goldens, (f) simcov over phase 18's
+    co-fire matrix."""
+    from crdt_enc_tpu_torch.sim import CoFireMatrix
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(here, "tests", "data")
+    bench = os.path.join(here, "BENCH_LOCAL.jsonl")
+    print("  (e) obs_report gap BENCH_LOCAL.jsonl (streaming record)",
+          flush=True)
+    gap = expect_cli("gap", ["gap", bench, "--metric",
+                             "orset_e2e_streaming_ops_per_sec"])
+    with open(os.path.join(data, "obs_gap_golden.txt")) as f:
+        gap_golden = gap == f.read()
+    trend = expect_cli("trend", ["trend", bench], show=False)
+    fleet = expect_cli("fleet golden", [
+        "fleet", os.path.join(data, "fleet_device_a.jsonl"),
+        os.path.join(data, "fleet_device_b.jsonl")], show=False)
+    with open(os.path.join(data, "obs_fleet_golden.txt")) as f:
+        fleet_golden = fleet == f.read()
+    print(f"  (e) gap equals tests/data/obs_gap_golden.txt: {gap_golden}; "
+          f"trend {len(trend.splitlines())} lines; fleet equals "
+          f"tests/data/obs_fleet_golden.txt: {fleet_golden}", flush=True)
+    if not (gap_golden and fleet_golden):
+        raise AssertionError("a committed golden does not match")
+    path = os.path.join(root, "obs_simcov.json")
+    CoFireMatrix.from_obj(sim["coverage"]).dump(path)
+    print(f"  (f) obs_report simcov over phase 18's matrix "
+          f"({sim['coverage']['runs']} runs)", flush=True)
+    expect_cli("simcov", ["simcov", path])
+    return {"gap_golden": gap_golden, "fleet_golden": fleet_golden,
+            "trend_lines": len(trend.splitlines()),
+            "simcov_runs": sim["coverage"]["runs"]}
+
+
+def migration_history() -> list:
+    """(g)'s source history, the reference example's ``MVReg<_, Uuid>``
+    (examples/test/src/main.rs:12-26 of chpio/crdt-enc): MIG_ACTORS
+    writers, MIG_FILES op files each of MIG_OPS register writes.  In each
+    round every writer writes one file; the writers take turns in
+    MIG_GROUPS groups, a group's writers concurrently, each having read
+    the register as the previous group left it — so a write carries that
+    read's clock plus its own counter (``write_ctx``), and MIG_ACTORS /
+    MIG_GROUPS concurrent values survive a round.  Values are uuids.
+    ``(actor, version, ops in wire form)`` per file."""
+    from crdt_enc_tpu_torch.models.vclock import VClock
+
+    rng = np.random.default_rng(MIG_SEED)
+    actors = [uuid.UUID(int=(1 << 110) + a).bytes for a in range(MIG_ACTORS)]
+    width = MIG_ACTORS // MIG_GROUPS
+    seen: dict = {}
+    out = []
+    for v in range(1, MIG_FILES + 1):
+        for g in range(0, MIG_ACTORS, width):
+            read = dict(seen)
+            for ab in actors[g : g + width]:
+                clock = dict(read)
+                ops = []
+                for _ in range(MIG_OPS):
+                    clock[ab] = clock.get(ab, 0) + 1
+                    value = uuid.UUID(int=int(rng.integers(0, 2**63))).bytes
+                    ops.append([VClock(dict(clock)).to_obj(), value])
+                seen[ab] = clock[ab]
+                out.append((ab, v, ops))
+    return out
+
+
+def phase_obs_migration(device: str, root: str) -> dict:
+    """(g): a port replica's MVReg history exported to the reference
+    format (log mode), ``import_reference --compact`` into an encrypted
+    FsStorage remote on the card (the entry point, in process) and into a
+    second with ``HostAccelerator``; the canonical states equal, then
+    exported back (state mode) and imported again with the same bytes."""
+    import asyncio
+    import secrets
+
+    from crdt_enc_tpu_torch import (
+        Core, FsStorage, HostAccelerator, MemoryRemote, MemoryStorage,
+        OpenOptions, PlainKeyCryptor, TorchAccelerator, XChaChaCryptor,
+        canonical_bytes,
+    )
+    from crdt_enc_tpu_torch.core.adapters import mvreg_adapter
+    from crdt_enc_tpu_torch.tools import export_reference, import_reference
+    from crdt_enc_tpu_torch.utils.versions import DEFAULT_DATA_VERSION_1
+
+    base = os.path.join(root, "migration")
+    key = secrets.token_bytes(32)
+    data_version = uuid.UUID("11111111-2222-3333-4444-555555555555").bytes
+
+    def opts(storage, accel):
+        return OpenOptions(
+            storage=storage, cryptor=XChaChaCryptor(),
+            key_cryptor=PlainKeyCryptor(), adapter=mvreg_adapter(),
+            supported_data_versions=(DEFAULT_DATA_VERSION_1,),
+            current_data_version=DEFAULT_DATA_VERSION_1, create=True,
+            accelerator=accel)
+
+    def fs(name, remote):
+        return FsStorage(os.path.join(base, name), os.path.join(base, remote))
+
+    t0 = time.perf_counter()
+    history = migration_history()
+    n_ops = sum(len(ops) for *_, ops in history)
+
+    async def source():
+        remote = MemoryRemote()
+        src = await Core.open(opts(MemoryStorage(remote), HostAccelerator()))
+        for lo in range(0, len(history), COMPACT_WRITE_BATCH):
+            batch = history[lo : lo + COMPACT_WRITE_BATCH]
+            blobs = await asyncio.gather(*(src._seal(ops)
+                                           for *_, ops in batch))
+            for (ab, v, _), blob in zip(batch, blobs):
+                await src.storage.store_ops(ab, v, blob)
+        return src
+
+    src = run_async(source())
+    made = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = run_async(export_reference.export_reference_log(
+        src, os.path.join(base, "ref"), key, data_version))
+    export_s = time.perf_counter() - t0
+    print(f"  (g) {n_ops} MVReg ops in {len(history)} files over "
+          f"{MIG_ACTORS} actors sealed in {made:.1f} s; export_reference "
+          f"(log mode) wrote {stats.op_files} reference files in "
+          f"{export_s:.2f} s", flush=True)
+    if (stats.actors, stats.op_files, stats.ops) != (
+            MIG_ACTORS, len(history), n_ops):
+        raise AssertionError(f"export stats {stats}")
+    del history
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, text, _ = captured(lambda: import_reference.main([
+        os.path.join(base, "ref"), os.path.join(base, "card_local"),
+        os.path.join(base, "card_remote"), "--key-hex", key.hex(),
+        "--compact", "--device", device]))
+    card_s = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"import_reference exited {rc}")
+
+    async def host_import():
+        dest = await Core.open(opts(fs("host_local", "host_remote"),
+                                    HostAccelerator()))
+        await import_reference.import_reference_remote(
+            os.path.join(base, "ref"), dest, key, compact=True)
+        return dest
+
+    t0 = time.perf_counter()
+    host = run_async(host_import())
+    host_s = time.perf_counter() - t0
+
+    async def read(name, remote, accel):
+        c = await Core.open(opts(fs(name, remote), accel))
+        await c.read_remote()
+        return c
+
+    card = run_async(read("card_reader", "card_remote",
+                          TorchAccelerator(device)))
+    card_bytes = card.with_state(canonical_bytes)
+    host_bytes = host.with_state(canonical_bytes)
+    print(f"  (g) import_reference --compact --device {device}: "
+          f"{text.strip()}; wall {card_s:.2f} s; HostAccelerator import "
+          f"{host_s:.2f} s; canonical states equal: "
+          f"{card_bytes == host_bytes} ({len(card_bytes)} bytes)", flush=True)
+    if card_bytes != host_bytes:
+        raise AssertionError("the card's import differs from the host's")
+    t0 = time.perf_counter()
+    back = run_async(export_reference.export_reference_state(
+        card, os.path.join(base, "back"), key, data_version))
+
+    async def reimport():
+        dest = await Core.open(opts(fs("again_local", "again_remote"),
+                                    TorchAccelerator(device)))
+        await import_reference.import_reference_remote(
+            os.path.join(base, "back"), dest, key, compact=True)
+        return dest.with_state(canonical_bytes)
+
+    again = run_async(reimport())
+    round_s = time.perf_counter() - t0
+    print(f"  (g) exported back (state mode, {back.ops} ops) and imported "
+          f"again in {round_s:.2f} s: same bytes {again == card_bytes}",
+          flush=True)
+    if again != card_bytes:
+        raise AssertionError("the round trip changed the state")
+    return {"actors": MIG_ACTORS, "files": stats.op_files, "ops": n_ops,
+            "export_s": export_s, "card_import_s": card_s,
+            "host_import_s": host_s, "round_trip_s": round_s,
+            "state_bytes": len(card_bytes), "launches": launches}
+
+
+def phase_obs_device_decode(device: str) -> dict:
+    """(h): bench.py's device_decode_exp shape (bench.py:541) on the card:
+    the device arm, the host vectorized arm and the native decoder, equal
+    columns, ``h2d_bytes`` equal to the upload, each arm's best of
+    DD_ITERS; then a fold session fed the corpus as packed chunks with
+    the gate on and off, equal state bytes."""
+    import secrets
+
+    from crdt_enc_tpu_torch import ORSet, TorchAccelerator, canonical_bytes
+    from crdt_enc_tpu_torch.backends.xchacha import (
+        decrypt_blobs_packed, encrypt_blob,
+    )
+    from crdt_enc_tpu_torch.ops import device_decode as DD
+    from crdt_enc_tpu_torch.ops.native_decode import decode_orset_payload_batch
+    from crdt_enc_tpu_torch.utils import codec, trace
+
+    rng = np.random.default_rng(DD_SEED)
+    actors = sorted(rng.bytes(16) for _ in range(DD_R))
+    payloads = []
+    for lo in range(0, DD_N, DD_OPF):
+        n = min(DD_OPF, DD_N - lo)
+        member = rng.integers(0, 128, n).tolist()
+        who = rng.integers(0, DD_R, n).tolist()
+        ctr = rng.integers(1, 128, n).tolist()
+        payloads.append(codec.pack([[0, m, [actors[a], c]]
+                                    for m, a, c in zip(member, who, ctr)]))
+    offs = np.zeros(len(payloads) + 1, np.uint64)
+    np.cumsum([len(p) for p in payloads], out=offs[1:])
+    buf = np.frombuffer(b"".join(payloads), np.uint8)
+    packed = (buf, offs)
+    trace.reset()
+    dev = DD.decode_adds_device(packed, actors, device)
+    h2d = trace.snapshot()["counters"].get("h2d_bytes", 0)
+    host = DD.decode_adds_host(packed, actors)
+    native = decode_orset_payload_batch(list(payloads), actors)
+    if dev is None or host is None or native is None:
+        raise AssertionError("an arm declined the all-adds corpus")
+    for name, arm in (("host", host), ("native", native)):
+        if not all(np.array_equal(np.asarray(arm[i]), np.asarray(dev[i]))
+                   for i in (0, 2, 3)):
+            raise AssertionError(f"device decode columns differ from {name}")
+        members = [arm[4][i] for i in np.asarray(arm[1]).tolist()]
+        if members != [dev[4][i] for i in dev[1].tolist()]:
+            raise AssertionError(f"device decode members differ from {name}")
+    upload = buf.nbytes + DD_N * 8
+    if device == "cuda" and h2d != upload:
+        raise AssertionError(f"h2d_bytes {h2d} != the upload {upload}")
+
+    def best(fn):
+        t = float("inf")
+        for _ in range(DD_ITERS):
+            t0 = time.perf_counter()
+            if fn() is None:
+                raise AssertionError("an arm declined")
+            t = min(t, time.perf_counter() - t0)
+        return t
+
+    arms = {"device": best(lambda: DD.decode_adds_device(packed, actors,
+                                                         device)),
+            "host_vectorized": best(lambda: DD.decode_adds_host(packed,
+                                                                actors)),
+            "native": best(lambda: decode_orset_payload_batch(list(payloads),
+                                                              actors))}
+    print(f"  (h) {len(payloads)} payloads, {DD_N} add ops, R={DD_R}: three "
+          f"arms equal; h2d_bytes {h2d} (upload {upload}); best of "
+          f"{DD_ITERS}: " + ", ".join(f"{k} {v * 1e3:.2f} ms"
+                                      for k, v in arms.items()), flush=True)
+    print(device_line(), flush=True)
+    key = secrets.token_bytes(32)
+    blobs = [encrypt_blob(key, p) for p in payloads]
+    step = -(-len(blobs) // DD_CHUNKS)
+    states, spans = {}, {}
+    saved = os.environ.get("CRDT_DEVICE_DECODE")
+    reset_launches()
+    try:
+        for gate in ("0", "1"):
+            os.environ["CRDT_DEVICE_DECODE"] = gate
+            trace.reset()
+            accel = TorchAccelerator(device)
+            session = accel.open_fold_session(ORSet(), actors_hint=actors)
+            t0 = time.perf_counter()
+            for lo in range(0, len(blobs), step):
+                part = decrypt_blobs_packed(key, blobs[lo : lo + step])
+                session.reduce_chunk(session.decode_chunk_parts([part]))
+            states[gate] = canonical_bytes(session.finish())
+            spans[gate] = {k: v["count"] for k, v in
+                           trace.snapshot()["spans"].items()
+                           if k in ("device.decode", "session.decode")}
+            spans[gate]["wall_s"] = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("CRDT_DEVICE_DECODE", None)
+        else:
+            os.environ["CRDT_DEVICE_DECODE"] = saved
+    launches = read_launches()
+    same = states["1"] == states["0"]
+    print(f"  (h) fold session, gate off {spans['0']}, gate on {spans['1']}: "
+          f"state bytes equal {same}", flush=True)
+    if not same or spans["1"].get("device.decode") != DD_CHUNKS:
+        raise AssertionError("the gated session differs, or its chunks did "
+                             "not decode on the device")
+    return {"files": len(payloads), "ops": DD_N, "replicas": DD_R,
+            "arms_s": arms, "h2d_bytes": h2d, "upload_bytes": upload,
+            "device_vs_native_x": arms["device"] / arms["native"],
+            "session": spans, "launches": launches}
+
+
+def phase_obs(device: str, root: str, sim: dict) -> dict:
+    """Phase 19 (module docs): (a)–(h), each step failing the run when it
+    fails; the kernel counts zeroed before the phase and read after."""
+    import logging
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out: dict = {}
+    out["stream"] = phase_obs_stream(device, root)
+    gc.collect()
+    out["fleet"] = phase_obs_fleet(device, root)
+    out["service"] = phase_obs_service(device, root)
+    out["committed"] = phase_obs_committed(sim, root)
+    log = logging.getLogger("crdt_enc_tpu_torch")
+    level = log.level
+    log.setLevel(logging.ERROR)  # the importer's per-remote notices
+    try:
+        out["migration"] = phase_obs_migration(device, root)
+    finally:
+        log.setLevel(level)
+    out["device_decode"] = phase_obs_device_decode(device)
+    parts = ("stream", "fleet", "service", "migration", "device_decode")
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in parts)
+                       for k in KERNELS}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 19 launches {out['launches']}; wall "
+          f"{out['wall_s']:.1f} s", flush=True)
+    if device == "cuda" and (out["launches"]["orset_fold"] < 1
+                             or out["launches"]["orset_merge_many"] < 1):
+        raise AssertionError("phase 19 launched no orset_fold or no "
+                             "orset_merge_many")
     return out
 
 
@@ -4543,7 +5220,7 @@ def main() -> int:
 
 def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
                       name, t_start) -> int:
-    """Phases 10 to 18 and the closing lines.  Phase 10's compaction remote
+    """Phases 10 to 19 and the closing lines.  Phase 10's compaction remote
     lives under ``root`` until phase 14 has compacted it twice more."""
     import torch
 
@@ -4642,6 +5319,17 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     sim["wall_s"] = time.perf_counter() - t0
     print(f"  phase 18 wall {sim['wall_s']:.1f} s", flush=True)
 
+    print(f"== 19. the operator's read side (obs_report over the card's own "
+          f"records: a config-3 stream, {OBS_FLEET_DEVICES} devices, a "
+          f"{FLEET_T // OBS_SCALE}-tenant service, the committed goldens, "
+          f"simcov), the reference migration ({MIG_ACTORS} x {MIG_FILES} x "
+          f"{MIG_OPS} MVReg ops) and the device decode (N={DD_N}, R={DD_R})",
+          flush=True)
+    print(device_line(), flush=True)
+    obs = phase_obs("cuda", root, sim)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     kernels = []
     for kname, (source, replaces, pallas) in KERNELS.items():
         entry = {
@@ -4699,6 +5387,10 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
                 "launches"][kname],
             "replay": sim["replay"]["launches"][kname],
             "selftest": sim["selftest"]["launches"][kname]}
+        entry["obs_launches"] = {
+            part: obs[part]["launches"][kname]
+            for part in ("stream", "fleet", "service", "migration",
+                         "device_decode")}
         if kname == "orset_fold":
             entry["serving"] = {
                 "route": "tenant layout: (E_b, T*R_b) planes, padding at "
@@ -4718,6 +5410,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"daemon": daemon}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
+    print(json.dumps({"obs": obs}), flush=True)
     print(device_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -45,34 +45,28 @@ def _check_key(key: bytes) -> None:
         raise AeadError(f"invalid key length {len(key)}; expected {KEY_LEN}")
 
 
-def encrypt_blob(key: bytes, data: bytes) -> bytes:
-    """Synchronous seal: data → raw-serialized versioned EncBox envelope."""
+def seal_raw(key: bytes, nonce: bytes, data: bytes) -> bytes:
+    """The bare AEAD: XChaCha20-Poly1305 seal with an explicit nonce,
+    returning ``ct ‖ tag`` (no envelope), for callers speaking a foreign
+    framing (the reference-remote import and export tools)."""
     _check_key(key)
+    if len(nonce) != NONCE_LEN:
+        raise AeadError(f"invalid nonce length {len(nonce)}")
     lib = native.load()
-    nonce = secrets.token_bytes(NONCE_LEN)
     kp, _k = native.in_ptr(key)
     np_, _n = native.in_ptr(nonce)
     pp, _p = native.in_ptr(data)
     op, out = native.out_buf(len(data) + TAG_LEN)
     lib.xchacha20poly1305_encrypt(kp, np_, None, 0, pp, len(data), op)
-    box = codec.pack([nonce, out.tobytes()])
-    return VersionBytes(XCHACHA_DATA_VERSION_1, box).serialize()
+    return out.tobytes()
 
 
-def decrypt_blob(key: bytes, blob: bytes) -> bytes:
-    """Synchronous open: raises AeadError on tag mismatch."""
+def open_raw(key: bytes, nonce: bytes, ct: bytes) -> bytes:
+    """Inverse of :func:`seal_raw`; raises AeadError on tag mismatch."""
     _check_key(key)
-    lib = native.load()
-    # any malformed framing is an auth failure to callers — attacker-shaped
-    # input must surface as AeadError, never a raw codec exception
-    try:
-        vb = VersionBytes.deserialize(blob).ensure_version(XCHACHA_DATA_VERSION_1)
-        nonce, ct = codec.unpack(vb.content)
-        nonce, ct = bytes(nonce), bytes(ct)
-    except Exception as e:
-        raise AeadError(f"malformed EncBox: {e}") from e
     if len(nonce) != NONCE_LEN or len(ct) < TAG_LEN:
-        raise AeadError("malformed EncBox")
+        raise AeadError("malformed EncBox (nonce/ciphertext lengths)")
+    lib = native.load()
     kp, _k = native.in_ptr(key)
     np_, _n = native.in_ptr(nonce)
     cp, _c = native.in_ptr(ct)
@@ -81,6 +75,27 @@ def decrypt_blob(key: bytes, blob: bytes) -> bytes:
     if rc != 0:
         raise AeadError("authentication failed (wrong key or tampered data)")
     return out.tobytes()
+
+
+def encrypt_blob(key: bytes, data: bytes) -> bytes:
+    """Synchronous seal: data → raw-serialized versioned EncBox envelope."""
+    nonce = secrets.token_bytes(NONCE_LEN)
+    box = codec.pack([nonce, seal_raw(key, nonce, data)])
+    return VersionBytes(XCHACHA_DATA_VERSION_1, box).serialize()
+
+
+def decrypt_blob(key: bytes, blob: bytes) -> bytes:
+    """Synchronous open: raises AeadError on tag mismatch."""
+    _check_key(key)
+    # any malformed framing is an auth failure to callers — attacker-shaped
+    # input must surface as AeadError, never a raw codec exception
+    try:
+        vb = VersionBytes.deserialize(blob).ensure_version(XCHACHA_DATA_VERSION_1)
+        nonce, ct = codec.unpack(vb.content)
+        nonce, ct = bytes(nonce), bytes(ct)
+    except Exception as e:
+        raise AeadError(f"malformed EncBox: {e}") from e
+    return open_raw(key, nonce, ct)
 
 
 def decrypt_blobs_packed(key: bytes, blobs: list, n_threads: int = 0):

@@ -28,11 +28,17 @@ Usage::
     trace.snapshot()  # {"spans": {name: {"count", "seconds", "max_ms",
                       #   "p50_ms", "p95_ms", "p99_ms"}}, "counters", "gauges"}
 
-The event log (off by default) records one entry per span exit: name,
-t0, t1 (``time.perf_counter`` seconds, comparable across threads), meta
-and the recording thread's name; the streaming tests read pipeline
-overlap from it.  It is a ring buffer of ``EVENT_CAPACITY`` entries;
-overflow bumps the ``events_dropped`` counter.
+The event log (off by default) records one entry per span exit —
+``{"name", "kind": "span", "t0", "t1", "meta", "tid", "thread"}`` with
+``time.perf_counter`` seconds comparable across threads — and, while it
+is on, one per counter or gauge update (``kind`` ``"counter"`` or
+``"gauge"``, the post-update ``value`` at ``t0 == t1``): the JAX
+package's schema, so ``obs.timeline`` (either package's) builds one lane
+per recording thread and a counter track per counter from a record the
+port wrote.  It is a ring buffer of ``DEFAULT_EVENT_CAPACITY`` entries
+(:func:`set_events_capacity`); overflow, or a shrink, bumps the
+``events_dropped`` counter.  :func:`reset` restores the defaults (off,
+default capacity).
 """
 
 from __future__ import annotations
@@ -47,15 +53,16 @@ from contextlib import contextmanager
 
 logger = logging.getLogger("crdt_enc_tpu_torch.trace")
 
-EVENT_CAPACITY = 65536
+DEFAULT_EVENT_CAPACITY = 65536
 
 _lock = threading.Lock()
 # name -> [count, total_seconds, max_seconds, {bucket_index: count}]
 _spans: dict[str, list] = {}
 _counters: dict[str, int] = {}
 _gauges: dict[str, float] = {}
-_events: deque = deque(maxlen=EVENT_CAPACITY)
 _events_enabled = False
+_events_capacity = DEFAULT_EVENT_CAPACITY
+_events: deque = deque(maxlen=DEFAULT_EVENT_CAPACITY)
 
 # --------------------------------------------------------------- histogram
 # Quarter-octave log2 buckets: index = floor(4·log2(dt)), clamped to
@@ -121,12 +128,9 @@ def _record_span(name: str, t0: float, t1: float, meta=None) -> None:
         idx = _hist_index(dt)
         slot[3][idx] = slot[3].get(idx, 0) + 1
         if _events_enabled:
-            if len(_events) == _events.maxlen:
-                _counters["events_dropped"] = (
-                    _counters.get("events_dropped", 0) + 1)
-            t = threading.current_thread()
-            _events.append({"name": name, "t0": t0, "t1": t1,
-                            "meta": meta, "thread": t.name})
+            e = _event_base(name, "span")
+            e["t0"], e["t1"], e["meta"] = t0, t1, meta
+            _append_event_locked(e)
     logger.debug("span %s: %.6fs", name, dt)
 
 
@@ -164,23 +168,65 @@ def counter_tap():
 def add(name: str, n: int = 1) -> None:
     """Bump a counter (e.g. bytes uploaded host to device)."""
     with _lock:
-        _counters[name] = _counters.get(name, 0) + n
+        value = _counters.get(name, 0) + n
+        _counters[name] = value
         for tap in _taps.get():
             tap[name] = tap.get(name, 0) + n
+        if _events_enabled:
+            _append_value_event_locked(name, "counter", value)
 
 
 def gauge(name: str, value: float) -> None:
     """Set a gauge to its latest value (e.g. a pool's width)."""
     with _lock:
         _gauges[name] = value
+        if _events_enabled:
+            _append_value_event_locked(name, "gauge", value)
 
 
 # ------------------------------------------------------------ event buffer
+def _event_base(name: str, kind: str) -> dict:
+    t = threading.current_thread()
+    return {"name": name, "kind": kind, "tid": t.ident, "thread": t.name}
+
+
+def _append_event_locked(entry: dict) -> None:
+    if len(_events) == _events.maxlen:
+        _counters["events_dropped"] = _counters.get("events_dropped", 0) + 1
+    _events.append(entry)
+
+
+def _append_value_event_locked(name: str, kind: str, value) -> None:
+    e = _event_base(name, kind)
+    e["t0"] = e["t1"] = time.perf_counter()
+    e["meta"], e["value"] = None, value
+    _append_event_locked(e)
+
+
 def enable_events(on: bool = True) -> None:
-    """Turn the per-occurrence span log on or off."""
+    """Turn the per-occurrence event log on or off."""
     global _events_enabled
     with _lock:
         _events_enabled = on
+
+
+def set_events_capacity(capacity: int) -> None:
+    """Resize the event ring buffer, keeping the newest events; the ones a
+    shrink discards count into ``events_dropped`` like ring overflow."""
+    if capacity < 1:
+        raise ValueError(f"event capacity must be >= 1, got {capacity}")
+    global _events, _events_capacity
+    with _lock:
+        overflow = len(_events) - capacity
+        if overflow > 0:
+            _counters["events_dropped"] = (
+                _counters.get("events_dropped", 0) + overflow)
+        _events_capacity = capacity
+        _events = deque(_events, maxlen=capacity)
+
+
+def events_capacity() -> int:
+    return _events_capacity
 
 
 def events_enabled() -> bool:
@@ -188,9 +234,11 @@ def events_enabled() -> bool:
 
 
 def events() -> list[dict]:
-    """A copy of the recorded span occurrences, in completion order:
-    name, t0, t1 (``time.perf_counter`` seconds, comparable across
-    threads), meta and the recording thread's name."""
+    """A copy of the recorded occurrences, in completion order.  Span
+    entries: name, kind ``"span"``, t0, t1 (``time.perf_counter``
+    seconds, comparable across threads), meta, tid and thread (the
+    recording thread).  Counter and gauge entries carry kind
+    ``"counter"``/``"gauge"`` and the post-update ``value`` at t0."""
     with _lock:
         return [dict(e) for e in _events]
 
@@ -211,7 +259,7 @@ def snapshot() -> dict:
     with _lock:
         return {
             "spans": {
-                k: {"count": c, "seconds": s, "max_ms": mx * 1e3,
+                k: {"count": c, "seconds": s, "max_ms": round(mx * 1e3, 4),
                     **quantiles_ms(h, c)}
                 for k, (c, s, mx, h) in _spans.items()
             },
@@ -221,15 +269,16 @@ def snapshot() -> dict:
 
 
 def reset() -> None:
-    """Clear every span, counter, gauge and event, and turn the event log
-    off."""
-    global _events_enabled
+    """Clear every span, counter, gauge and event, and restore the event
+    log's defaults: off, default capacity."""
+    global _events_enabled, _events_capacity, _events
     with _lock:
         _spans.clear()
         _counters.clear()
         _gauges.clear()
-        _events.clear()
         _events_enabled = False
+        _events_capacity = DEFAULT_EVENT_CAPACITY
+        _events = deque(maxlen=DEFAULT_EVENT_CAPACITY)
 
 
 def format_snapshot(snap: dict) -> str:
@@ -258,3 +307,13 @@ def format_snapshot(snap: dict) -> str:
 def report() -> str:
     """The registry's phase table as :func:`format_snapshot` renders it."""
     return format_snapshot(snapshot())
+
+
+def throughput(span_name: str, counter_name: str) -> float | None:
+    """counter / span seconds, or None if either is missing or zero."""
+    snap = snapshot()
+    s = snap["spans"].get(span_name)
+    c = snap["counters"].get(counter_name)
+    if not s or not c or s["seconds"] <= 0:
+        return None
+    return c / s["seconds"]

@@ -1,7 +1,7 @@
 """Run-scoped metrics sink: JSONL records + Prometheus text exposition.
 
-The port's copy of the write side of ``crdt_enc_tpu/obs/sink.py``.  The
-sink appends ONE self-contained JSON line per labelled snapshot:
+The port's copy of ``crdt_enc_tpu/obs/sink.py``.  The sink appends ONE
+self-contained JSON line per labelled snapshot:
 
     {"schema": 2, "label": "compact", "ts": <unix seconds>,
      "spans": {...}, "counters": {...}, "gauges": {...},
@@ -22,6 +22,11 @@ to ``<path>.1`` when an append would pass that bound.
 every counter and gauge its own family with ``# TYPE`` and ``# HELP``;
 span aggregates label-keyed families (totals, counts, a quantile
 summary).
+
+Read side: :func:`read_records` parses a sink file (or
+``BENCH_LOCAL.jsonl``) and :func:`check_schema` refuses a record stamped
+with a schema this package cannot read (:class:`SinkSchemaError`) —
+the one parse ``obs_report`` and ``obs.fleet`` share.
 """
 
 from __future__ import annotations
@@ -40,8 +45,13 @@ ENV_VAR = "CRDT_OBS_SINK"
 #: sink record format version.  2 added ``schema`` itself and the
 #: ``replication`` payload; unstamped records are retroactively 1.
 SCHEMA_VERSION = 2
+SUPPORTED_SCHEMAS = (1, 2)
 
 _configured: "MetricsSink | None | bool" = False  # False = not resolved yet
+
+
+class SinkSchemaError(ValueError):
+    """A record claims a sink schema this package cannot read."""
 
 
 #: serializes the size-check → rotate → append sequence across threads
@@ -128,6 +138,43 @@ def maybe_write(label: str, meta: dict | None = None,
     if sink is None:
         return None
     return sink.write(label, meta=meta, replication=replication)
+
+
+# ------------------------------------------------------------- read side
+def read_records(path: str) -> list[dict]:
+    """Parse one JSONL file (sink output or BENCH_LOCAL.jsonl) into its
+    record dicts, tolerating blank lines and a truncated final append
+    from a killed run."""
+    records = []
+    with open(path) as f:
+        for ln in f:
+            ln = ln.strip()
+            if not ln:
+                continue
+            try:
+                rec = json.loads(ln)
+            except ValueError:
+                continue  # truncated final append from a killed run
+            if isinstance(rec, dict):
+                records.append(rec)
+    return records
+
+
+def check_schema(records: list[dict], source: str = "<records>") -> None:
+    """Reject records stamped with a sink schema this package cannot
+    read, naming the source and the record, instead of misparsing a
+    future format.  Records without a ``schema`` field are schema 1."""
+    for i, rec in enumerate(records, 1):
+        s = rec.get("schema", 1)
+        # bool is an int subclass and True == 1: {"schema": true} must
+        # not read as schema 1
+        if isinstance(s, bool) or not isinstance(s, int) \
+                or s not in SUPPORTED_SCHEMAS:
+            raise SinkSchemaError(
+                f"{source}: record {i} has sink schema {s!r}; this build "
+                f"reads schemas {list(SUPPORTED_SCHEMAS)} — refusing to "
+                "misparse a mixed/newer-format input"
+            )
 
 
 # ----------------------------------------------------------- prometheus

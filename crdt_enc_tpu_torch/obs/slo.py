@@ -1,7 +1,6 @@
 """Freshness and seal-latency SLOs: targets and live gauges.
 
-The port's copy of the live side of ``crdt_enc_tpu/obs/slo.py``.  Two
-specs:
+The port's copy of ``crdt_enc_tpu/obs/slo.py``.  Two specs:
 
 * **freshness** — indicator ``divergence.watermark_lag`` of a
   replication status (versions the union clock is ahead of the causal
@@ -17,7 +16,11 @@ passes its own :class:`SloSpec`.  :func:`sample_freshness` runs inside
 ``serve_cycle`` sink record and the ``serve_slo_seal_burn`` gauge.  A
 window's **burn rate** is its violation fraction over the error budget
 (1 − objective): above 1 the window ate budget faster than the objective
-allows.
+allows.  Post hoc, :func:`burn_report` is a pure function over sink
+records (freshness samples from their ``replication`` payloads,
+seal-latency samples from the ``serve_cycle`` records' ``meta.slo``)
+bucketed into fixed windows, rendered by ``obs_report slo``
+(:func:`format_burn`).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from dataclasses import dataclass
 from . import record
 
 DEFAULT_OBJECTIVE = 0.99
+DEFAULT_WINDOW_S = 300.0
 
 
 @dataclass(frozen=True)
@@ -110,3 +114,111 @@ def cycle_burn(results, spec: SloSpec = SEAL_LATENCY) -> dict:
             (violations / attempts) / spec.budget, 4
         ) if attempts else 0.0,
     }
+
+
+def default_specs() -> list[SloSpec]:
+    return [FRESHNESS, SEAL_LATENCY]
+
+
+# --------------------------------------------------------- post-hoc side
+def _samples_for(spec: SloSpec, records: list[dict]):
+    """(ts, good, bad) sample tuples for one spec over sink records."""
+    out = []
+    for rec in records:
+        ts = rec.get("ts")
+        if ts is None:
+            continue
+        if spec.name == "freshness":
+            rep = rec.get("replication")
+            if isinstance(rep, dict):
+                bad = int(freshness_value(rep) > spec.target)
+                out.append((float(ts), 1 - bad, bad))
+        elif spec.name == "seal_latency":
+            meta = rec.get("meta") or {}
+            cyc = meta.get("slo")
+            if isinstance(cyc, dict) and "attempts" in cyc:
+                # attempts = sealed + errored tenants (errors count as
+                # violations — see cycle_burn)
+                n, v = int(cyc["attempts"]), int(cyc["violations"])
+                out.append((float(ts), n - v, v))
+    return out
+
+
+def burn_report(
+    records: list[dict],
+    specs: list[SloSpec] | None = None,
+    window_s: float = DEFAULT_WINDOW_S,
+) -> dict:
+    """Window-based burn accounting over sink records (module docs).
+    Pure and deterministic: windows are fixed ``window_s`` buckets
+    anchored at each spec's earliest sample, burn is violation fraction
+    ÷ error budget.  A spec with no sample in the records reports 0
+    samples, not compliance."""
+    if specs is None:
+        specs = default_specs()
+    with record.span("slo.burn"):
+        out = {"window_s": window_s, "specs": []}
+        for spec in specs:
+            samples = _samples_for(spec, records)
+            entry = {
+                "name": spec.name,
+                "indicator": spec.indicator,
+                "target": spec.target,
+                "objective": spec.objective,
+                "samples": sum(g + b for _, g, b in samples),
+                "violations": sum(b for _, _, b in samples),
+                "windows": [],
+            }
+            if samples:
+                t0 = min(ts for ts, _, _ in samples)
+                buckets: dict[int, list[int]] = {}
+                for ts, g, b in samples:
+                    slot = buckets.setdefault(
+                        int((ts - t0) // window_s), [0, 0]
+                    )
+                    slot[0] += g
+                    slot[1] += b
+                for idx in sorted(buckets):
+                    g, b = buckets[idx]
+                    frac = b / (g + b) if (g + b) else 0.0
+                    entry["windows"].append({
+                        "window": idx,
+                        "start_s": round(idx * window_s, 3),
+                        "samples": g + b,
+                        "violations": b,
+                        "burn_rate": round(frac / spec.budget, 4),
+                    })
+                total = entry["samples"]
+                frac = entry["violations"] / total if total else 0.0
+                entry["bad_fraction"] = round(frac, 6)
+                entry["budget_burn"] = round(frac / spec.budget, 4)
+                entry["worst_window_burn"] = max(
+                    (w["burn_rate"] for w in entry["windows"]), default=0.0
+                )
+            out["specs"].append(entry)
+        return out
+
+
+def format_burn(report: dict) -> str:
+    """Deterministic human rendering of :func:`burn_report` output."""
+    lines = [f"# SLO burn (window {report['window_s']:.0f}s)"]
+    for spec in report["specs"]:
+        lines.append(
+            f"{spec['name']}: target <= {spec['target']:g} "
+            f"objective {spec['objective']:g}  "
+            f"samples={spec['samples']} violations={spec['violations']}"
+        )
+        if not spec["windows"]:
+            lines.append("  (no samples)")
+            continue
+        lines.append(
+            f"  budget burn {spec['budget_burn']:.2f}x  worst window "
+            f"{spec['worst_window_burn']:.2f}x"
+        )
+        for w in spec["windows"]:
+            lines.append(
+                f"  window {w['window']:>3} (+{w['start_s']:.0f}s)  "
+                f"samples={w['samples']}  violations={w['violations']}  "
+                f"burn={w['burn_rate']:.2f}x"
+            )
+    return "\n".join(lines)

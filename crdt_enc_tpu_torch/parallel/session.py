@@ -46,8 +46,10 @@ the map's four row families, and finish runs the columnar map fold once
 against the state read there (its scatter phase on the device from
 ``min_device_batch`` rows).
 
-Left out of the copy: the mesh branch of DEVICE_STREAM, the device-decode
-experiment and the device-memory sampling at fold boundaries.
+Left out of the copy: the mesh branch of DEVICE_STREAM and the
+device-memory sampling at fold boundaries.  The device-decode experiment
+(``CRDT_DEVICE_DECODE=1``, off by default) gates the OR-Set session's
+decode as in the JAX package.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ from ..ops.columnar import (
     orset_state_to_planes,
     vclock_to_dense,
 )
+from ..ops.device_decode import decode_adds_device, device_decode_enabled
 from ..ops.native_decode import (
     combine_orset_spans,
     decode_counter_payload_batch,
@@ -174,7 +177,19 @@ class OrsetFoldSession:
         """Multi-part twin of :meth:`decode_chunk`: each element of
         ``parts`` is one stripe's cleartext — a packed ``(buffer,
         offsets)`` pair or a payload list — decoded in place and combined.
-        Thread-safe like ``decode_chunk``."""
+        Thread-safe like ``decode_chunk``.
+
+        With ``CRDT_DEVICE_DECODE=1`` a chunk of one packed part first
+        tries the device-decode experiment on the session's device
+        (ops/device_decode.py); a chunk it declines (anything but
+        fixed-stride adds, or an unknown actor) takes the native decoder
+        below."""
+        if len(parts) == 1 and isinstance(parts[0], tuple) \
+                and device_decode_enabled():
+            decoded = decode_adds_device(parts[0], self.actors_sorted,
+                                         self.accel.device)
+            if decoded is not None:
+                return decoded
         with trace.span("session.decode"):
             decoded_parts = []
             for payloads in parts:

@@ -194,19 +194,34 @@ Phases:
    and the native decoder, equal columns, ``h2d_bytes`` equal to the
    upload, each arm's time; a fold session with ``CRDT_DEVICE_DECODE``
    on and off, equal state bytes;
+20. the static-analysis twin over the checkout: ``python3 -m
+   crdt_enc_tpu_torch.tools.analyze --diff-baseline --json
+   --expect-json-version 2`` as a subprocess from the repo root must exit
+   0 (no unsuppressed error, no stale baseline entry); one line with the
+   files, the errors, warnings and suppressed findings per rule, the stale
+   entries and the analyzer's elapsed seconds, and the K2 launch's chain
+   from ``--effects FoldService._run_cycle`` beside K2's host enqueue time
+   (phase 5) and the kernels' ``nvcc`` build wall (phase 2), the two
+   numbers its baseline entry rests on; the machine has no JAX, so the run
+   also shows the twin imports none;
 then the kernels line and the result line.  Phase 5 also times the merge
 at the compaction's own shape (S = 9, E = 4,096, R = 5,000) against its
 plain version, and phases 5 and 9 give the merge and K3's shape their
 back-to-back and host-enqueue times.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It needs one
-card.  Without a CUDA device, or without the package beside it, it exits
+card.  A run that stalls past ``WATCHDOG_S`` (1,180 s, just under the
+1,200 s a run may take) prints every thread's stack, removes its
+temporary directory and exits nonzero.  ``python3 chip_smoke.py
+--stall-loop SECONDS`` runs only phase 18 (b)'s serial-equality check,
+again and again, and dumps the stacks of a pass that stalls.  Without a CUDA device, or without the package beside it, it exits
 nonzero and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import gc
 import json
 import os
@@ -223,6 +238,11 @@ import uuid
 import numpy as np
 
 N_ROWS, N_REPLICAS, N_MEMBERS = 1_000_000, 10_000, 4096
+# seconds after which a stalled run dumps its threads' stacks and exits:
+# just under the 1,200 s a run may take
+WATCHDOG_S = 1_180
+# the directories a stalled run removes before it exits
+_CLEANUP_DIRS: list[str] = []
 SEED, SEED2 = 7, 8
 MERGE_S = 8
 REPS = 7
@@ -5112,6 +5132,59 @@ KERNELS = {
 }
 
 
+def analyze_cli(*args: str) -> dict:
+    """``python3 -m crdt_enc_tpu_torch.tools.analyze ... --json`` from the
+    repo root; its JSON output.  A non-zero exit raises."""
+    cmd = [sys.executable, "-m", "crdt_enc_tpu_torch.tools.analyze", *args,
+           "--json"]
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        print(proc.stdout[-8000:], proc.stderr[-8000:], sep="\n", flush=True)
+        raise AssertionError(f"{' '.join(cmd[1:])} exited {proc.returncode}")
+    return json.loads(proc.stdout)
+
+
+def phase_analysis(k2_enqueue_ms: float, build_s: float) -> dict:
+    """Phase 20 (module docs): the analyzer over the checkout, then the
+    effect chain from the fold service's cycle to K2's launch."""
+    t0 = time.perf_counter()
+    run = analyze_cli("--diff-baseline", "--expect-json-version", "2")
+    wall = time.perf_counter() - t0
+    per_rule = {r: {"errors": 0, "warnings": 0, "suppressed": 0}
+                for r in run["rules"]}
+    for f in run["findings"]:
+        row = per_rule.setdefault(
+            f["rule"], {"errors": 0, "warnings": 0, "suppressed": 0})
+        if f["suppressed"] is not None:
+            row["suppressed"] += 1
+        elif f["severity"] == "error":
+            row["errors"] += 1
+        else:
+            row["warnings"] += 1
+    summary = run["summary"]
+    if summary["errors"] or run["stale_baseline"]:
+        raise AssertionError(f"analysis: {summary['errors']} errors, "
+                             f"{len(run['stale_baseline'])} stale entries")
+    eff = analyze_cli("--effects", "FoldService._run_cycle")
+    (fn,) = eff["functions"]
+    k2 = [e["chain"] for e in fn["effects"]
+          if (e["kind"], e["origin"]) == ("blocks", "ffi:lib.orset_fold_launch")]
+    if len(k2) != 1:
+        raise AssertionError("no effect chain from FoldService._run_cycle to "
+                             "lib.orset_fold_launch")
+    out = {
+        "files": summary["files"], "errors": summary["errors"],
+        "warnings": summary["warnings"], "suppressed": summary["suppressed"],
+        "per_rule": per_rule, "stale": len(run["stale_baseline"]),
+        "elapsed_s": run["elapsed_s"], "subprocess_wall_s": wall,
+        "k2_chain": k2[0], "k2_host_enqueue_ms": k2_enqueue_ms,
+        "nvcc_build_s": build_s,
+    }
+    print(f"  phase 20: {json.dumps(out)}", flush=True)
+    return out
+
+
 def print_build_log() -> None:
     """Each kernel's registers, shared memory and spills, from
     ``-Xptxas -v``."""
@@ -5135,6 +5208,25 @@ def print_build_log() -> None:
                 print(f"  {src} {kernel}: {line.split(':', 1)[-1].strip()}")
 
 
+def start_watchdog() -> None:
+    """A stalled run prints every thread's stack, removes
+    ``_CLEANUP_DIRS`` and exits nonzero at ``WATCHDOG_S`` instead of dying
+    silently at the limit.  faulthandler's own timer, 10 s later, dumps
+    and exits even if the stall holds the GIL."""
+
+    def fire():
+        time.sleep(WATCHDOG_S)
+        print(f"chip_smoke: stalled past {WATCHDOG_S} s; every thread's "
+              "stack follows", file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(all_threads=True)
+        for d in _CLEANUP_DIRS:
+            shutil.rmtree(d, ignore_errors=True)
+        os._exit(3)
+
+    threading.Thread(target=fire, name="watchdog", daemon=True).start()
+    faulthandler.dump_traceback_later(WATCHDOG_S + 10, exit=True)
+
+
 def main() -> int:
     import torch
 
@@ -5145,6 +5237,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from crdt_enc_tpu_torch.ops import cuda_build
 
+    start_watchdog()
     t_start = time.perf_counter()
     E, R, N = N_MEMBERS, N_REPLICAS, N_ROWS
     name = torch.cuda.get_device_name(0)
@@ -5210,17 +5303,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     root = tempfile.mkdtemp(prefix="crdt-compaction-")
+    _CLEANUP_DIRS.append(root)
     try:
         return run_from_phase_10(root, cols, cols2, launches, errs, times,
-                                 k3_errs, k3, name, t_start)
+                                 k3_errs, k3, name, t_start, build_s)
     finally:
         close_loop()
         shutil.rmtree(root, ignore_errors=True)
 
 
 def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
-                      name, t_start) -> int:
-    """Phases 10 to 19 and the closing lines.  Phase 10's compaction remote
+                      name, t_start, build_s) -> int:
+    """Phases 10 to 20 and the closing lines.  Phase 10's compaction remote
     lives under ``root`` until phase 14 has compacted it twice more."""
     import torch
 
@@ -5330,6 +5424,11 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     gc.collect()
     torch.cuda.empty_cache()
 
+    print("== 20. the static-analysis twin (crdt_enc_tpu_torch.tools.analyze "
+          "--diff-baseline over the checkout; the K2 launch's effect chain)",
+          flush=True)
+    analysis = phase_analysis(times["orset_fold"]["host_enqueue_ms"], build_s)
+
     kernels = []
     for kname, (source, replaces, pallas) in KERNELS.items():
         entry = {
@@ -5411,6 +5510,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     print(json.dumps({"daemon": daemon}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
     print(json.dumps({"obs": obs}), flush=True)
+    print(json.dumps({"analysis": analysis}), flush=True)
     print(device_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5419,5 +5519,67 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     return 0
 
 
+def stall_loop(budget_s: float) -> int:
+    """``python3 chip_smoke.py --stall-loop SECONDS``: phase 18 (b)'s
+    serial-equality check of the first four population schedules, on
+    the card, again and again for ``budget_s`` seconds.  A pass that
+    takes over 90 s prints every thread's stack and exits nonzero; the
+    last line counts the passes and their walls."""
+    import logging
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from crdt_enc_tpu_torch import native
+    from crdt_enc_tpu_torch.ops import cuda_build
+    from crdt_enc_tpu_torch.sim import (
+        FaultConfig,
+        PopulationReport,
+        PopulationSubstrate,
+        generate,
+        run_population,
+        verify_serial_equality,
+    )
+
+    logging.getLogger("crdt_enc_tpu_torch").setLevel(logging.ERROR)
+    t_all = time.perf_counter()
+    print(device_line(), flush=True)
+    cuda_build.warm()
+    native.load()
+    native.load_state()
+    faults = FaultConfig.all_faults()
+    scheds = [generate(s, SIM_POP_R, SIM_POP_STEPS, faults,
+                       members=SIM_POP_MEMBERS, deltas=True, daemon=True,
+                       strong_reads=True) for s in range(SIM_POP_N)]
+    sub = PopulationSubstrate("cuda")
+    try:
+        rep = run_population(scheds, population=SIM_POP_P, substrate=sub)
+    finally:
+        sub.close()
+    sample = PopulationReport(schedules=rep.schedules[:4],
+                              results=rep.results[:4])
+    walls = []
+    while time.perf_counter() - t_all < budget_s:
+        faulthandler.dump_traceback_later(90, exit=True)
+        t0 = time.perf_counter()
+        problems = verify_serial_equality(sample, device="cuda")
+        faulthandler.cancel_dump_traceback_later()
+        walls.append(time.perf_counter() - t0)
+        if problems:
+            raise AssertionError(f"serial equality: {problems}")
+        if len(walls) % 100 == 0:
+            print(f"  pass {len(walls)}: max {max(walls):.3f} s", flush=True)
+    print(json.dumps({"stall_loop": {
+        "passes": len(walls), "max_s": max(walls),
+        "mean_s": statistics.mean(walls), "wall_s": time.perf_counter() - t_all}}),
+        flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--stall-loop"]:
+        sys.exit(stall_loop(float(sys.argv[2])))
     sys.exit(main())

@@ -436,6 +436,13 @@ class Core:
 
         await asyncio.to_thread(native.load)
         await asyncio.to_thread(native.load_state)
+        dev = getattr(core.accel, "device", None)
+        if dev is not None and dev.type == "cuda":
+            # and the CUDA kernels, for an accelerator on a card, before
+            # a compaction launches one (a failed build raises here)
+            from ..ops import cuda_build
+
+            await asyncio.to_thread(cuda_build.warm)
         raw = await core.storage.load_local_meta()
         if raw is None:
             if not opts.create:

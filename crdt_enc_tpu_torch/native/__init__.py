@@ -50,7 +50,7 @@ i64p = ctypes.POINTER(ctypes.c_int64)
 
 
 def _cxx() -> str:
-    cxx = shutil.which("c++")
+    cxx = shutil.which("c++")  # lint: effect-ok=blocks (one-shot build; Core.open warms it off-loop)
     if cxx is None:
         raise RuntimeError("native build: no c++ compiler on PATH")
     return cxx
@@ -62,8 +62,10 @@ def _target() -> bytes:
     use.  A build directory carried to another CPU then hashes apart and
     rebuilds instead of loading code that CPU cannot run."""
     march = [f for f in CXX_FLAGS if f.startswith("-march")]
-    proc = subprocess.run([_cxx(), *march, "-dM", "-E", "-x", "c++", "-"],
-                          input="", capture_output=True, text=True)
+    proc = subprocess.run(  # lint: effect-ok=blocks (one-shot build; Core.open warms it off-loop)
+        [_cxx(), *march, "-dM", "-E", "-x", "c++", "-"],
+        input="", capture_output=True, text=True,
+    )
     if proc.returncode != 0:
         raise RuntimeError(f"native build: c++ {' '.join(march)} -dM -E "
                            f"failed:\n{proc.stderr}")
@@ -104,14 +106,16 @@ def _compile(out: Path, sources=SOURCES, flags=CXX_FLAGS) -> None:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [cxx, *flags, "-o", str(tmp), *(str(HERE / s) for s in sources)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run(  # lint: effect-ok=blocks (one-shot build; Core.open warms it off-loop)
+        cmd, capture_output=True, text=True,
+    )
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"native build failed (c++ exit {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    os.replace(tmp, out)
+    os.replace(tmp, out)  # lint: effect-ok=blocks (one-shot build; Core.open warms it off-loop)
     from ..obs import runtime
 
     runtime.note_build("native", time.perf_counter() - t0)

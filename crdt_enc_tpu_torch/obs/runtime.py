@@ -32,8 +32,14 @@ BUILD_COUNTERS = ("cuda_builds", "native_builds")
 def note_build(kind: str, seconds: float, n: int = 1) -> None:
     """Record ``n`` library builds of ``kind`` ("cuda" or "native") that
     took ``seconds`` of wall together."""
-    record.add(f"{kind}_builds", n)
-    record.observe(f"build.{kind}", seconds)
+    if kind == "cuda":
+        record.add("cuda_builds", n)
+        record.observe("build.cuda", seconds)
+    elif kind == "native":
+        record.add("native_builds", n)
+        record.observe("build.native", seconds)
+    else:
+        raise ValueError(f"unknown library kind {kind!r}")
 
 
 def build_count() -> int:

@@ -6,7 +6,13 @@ inside the package, and loads through ``ctypes``.  The hash covers the
 source and the flags, so an edited source rebuilds and a stale library is
 never loaded.  The build runs at first use (or from :func:`build`, which
 starts one ``nvcc`` per source, all at once); importing this module
-builds nothing.
+builds nothing.  ``Core.open`` runs :func:`warm` through
+``asyncio.to_thread`` when its accelerator is on a card, so no ``nvcc``
+build and no ``dlopen`` runs on the event loop: a ``FoldService`` or a
+``FleetDaemon`` folds the tenants of open cores.  Several cores may open
+at once, each in its own worker thread: one lock makes a build and its
+load happen once a process, and a build's temporary file is named for
+its process and thread.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -38,6 +45,8 @@ NVCC_FLAGS = (
 # name -> loaded library; name -> compiler output of its last build
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}
+# held by build and warm: one build and one load of a library a process
+_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -46,7 +55,7 @@ def nvcc() -> str:
     home = os.environ.get("CUDA_HOME")
     for cand in (
         os.path.join(home, "bin", "nvcc") if home else None,
-        shutil.which("nvcc"),
+        shutil.which("nvcc"),  # lint: effect-ok=blocks (one-shot build; Core.open warms it off-loop)
         "/usr/local/cuda/bin/nvcc",
     ):
         if cand and os.path.isfile(cand):
@@ -64,6 +73,11 @@ def build(names=SOURCES) -> float:
     """Compile every named source whose library is missing, one ``nvcc``
     process per source, all started together.  Returns the wall seconds.
     Raises with the compiler's output if any build fails."""
+    with _lock:
+        return _build(names)
+
+
+def _build(names) -> float:
     t0 = time.perf_counter()
     todo = [(n, lib_path(n)) for n in names if not lib_path(n).exists()]
     if not todo:
@@ -72,17 +86,22 @@ def build(names=SOURCES) -> float:
     exe = nvcc()
     procs = []
     for name, out in todo:
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        # another process may build the same library: the last rename
+        # wins with identical bytes
+        tmp = out.with_name(
+            f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
+        proc = subprocess.Popen(  # lint: effect-ok=blocks (one-shot build; Core.open warms it off-loop)
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )))
+        )
+        procs.append((name, out, tmp, proc))
     failed = []
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
         build_log[name] = log
         if proc.returncode == 0:
-            os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+            # atomic: a concurrent build sees all or nothing
+            os.replace(tmp, out)  # lint: effect-ok=blocks (one-shot build; Core.open warms it off-loop)
         else:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
@@ -99,12 +118,25 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        path = lib_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        _libs[name] = lib
+        warm((name,))
+        lib = _libs[name]
     return lib
+
+
+def warm(names=SOURCES) -> None:
+    """Build every named library that is missing (one ``nvcc`` each, all
+    at once) and load them all, so that a later :func:`load` is a dict
+    hit; a dict check when they are loaded already.  Threads that call
+    it together wait for one build and one load.  Raises with the
+    compiler's output if a build fails."""
+    if all(n in _libs for n in names):
+        return
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        if todo:
+            _build(todo)
+            for name in todo:
+                _libs[name] = ctypes.CDLL(str(lib_path(name)))
 
 
 def expect(t, name: str, dtype, shape: tuple) -> None:

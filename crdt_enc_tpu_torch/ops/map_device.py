@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
+
 
 def crdtmap_scatter_phase(
     clock0,  # (R,) int64
@@ -49,6 +51,7 @@ def crdtmap_scatter_phase(
     i64 = torch.int64
 
     def col(x):
+        # lint: disable=OBS001 (crdtmap_scatter_device uploads and counts the columns; they reach here on dev)
         return x.to(device=dev, dtype=i64)
 
     b_key, b_actor, b_ctr = map(col, (b_key, b_actor, b_ctr))
@@ -138,7 +141,10 @@ def crdtmap_scatter_device(
     device = torch.device(device)
 
     def up(x):
-        return torch.from_numpy(np.ascontiguousarray(x, np.int64)).to(device)
+        a = np.ascontiguousarray(x, np.int64)
+        if device.type == "cuda":
+            trace.add("h2d_bytes", a.nbytes)
+        return torch.from_numpy(a).to(device)
 
     NK, R = births0.shape
     clock0 = np.asarray(clock0)[:R]

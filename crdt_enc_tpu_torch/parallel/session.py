@@ -604,9 +604,10 @@ class MapFoldSession:
         Rm = cat(2, ("key", "member", "actor", "ctr", "mactor", "mctr"))
         Kk = cat(3, ("key", "actor", "ctr", "group"))
         self._fams = []
-        for name, fam in (("birth", B), ("child_add", A), ("child_rm", Rm),
-                          ("key_rm", Kk)):
-            trace.add(f"map_rows_{name}", len(fam["actor"]))
+        trace.add("map_rows_birth", len(B["actor"]))
+        trace.add("map_rows_child_add", len(A["actor"]))
+        trace.add("map_rows_child_rm", len(Rm["actor"]))
+        trace.add("map_rows_key_rm", len(Kk["actor"]))
         # concurrent applies may have introduced actors since open: the
         # fed rows only ever index the original sorted prefix, so new
         # actors intern AFTER it and the row indices stay valid

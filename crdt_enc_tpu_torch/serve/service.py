@@ -807,6 +807,8 @@ class FoldService:
             # tenant's diff covers its whole fold
             slots = torch.tensor([s for s, _ in cut_slots],
                                  dtype=torch.int64, device=code.device)
+            if code.device.type == "cuda":
+                trace.add("h2d_bytes", slots.nbytes)
             rows = orset_ops.orset_plane_diff_rows_tenants(
                 code, add_b, out[1], out[2], T, slots
             )

@@ -105,18 +105,24 @@ class PlaneWarmTier:
         the state's CURRENT ``_mut`` — call after the writeback bump),
         then evict LRU entries past the byte budget.  The weakref
         finalizer drops the entry the moment the state dies, so plane
-        buffers never outlive the tenant they cache."""
+        buffers never outlive the tenant they cache; it records no
+        metric (see ``_finalize``)."""
         key = id(state)
         self._drop(key)
 
         tier_ref = weakref.ref(self)
 
         def _finalize(dead_ref, _key=key):
+            # the collector runs this wherever it fires, also inside the
+            # trace registry's (non-reentrant) lock on this very thread,
+            # so it records nothing: the gauge catches up at the next
+            # store or drop
             tier = tier_ref()
             if tier is not None:
                 e = tier._entries.get(_key)
                 if e is not None and e.ref is dead_ref:
-                    tier._drop(_key)
+                    del tier._entries[_key]
+                    tier._bytes -= e.nbytes
 
         entry = WarmEntry(
             weakref.ref(state, _finalize), getattr(state, "_mut", None),

@@ -859,6 +859,52 @@ def test_warm_tier_unit_lru_budget_and_invalidation():
         PlaneWarmTier(byte_budget=0)
 
 
+def test_warm_tier_finalizer_records_nothing(monkeypatch):
+    """A tenant state that dies while its thread holds the trace
+    registry's lock (the collector fires inside a span's bookkeeping)
+    drops its warm entry without taking that lock again: a finalizer
+    that set the ``serve_warm_bytes`` gauge deadlocked the thread there.
+    The gauge catches up at the next store."""
+    import threading
+
+    from crdt_enc_tpu_torch.obs import record
+
+    class S:
+        _mut = 0
+
+    class Probe:
+        """The registry's lock, failing instead of waiting when the
+        thread that holds it asks for it again."""
+
+        def __init__(self):
+            self.lock = threading.Lock()
+            self.reentered = 0
+
+        def __enter__(self):
+            if not self.lock.acquire(timeout=1.0):
+                self.reentered += 1
+                raise RuntimeError("trace registry lock taken twice")
+
+        def __exit__(self, *exc):
+            self.lock.release()
+
+    probe = Probe()
+    monkeypatch.setattr(record, "_lock", probe)
+    trace.reset()
+    tier = PlaneWarmTier(byte_budget=1 << 20)
+    a, b = S(), S()
+    tier.store(a, None, None, (torch.zeros(10, dtype=torch.int32),))
+    tier.store(b, None, None, (torch.zeros(6, dtype=torch.int32),))
+    assert trace.snapshot()["gauges"]["serve_warm_bytes"] == 64
+    with probe:
+        del a
+    assert probe.reentered == 0
+    assert len(tier) == 1 and tier.bytes_held == 24
+    c = S()
+    tier.store(c, None, None, (torch.zeros(2, dtype=torch.int32),))
+    assert trace.snapshot()["gauges"]["serve_warm_bytes"] == 32
+
+
 def test_warm_tier_reuse_across_cycles_byte_identical():
     async def scenario():
         remotes = [MemoryRemote() for _ in range(3)]

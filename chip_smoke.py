@@ -5115,6 +5115,499 @@ def phase_obs(device: str, root: str, sim: dict) -> dict:
 # of csrc/orset_fold.cu and differ in the range kernel's epilogue; K3
 # (_fold_wide) has K2's contract over (E, R) past the ablk layout's int32
 # keys, which the same kernels cover with int64 cell indices (phase 9).
+# ---- the mesh on the card (phase 21) ---------------------------------------
+# (a) at config 3 on meshes of four shards of the one card; (b) an
+# encrypted in-memory remote at config-3 width and 1/MESH_DEPTH of phase
+# 10's rows (phase 10's fs remote is compacted by then, and a fresh one
+# on the machine's 9p root took 48.6 s to write 10,000 files at 1/8
+# depth); (c) phase 19 (d)'s 256-tenant mix on a (2, 1) mesh; (d) an
+# NCCL group of one process.
+MESH_SHAPES = ((4, 1), (2, 2), (1, 4))
+MESH_REPS, MESH_DEPTH, MESH_DAEMON_CYCLES = 5, 4, 6
+
+
+def card_mesh(shape, device: str = "cuda"):
+    """A (dp, mp) mesh of dp·mp shards of one device (cuda:0 on the
+    card; ``"cpu"`` in a dry run)."""
+    import torch
+
+    from crdt_enc_tpu_torch.parallel import make_mesh
+
+    dp, mp = shape
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    return make_mesh(shape, devices=[dev] * (dp * mp))
+
+
+def expect_launches(label: str, device: str, got: dict, want: dict) -> None:
+    """The card's launch counts must be ``want`` (a dry run on the CPU
+    launches nothing)."""
+    if device == "cuda" and got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def median_ms(fn, reps: int = MESH_REPS) -> float:
+    """Median of ``reps`` CUDA-event-timed calls after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def counted(fn) -> tuple:
+    """``fn()`` and the kernel launches it made: (result, launches)."""
+    reset_launches()
+    out = fn()
+    return out, {k: v for k, v in read_launches().items() if v}
+
+
+def mesh_check(label: str, refs: dict, got, errs: dict, key: str) -> None:
+    """``got`` against each reference of ``refs``, exactly."""
+    for name, ref in refs.items():
+        check_equal(f"{label} vs {name}", ref, got, errs, key)
+
+
+def phase_mesh_ops(errs: dict, device: str) -> dict:
+    """21 (a): each sharded function at its config's width on the card's
+    meshes, against the unsharded kernel and the plain version; the
+    per-shard launches and the median of MESH_REPS calls beside the
+    unsharded kernel's, in the same run."""
+    import torch
+
+    from crdt_enc_tpu_torch.ops import lww as L
+    from crdt_enc_tpu_torch.ops import orset as P
+    from crdt_enc_tpu_torch.ops.counters import gcounter_fold, pncounter_fold
+    from crdt_enc_tpu_torch.ops.lww_fold_cuda import lww_fold_cuda
+    from crdt_enc_tpu_torch.ops.mvreg import mvreg_dominance_keep
+    from crdt_enc_tpu_torch.ops.orset_fold_cuda import orset_fold_cuda
+    from crdt_enc_tpu_torch.ops.orset_merge_cuda import orset_merge_many_cuda
+    from crdt_enc_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    E, R, N = N_MEMBERS, N_REPLICAS, N_ROWS
+    out: dict = {"fold": {}, "merge": {}}
+    z = torch.zeros((E, R), dtype=torch.int32, device=dev)
+    clock0 = torch.zeros(R, dtype=torch.int32, device=dev)
+    rows7 = [torch.from_numpy(x).to(dev) for x in gen_columns(N, R, E, SEED)]
+    rows8 = [torch.from_numpy(x).to(dev) for x in gen_columns(N, R, E, SEED2)]
+    base = orset_fold_cuda(clock0, z, z, *rows7, num_members=E,
+                           num_replicas=R)
+    for retire in (True, False):
+        kw = dict(num_members=E, num_replicas=R, retire_rm=retire)
+        refs = {"orset_fold_cuda": orset_fold_cuda(*base, *rows8, **kw),
+                "orset_fold_plain": P.orset_fold_plain(*base, *rows8, **kw)}
+        flat_ms = median_ms(lambda: orset_fold_cuda(*base, *rows8, **kw))
+        for shape in MESH_SHAPES:
+            mesh = card_mesh(shape, device)
+            got, launches = counted(lambda: pmesh.orset_fold_sharded(
+                mesh, *base, *rows8, retire_rm=retire))
+            mesh_check(f"(a) orset_fold_sharded {shape} retire_rm={retire}",
+                       refs, got, errs, "orset_scatter")
+            expect_launches(f"(a) orset_fold_sharded {shape}", device,
+                            launches, {"orset_scatter": shape[0] * shape[1]})
+            ms = median_ms(lambda: pmesh.orset_fold_sharded(
+                mesh, *base, *rows8, retire_rm=retire))
+            out["fold"][f"{shape[0]}x{shape[1]} retire_rm={retire}"] = {
+                "launches": launches, "ms": ms, "unsharded_ms": flat_ms}
+            print(f"    per-shard launches {launches}; median {ms:.3f} ms "
+                  f"against orset_fold_cuda {flat_ms:.3f} ms", flush=True)
+            del got
+        del refs
+    # phase 3's S folded slices, merged pairwise on the mesh
+    bounds = np.linspace(0, N, MERGE_S + 1).astype(int)
+    states = [orset_fold_cuda(clock0, z, z, *(x[lo:hi] for x in rows7),
+                              num_members=E, num_replicas=R)
+              for lo, hi in zip(bounds[:-1], bounds[1:])]
+    stacks = [torch.stack([s[i] for s in states]) for i in range(3)]
+    refs = {"orset_merge_many_cuda": orset_merge_many_cuda(*stacks),
+            "orset_merge_many_tree": P.orset_merge_many_tree(*stacks)}
+    flat_ms = median_ms(lambda: orset_merge_many_cuda(*stacks))
+    for shape in MESH_SHAPES:
+        mesh = card_mesh(shape, device)
+
+        def merge():
+            acc = states[0]
+            for s in states[1:]:
+                acc = pmesh.orset_merge_sharded(mesh, *acc, *s)
+            return acc
+
+        got, launches = counted(merge)
+        mesh_check(f"(a) orset_merge_sharded {shape}, S={MERGE_S}", refs,
+                   got, errs, "orset_merge_many")
+        ms = median_ms(merge)
+        out["merge"][f"{shape[0]}x{shape[1]}"] = {
+            "launches": launches, "ms": ms, "unsharded_ms": flat_ms}
+        print(f"    launches {launches} (elementwise, plain PyTorch); median "
+              f"{ms:.3f} ms against orset_merge_many_cuda {flat_ms:.3f} ms",
+              flush=True)
+    del states, stacks, refs, rows7, rows8, base, z
+    torch.cuda.empty_cache()
+
+    # configs 1 and 2: the counters (plain PyTorch in either package)
+    counter_errs: dict = {}
+    rng = np.random.default_rng(1)
+    actor = rng.integers(0, GC_R, GC_N, dtype=np.int32)
+    gc = [torch.from_numpy(x).to(dev)
+          for x in (actor, running_count(actor, GC_R))]
+    rng = np.random.default_rng(2)
+    actor = rng.integers(0, PN_R, PN_N, dtype=np.int32)
+    sign = (rng.random(PN_N) < 0.3).astype(np.int8)
+    pn = [torch.from_numpy(x).to(dev)
+          for x in (sign, actor, running_count(actor * 2 + sign, PN_R * 2))]
+    for shape in MESH_SHAPES:
+        mesh = card_mesh(shape, device)
+        c0 = torch.zeros(GC_R, dtype=torch.int32, device=dev)
+        got = pmesh.gcounter_fold_sharded(mesh, c0, *gc)
+        ref = gcounter_fold(c0, *gc, num_replicas=GC_R)
+        mesh_check(f"(a) gcounter_fold_sharded {shape} (config 1)",
+                   {"gcounter_fold": ref}, got, counter_errs, "counters")
+        p0 = torch.zeros(PN_R, dtype=torch.int32, device=dev)
+        got = pmesh.pncounter_fold_sharded(mesh, p0, p0, *pn)
+        ref = pncounter_fold(p0, p0, *pn, num_replicas=PN_R)
+        mesh_check(f"(a) pncounter_fold_sharded {shape} (config 2)",
+                   {"pncounter_fold": ref}, got, counter_errs, "counters")
+
+    # config 4 on (4, 1): K5 once per dp shard
+    key, ts, actor, value = gen_lww(LWW_N, LWW_K, LWW_R)
+    hi, lo = L.ts_split(ts)
+    lww = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+           for x in (key, hi, lo, actor, value)]
+    refs = {"lww_fold_cuda": lww_fold_cuda(*lww, num_keys=LWW_K),
+            "lww_fold_plain": L.lww_fold_plain(*lww, num_keys=LWW_K)}
+    mesh = card_mesh((4, 1), device)
+    got, launches = counted(lambda: pmesh.lww_fold_sharded(
+        mesh, *lww, num_keys=LWW_K))
+    mesh_check("(a) lww_fold_sharded (4, 1) (config 4)", refs, got, errs,
+               "lww_fold")
+    expect_launches("(a) lww_fold_sharded", device, launches, {"lww_fold": 4})
+    ms = median_ms(lambda: pmesh.lww_fold_sharded(mesh, *lww,
+                                                  num_keys=LWW_K))
+    flat_ms = median_ms(lambda: lww_fold_cuda(*lww, num_keys=LWW_K))
+    out["lww"] = {"launches": launches, "ms": ms, "unsharded_ms": flat_ms}
+    print(f"    per-shard launches {launches}; median {ms:.3f} ms against "
+          f"lww_fold_cuda {flat_ms:.3f} ms", flush=True)
+    del lww, refs, got
+
+    # phase 15 (c)'s V = 2,048 MVReg candidates on (4, 1)
+    snaps, _ = mvreg_snapshots()
+    pairs = [p for s in snaps for p in s.vals]
+    index: dict = {}
+    clocks = np.zeros((len(pairs), MV_R), np.int64)
+    for i, (c, _) in enumerate(pairs):
+        for a, n in c.counters.items():
+            clocks[i, index.setdefault(a, len(index))] = n
+    clocks = torch.from_numpy(clocks[:, :len(index)].copy()).to(dev)
+    valid = torch.ones(len(pairs), dtype=torch.bool, device=dev)
+    ref = mvreg_dominance_keep(clocks, valid)
+    got = pmesh.mvreg_keep_sharded(mesh, clocks, valid)
+    same = torch.equal(ref, got)
+    print(f"  (a) mvreg_keep_sharded (4, 1), V={len(pairs)}: equal={same}, "
+          f"{int(got.sum())} kept", flush=True)
+    if not same:
+        raise AssertionError("(a) mvreg_keep_sharded disagrees")
+    out["mvreg"] = {"V": len(pairs), "kept": int(got.sum()),
+                    "ms": median_ms(lambda: pmesh.mvreg_keep_sharded(
+                        mesh, clocks, valid), reps=3),
+                    "unsharded_ms": median_ms(lambda: mvreg_dominance_keep(
+                        clocks, valid), reps=3)}
+    print(f"    median {out['mvreg']['ms']:.3f} ms against "
+          f"mvreg_dominance_keep {out['mvreg']['unsharded_ms']:.3f} ms",
+          flush=True)
+    del clocks
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_compaction(device: str) -> dict:
+    """21 (b): ``Core.compact()`` of an encrypted in-memory remote at
+    config-3 width (phase 10's op-file layout at 1/MESH_DEPTH of its
+    rows) with a (2, 2) mesh accelerator, which streams through the
+    sharded DEVICE_STREAM (the session leaves BUFFER at its first chunk),
+    against the host loop on a byte-identical copy."""
+    from crdt_enc_tpu_torch import HostAccelerator, TorchAccelerator
+    from crdt_enc_tpu_torch import canonical_bytes, orset_adapter
+    from crdt_enc_tpu_torch.parallel import session as psession
+
+    E, R = N_MEMBERS, N_REPLICAS
+    files = compaction_files(gen_columns(N_ROWS // MESH_DEPTH, R, E, SEED),
+                             actor_ids(R))
+    t0 = time.perf_counter()
+    remote = run_async(seal_remote([f[1:] for f in files], orset_adapter()))
+    host_remote = copy_memory_remote(remote)
+    n_ops = sum(len(f[3]) for f in files)
+    print(f"  (b) remote sealed in {time.perf_counter() - t0:.1f} s: "
+          f"{len(files)} op files, {n_ops} ops", flush=True)
+    accel = TorchAccelerator(mesh=card_mesh((2, 2), device))
+    probe = SessionProbe(accel)
+    saved = psession.BUFFER_BYTES
+    psession.BUFFER_BYTES = 0
+    try:
+        card, wall, snap, launches = timed_catalogue_compaction(
+            remote, orset_adapter(), accel)
+    finally:
+        psession.BUFFER_BYTES = saved
+    session = probe.sessions[0]
+    print_compaction("TorchAccelerator(mesh=(2, 2) on one device)", wall,
+                     snap)
+    per_chunk = launches["orset_fold"] / max(session.device_chunks, 1)
+    print(f"    session {session.mode}, {session.device_chunks} chunks, "
+          f"{per_chunk:g} K2 launches a chunk, h2d_bytes "
+          f"{snap['counters'].get('h2d_bytes', 0)}; launches {launches}",
+          flush=True)
+    if session.mode != "device_stream" or (device == "cuda"
+                                           and per_chunk != 4):
+        raise AssertionError("(b) the mesh compaction did not stream through "
+                             "the sharded fold, one K2 launch a shard")
+    host, host_wall, _, _ = timed_catalogue_compaction(
+        host_remote, orset_adapter(), HostAccelerator())
+    cb, hb = card.with_state(canonical_bytes), host.with_state(canonical_bytes)
+    same = cb == hb and card.info().next_op_versions == \
+        host.info().next_op_versions
+    print(f"  (b) bytes and cursors equal to the host loop's: {same} "
+          f"(host loop {host_wall:.3f} s)", flush=True)
+    if not same:
+        raise AssertionError("(b) the mesh compaction disagrees with the "
+                             "host loop")
+    return {"wall_s": wall, "host_wall_s": host_wall, "launches": launches,
+            "chunks": session.device_chunks, "rows": session.rows_fed,
+            "h2d_bytes": snap["counters"].get("h2d_bytes", 0),
+            "op_files": len(files), "ops": n_ops}
+
+
+def tenant_bytes(cores) -> list:
+    from crdt_enc_tpu_torch import canonical_bytes
+
+    return [(c.with_state(canonical_bytes), c.info().next_op_versions)
+            for c in cores]
+
+
+def phase_mesh_serving(device: str) -> dict:
+    """21 (c): phase 19 (d)'s 256-tenant mix served by a (2, 1) mesh
+    service and by the unsharded service for two cycles (the second after
+    10% tails: device-cut deltas), tenant for tenant equal; then a
+    ``FleetDaemon`` on the mesh against the unsharded daemon, cycle for
+    cycle; then ``tools.daemon selftest --mesh dp=2 --device cuda``."""
+    import contextlib
+    import io
+
+    from crdt_enc_tpu_torch import MemoryStorage, TorchAccelerator
+    from crdt_enc_tpu_torch.serve import DaemonConfig, FleetDaemon, FoldService
+    from crdt_enc_tpu_torch.tools import daemon as daemon_cli
+    from crdt_enc_tpu_torch.utils import trace
+
+    t0 = time.perf_counter()
+    spec = serve_fleet_spec(scale=OBS_SCALE, cap=False)
+    remotes, tails = run_async(seal_fleet(spec))
+    copies = {k: [copy_memory_remote(r) for r in remotes]
+              for k in ("flat", "mesh", "dflat", "dmesh")}
+    cores = {k: serve_open(v, spec, TorchAccelerator(device), set())
+             for k, v in copies.items()}
+    print(f"  (c) {len(spec)} tenants sealed and opened four times in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    mesh = card_mesh((2, 1), device)
+    services = {"flat": FoldService(cores["flat"]),
+                "mesh": FoldService(cores["mesh"], mesh=mesh)}
+    cycles = []
+    for cycle in (1, 2):
+        if cycle == 2:
+            async def add_tails():
+                for k in copies:
+                    for remote, tail in zip(copies[k], tails):
+                        store = MemoryStorage(remote)
+                        for ab, v, blob in tail:
+                            await store.store_ops(ab, v, blob)
+            run_async(add_tails())
+        row = {}
+        for k, svc in services.items():
+            trace.reset()
+            reset_launches()
+            t1 = time.perf_counter()
+            results = run_async(svc.run_cycle())
+            snap = trace.snapshot()
+            row[k] = {"wall_s": time.perf_counter() - t1,
+                      "launches": {n: v for n, v in read_launches().items()
+                                   if v},
+                      "paths": [r.path for r in results],
+                      "serve_sharded_folds": snap["counters"].get(
+                          "serve_sharded_folds", 0),
+                      "delta_device_cuts": snap["counters"].get(
+                          "delta_device_cuts", 0),
+                      "serve.shard_ms": snap["spans"].get(
+                          "serve.shard", {}).get("seconds", 0) * 1e3}
+        same = tenant_bytes(cores["mesh"]) == tenant_bytes(cores["flat"]) \
+            and row["mesh"]["paths"] == row["flat"]["paths"]
+        print(f"  (c) cycle {cycle}: mesh {row['mesh']['wall_s']:.3f} s "
+              f"(serve.shard {row['mesh']['serve.shard_ms']:.1f} ms, "
+              f"serve_sharded_folds {row['mesh']['serve_sharded_folds']}, "
+              f"launches {row['mesh']['launches']}, device cuts "
+              f"{row['mesh']['delta_device_cuts']}), unsharded "
+              f"{row['flat']['wall_s']:.3f} s (launches "
+              f"{row['flat']['launches']}); every tenant equal: {same}",
+              flush=True)
+        if not same or not row["mesh"]["serve_sharded_folds"]:
+            raise AssertionError(f"(c) cycle {cycle}: the mesh service "
+                                 "disagrees with the unsharded one")
+        cycles.append(row)
+    for svc in services.values():
+        svc.close()
+    cfg = DaemonConfig(tenant_cost_bytes=1 << 16)
+    daemons = {"dflat": FleetDaemon(cores["dflat"], cfg),
+               "dmesh": FleetDaemon(cores["dmesh"], cfg, mesh=mesh)}
+    daemon_cycles, daemon_launches = 0, {}
+    for _ in range(MESH_DAEMON_CYCLES):
+        reports = {}
+        for k, d in daemons.items():
+            reports[k], launched = counted(lambda d=d: run_async(
+                d.run_cycle()))
+            if k == "dmesh":
+                for n, v in launched.items():
+                    daemon_launches[n] = daemon_launches.get(n, 0) + v
+        if outcomes(reports["dmesh"]) != outcomes(reports["dflat"]) or \
+                reports["dmesh"]["selected"] != reports["dflat"]["selected"]:
+            raise AssertionError("(c) the mesh daemon's cycle differs")
+        daemon_cycles += 1
+        if not reports["dmesh"]["selected"]:
+            break
+    same = tenant_bytes(cores["dmesh"]) == tenant_bytes(cores["dflat"])
+    for d in daemons.values():
+        run_async(d.drain())
+    print(f"  (c) FleetDaemon(mesh=(2, 1)) and FleetDaemon() over "
+          f"{daemon_cycles} cycles: schedules equal, every tenant equal: "
+          f"{same}; the mesh daemon's launches {daemon_launches}",
+          flush=True)
+    if not same:
+        raise AssertionError("(c) the mesh daemon's tenants differ")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = daemon_cli.main(["selftest", "--device", device, "--mesh",
+                              "dp=2"])
+    print(f"  (c) tools.daemon selftest --mesh dp=2 --device {device}: exit "
+          f"{rc}: "
+          f"{err.getvalue().strip()}", flush=True)
+    if device == "cuda" and (rc != 2 or "found 1" not in err.getvalue()):
+        raise AssertionError("(c) selftest --mesh dp=2 on one card must "
+                             "exit 2 naming the one device")
+    return {"tenants": len(spec), "cycles": cycles,
+            "daemon": {"cycles": daemon_cycles, "launches": daemon_launches},
+            "selftest_rc": rc}
+
+
+def phase_mesh_distributed(errs: dict) -> dict:
+    """21 (d): ``distributed.initialize()`` from WORLD_SIZE=1, RANK=0 and
+    a free localhost port (an NCCL group on cuda:0), the process mesh,
+    ``global_op_batch`` and the sharded fold, whose dp combine's
+    cross-process leg is an NCCL ``all_reduce(MAX)``; the group is
+    destroyed at the end."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from crdt_enc_tpu_torch.ops.orset_fold_cuda import orset_fold_cuda
+    from crdt_enc_tpu_torch.parallel import distributed
+    from crdt_enc_tpu_torch.parallel import mesh as pmesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+           "WORLD_SIZE": "1", "RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    reduces = []
+    real = dist.all_reduce
+
+    def all_reduce(tensor, *a, **kw):
+        reduces.append(tensor.device.type)
+        return real(tensor, *a, **kw)
+
+    try:
+        import datetime
+
+        ok = distributed.initialize(timeout=datetime.timedelta(seconds=120))
+        backend = dist.get_backend()
+        mesh = distributed.make_multihost_mesh()
+        E, R, N = N_MEMBERS, N_REPLICAS, N_ROWS
+        cols = gen_columns(N, R, E, SEED)
+        dist.all_reduce = all_reduce
+        batch = distributed.global_op_batch(mesh, *cols, num_replicas=R)
+        planes = distributed.replicate(
+            mesh, np.zeros(R, np.int32), np.zeros((E, R), np.int32),
+            np.zeros((E, R), np.int32))
+        got, launches = counted(lambda: pmesh.orset_fold_sharded(
+            mesh, *planes, *batch))
+        torch.cuda.synchronize()
+        n_reduces = len(reduces)
+        ref = orset_fold_cuda(*planes, *(torch.from_numpy(x).cuda()
+                                         for x in cols),
+                              num_members=E, num_replicas=R)
+        check_equal("(d) global_op_batch -> orset_fold_sharded on the NCCL "
+                    "mesh vs orset_fold_cuda", ref, got, errs, "orset_scatter")
+        ms = median_ms(lambda: pmesh.orset_fold_sharded(mesh, *planes,
+                                                         *batch))
+    finally:
+        dist.all_reduce = real
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"  (d) initialize() -> {ok}, backend {backend}, mesh {mesh}; "
+          f"NCCL all_reduce calls on {sorted(set(reduces))}: {n_reduces} "
+          f"in the batch and the checked fold (launches {launches}); the "
+          f"fold's median {ms:.3f} ms; group destroyed", flush=True)
+    if backend != "nccl" or n_reduces != 4 or set(reduces) != {"cuda"}:
+        raise AssertionError("(d) the NCCL all_reduce did not run as the "
+                             "batch and the fold's dp combine")
+    return {"backend": backend, "all_reduce_calls": n_reduces,
+            "launches": launches, "mesh": repr(mesh), "fold_ms": ms}
+
+
+def phase_mesh(device: str = "cuda") -> dict:
+    """Phase 21: the mesh layer on the card (a)-(d), each part's kernel
+    launches counted from 0.  ``device="cpu"`` is the dry run: the plain
+    versions, no launch counts, no NCCL part."""
+    errs: dict = {}
+    t0 = time.perf_counter()
+    print("  (a) sharded ops on meshes of four shards of one device",
+          flush=True)
+    ops = phase_mesh_ops(errs, device)
+    print(device_line(), flush=True)
+    compaction = phase_mesh_compaction(device)
+    print(device_line(), flush=True)
+    serving = phase_mesh_serving(device)
+    print(device_line(), flush=True)
+    dist_part = phase_mesh_distributed(errs) if device == "cuda" else {}
+    wall = time.perf_counter() - t0
+    print(f"  phase 21 wall {wall:.1f} s", flush=True)
+    launches = {k: 0 for k in read_launches()}
+    for part in (ops["fold"], ops["merge"]):
+        for v in part.values():
+            for k, n in v["launches"].items():
+                launches[k] += n
+    for k, n in ops["lww"]["launches"].items():
+        launches[k] += n
+    for src in (compaction["launches"], serving["daemon"]["launches"],
+                *(c["mesh"]["launches"] for c in serving["cycles"]),
+                dist_part.get("launches", {})):
+        for k, n in src.items():
+            launches[k] += n
+    return {"ops": ops, "compaction": compaction, "serving": serving,
+            "distributed": dist_part, "errs": errs, "launches": launches,
+            "wall_s": wall}
+
+
 KERNELS = {
     "orset_scatter": ("crdt_enc_tpu_torch/csrc/orset_fold.cu",
                       "crdt_enc_tpu/ops/pallas_fold.py:628",
@@ -5314,7 +5807,7 @@ def main() -> int:
 
 def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
                       name, t_start, build_s) -> int:
-    """Phases 10 to 20 and the closing lines.  Phase 10's compaction remote
+    """Phases 10 to 21 and the closing lines.  Phase 10's compaction remote
     lives under ``root`` until phase 14 has compacted it twice more."""
     import torch
 
@@ -5429,6 +5922,20 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
           flush=True)
     analysis = phase_analysis(times["orset_fold"]["host_enqueue_ms"], build_s)
 
+    print(f"== 21. the mesh on the card (sharded ops at config-3 width on "
+          f"{', '.join(f'({a}, {b})' for a, b in MESH_SHAPES)} shards of "
+          f"cuda:0; Core.compact() on a (2, 2) mesh at 1/{MESH_DEPTH} of "
+          f"config 3's rows, in memory; a (2, 1) mesh FoldService and FleetDaemon over "
+          f"{FLEET_T // OBS_SCALE} tenants; an NCCL group of one)",
+          flush=True)
+    print(device_line(), flush=True)
+    mesh = phase_mesh("cuda")
+    for k, v in mesh["errs"].items():
+        if k in errs:
+            errs[k] = max(errs[k], v)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     kernels = []
     for kname, (source, replaces, pallas) in KERNELS.items():
         entry = {
@@ -5490,6 +5997,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
             part: obs[part]["launches"][kname]
             for part in ("stream", "fleet", "service", "migration",
                          "device_decode")}
+        entry["mesh_launches"] = mesh["launches"][kname]
         if kname == "orset_fold":
             entry["serving"] = {
                 "route": "tenant layout: (E_b, T*R_b) planes, padding at "
@@ -5511,6 +6019,8 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     print(json.dumps({"sim": sim}), flush=True)
     print(json.dumps({"obs": obs}), flush=True)
     print(json.dumps({"analysis": analysis}), flush=True)
+    print(json.dumps({"mesh": {k: v for k, v in mesh.items()
+                               if k != "errs"}}), flush=True)
     print(device_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

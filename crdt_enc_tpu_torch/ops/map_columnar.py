@@ -208,7 +208,7 @@ def _host_scatter_phase(
 
 def crdtmap_fold_host(
     state: CrdtMap, B, A, Rm, K, keys: Vocab, members: Vocab, replicas: Vocab,
-    device=None,
+    device=None, mesh=None,
 ) -> CrdtMap:
     """Vectorized fold of the decoded row families into ``state``
     (CrdtMap<orset>), equal to applying the batch per-op in any
@@ -218,7 +218,10 @@ def crdtmap_fold_host(
     scatter-max families + normalization) through the PyTorch program of
     ops/map_device.py on that device — same planes, same int64 values
     (fuzzed equal in tests/test_torch_map_columnar.py); ``None`` runs the
-    numpy phase.  State↔planes conversion stays on the host."""
+    numpy phase.  ``mesh`` (a ``parallel.mesh.Mesh``, with ``device``
+    its home) shards the device phase's rows over the mesh's ``dp`` axis
+    (``parallel.mesh.crdtmap_scatter_sharded``).  State↔planes
+    conversion stays on the host."""
     R = len(replicas)
     aidx = replicas.index
 
@@ -296,7 +299,7 @@ def crdtmap_fold_host(
             clock, births, cclk, cadd, crm, group_ok = crdtmap_scatter_device(
                 clock0, births0, cclk0, cadd0, crm0, key_of_pair,
                 B, {**A, "pair": b_pair_a}, {**Rm, "pair": b_pair_r}, K,
-                n_groups, device=device,
+                n_groups, device=device, mesh=mesh,
             )
         group_ok_pad = np.ones(max(n_groups, 1), bool)
         group_ok_pad[:n_groups] = group_ok

@@ -40,15 +40,27 @@ def crdtmap_scatter_phase(
     r_pair, r_actor, r_ctr, r_mactor, r_mctr,  # child-remove horizons
     *,
     num_groups: int,
+    combine=None,
 ):
     """The batch scatter-maxes + normalization of ``crdtmap_fold_host``
     (map_columnar.py).  Returns ``(clock, births, cclk, cadd, crm,
     group_ok)`` with the values the host numpy phase computes, the planes
-    in int64 on the planes' device."""
+    in int64 on the planes' device.
+
+    ``combine``: the row-sharding hook, ``combine(fn, cols, op)``.  Each
+    scatter over rows runs as ``fn(*cols)``; a mesh's hook
+    (``parallel.mesh.dp_combine``) runs it on every dp shard's rows and
+    reduces the partials with ``op`` — ``"max"``, the JAX phase's
+    ``pmax``, for the planes; ``"min"``, its ``pmin``, for the
+    remove-group gate — after which the replicated normalization is the
+    same on every shard.  None runs each scatter once over all rows."""
     NK, R = births0.shape
     NP = cadd0.shape[0]
     dev = clock0.device
     i64 = torch.int64
+    if combine is None:
+        def combine(fn, cols, op):
+            return fn(*cols)
 
     def col(x):
         # lint: disable=OBS001 (crdtmap_scatter_device uploads and counts the columns; they reach here on dev)
@@ -66,12 +78,17 @@ def crdtmap_scatter_phase(
     def smax(rows, seg_rows, seg_actor, rows_c, gate):
         """Zero planes of ``rows`` rows with each gated row's counter
         max-scattered into cell (seg_rows, actor)."""
-        seg = seg_rows * R + seg_actor.clamp(max=R - 1)
-        vals = torch.where(gate, rows_c, 0)
-        out = torch.zeros(rows * R, dtype=i64, device=dev)
-        if len(seg):
-            out.scatter_reduce_(0, seg, vals, reduce="amax")
-        return out.view(rows, R)
+
+        def part(seg_rows, seg_actor, rows_c, gate):
+            seg = seg_rows * R + seg_actor.clamp(max=R - 1)
+            vals = torch.where(gate, rows_c, 0)
+            out = torch.zeros(rows * R, dtype=i64, device=seg.device)
+            if len(seg):
+                out.scatter_reduce_(0, seg, vals, reduce="amax")
+            return out
+
+        return combine(part, (seg_rows, seg_actor, rows_c, gate),
+                       "max").view(rows, R)
 
     def at_actor(plane, actor):
         return plane[actor.clamp(max=R - 1)]
@@ -89,11 +106,15 @@ def crdtmap_scatter_phase(
     # 2. fire-or-defer per WHOLE remove: segment-min over each remove
     #    group of "the final clock covers this ctx dot"
     beyond = (k_ctr > at_actor(clock, k_actor)) & ~k_pad
-    ok = torch.ones(num_groups, dtype=i64, device=dev)
-    if num_groups and len(k_group):
-        ok.scatter_reduce_(0, torch.where(k_pad, 0, k_group),
-                           torch.where(beyond, 0, 1), reduce="amin")
-    group_ok = ok.bool()
+
+    def gate_part(k_group, k_pad, beyond):
+        ok = torch.ones(num_groups, dtype=i64, device=k_group.device)
+        if num_groups and len(k_group):
+            ok.scatter_reduce_(0, torch.where(k_pad, 0, k_group),
+                               torch.where(beyond, 0, 1), reduce="amin")
+        return ok
+
+    group_ok = combine(gate_part, (k_group, k_pad, beyond), "min").bool()
     if num_groups:
         applicable = group_ok[k_group.clamp(max=num_groups - 1)] & ~k_pad
     else:
@@ -132,13 +153,20 @@ def crdtmap_scatter_phase(
 
 def crdtmap_scatter_device(
     clock0, births0, cclk0, cadd0, crm0, key_of_pair, B, A, Rm, K,
-    n_groups: int, *, device,
+    n_groups: int, *, device, mesh=None,
 ):
     """Upload the host fold's numpy planes (int64) and the four decoded
     row-family dicts to ``device``, run :func:`crdtmap_scatter_phase` and
     bring the results back as numpy: int64 planes and ``group_ok``, shaped
-    exactly as the host phase's."""
-    device = torch.device(device)
+    exactly as the host phase's.
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` of two or more shards): the rows
+    shard over its ``dp`` axis, each family padded to a dp multiple with
+    ``actor == R`` sentinels, and the phase runs through
+    ``parallel.mesh.crdtmap_scatter_sharded`` on the mesh's devices."""
+    sharded = mesh is not None and mesh.size > 1
+    device = mesh.home if sharded else torch.device(device)
+    dp = mesh.local_dp if sharded else 1
 
     def up(x):
         a = np.ascontiguousarray(x, np.int64)
@@ -147,16 +175,30 @@ def crdtmap_scatter_device(
         return torch.from_numpy(a).to(device)
 
     NK, R = births0.shape
+
+    def rows(d, names, fills):
+        n = len(d["actor"])
+        padn = -(-n // dp) * dp - n
+        return [up(np.concatenate([np.asarray(d[x], np.int64),
+                                   np.full(padn, f, np.int64)])
+                   if padn else d[x])
+                for x, f in zip(names, fills)]
+
+    b_rows = rows(B, ("key", "actor", "ctr"), (0, R, 0))
+    k_rows = rows(K, ("key", "actor", "ctr", "group"), (0, R, 0, 0))
+    a_rows = rows(A, ("key", "pair", "actor", "ctr"), (0, 0, R, 0))
+    r_rows = rows(Rm, ("pair", "actor", "ctr", "mactor", "mctr"),
+                  (0, R, 0, R, 0))
     clock0 = np.asarray(clock0)[:R]
-    out = crdtmap_scatter_phase(
-        up(clock0), up(births0), up(cclk0), up(cadd0), up(crm0),
-        up(key_of_pair),
-        up(B["key"]), up(B["actor"]), up(B["ctr"]),
-        up(K["key"]), up(K["actor"]), up(K["ctr"]), up(K["group"]),
-        up(A["key"]), up(A["pair"]), up(A["actor"]), up(A["ctr"]),
-        up(Rm["pair"]), up(Rm["actor"]), up(Rm["ctr"]), up(Rm["mactor"]),
-        up(Rm["mctr"]),
-        num_groups=n_groups,
-    )
+    planes = (up(clock0), up(births0), up(cclk0), up(cadd0), up(crm0),
+              up(key_of_pair))
+    if sharded:
+        from ..parallel.mesh import crdtmap_scatter_sharded
+
+        out = crdtmap_scatter_sharded(mesh, *planes, b_rows, k_rows, a_rows,
+                                      r_rows, num_groups=n_groups)
+    else:
+        out = crdtmap_scatter_phase(*planes, *b_rows, *k_rows, *a_rows,
+                                    *r_rows, num_groups=n_groups)
     clock, births, cclk, cadd, crm, group_ok = (x.cpu().numpy() for x in out)
     return clock, births, cclk, cadd, crm, group_ok

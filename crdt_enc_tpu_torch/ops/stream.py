@@ -155,7 +155,8 @@ def _host_tensors(chunk) -> tuple:
                  for x in chunk)
 
 
-def fold_chunks_overlapped(planes, chunks, fold_step, *, pool=None):
+def fold_chunks_overlapped(planes, chunks, fold_step, *, pool=None,
+                           put=None):
     """The overlapped consumer loop: fold an iterable of host column
     chunks into the ``planes`` triple with one chunk of upload lookahead.
 
@@ -167,13 +168,23 @@ def fold_chunks_overlapped(planes, chunks, fold_step, *, pool=None):
     k — and recycles its pool buffer.  With CPU planes the chunks are
     folded as they come and a pool buffer is recycled after its fold.
 
+    ``put(tensor, non_blocking)`` overrides the per-column transfer (the
+    sharded stream passes its mesh's row placement,
+    ``parallel.mesh.stream_sharding``): on the card it is issued on the
+    side stream in place of the slot copy, so chunk k+1's upload still
+    rides under chunk k's fold.  This loop counts ``h2d_bytes``; ``put``
+    must not.
+
     Returns the final planes without waiting for the card (callers block
     and pull under ``stream.d2h`` with :func:`planes_to_host`)."""
     device = planes[0].device
     if device.type != "cuda":
         for k, host_chunk in enumerate(chunks):
+            chunk = _host_tensors(host_chunk)
+            if put is not None:
+                chunk = tuple(put(x, False) for x in chunk)
             with trace.span("stream.fold", meta=k):
-                planes = fold_step(planes, _host_tensors(host_chunk))
+                planes = fold_step(planes, chunk)
             if pool is not None:
                 pool.release(host_chunk)
         return planes
@@ -189,20 +200,27 @@ def fold_chunks_overlapped(planes, chunks, fold_step, *, pool=None):
         s = k % 2
         with trace.span("stream.h2d", meta=k):
             trace.add("h2d_bytes", sum(x.nbytes for x in host))
-            fresh = slots[s] is None or any(
-                d.shape != h.shape for d, h in zip(slots[s], host))
+            fresh = put is None and (slots[s] is None or any(
+                d.shape != h.shape for d, h in zip(slots[s], host)))
             if fresh:
                 # allocated on the fold's stream, which alone reads them;
                 # the memory may come back from work still queued there
                 slots[s] = tuple(torch.empty(h.shape, dtype=h.dtype,
                                              device=device) for h in host)
             with torch.cuda.stream(copy):
-                if fresh:
-                    copy.wait_stream(main)
-                elif freed[s] is not None:
-                    copy.wait_event(freed[s])
-                for d, h in zip(slots[s], host):
-                    d.copy_(h, non_blocking=True)
+                if put is not None:
+                    # the placement allocates on the side stream; the
+                    # fold on the main stream reads what it returns
+                    slots[s] = tuple(put(h, True) for h in host)
+                    for d in slots[s]:
+                        d.record_stream(main)
+                else:
+                    if fresh:
+                        copy.wait_stream(main)
+                    elif freed[s] is not None:
+                        copy.wait_event(freed[s])
+                    for d, h in zip(slots[s], host):
+                        d.copy_(h, non_blocking=True)
                 landed = torch.cuda.Event()
                 landed.record(copy)
         if pending is not None:

@@ -26,6 +26,11 @@ its batch onto the cached vocabularies and starts from those planes, so
 it walks no state and uploads only the op columns.  Every host writeback bumps the state's
 ``_mut`` epoch, and a bumped epoch expires the entry.
 
+With a ``mesh`` (``parallel.mesh.make_mesh``) of two or more shards,
+every fold and merge the accelerator takes routes through the sharded
+functions of ``parallel/mesh.py``, op rows over ``dp`` and planes over
+``mp``, as the JAX accelerator's do; the plane cache stays off there.
+
 Eager PyTorch compiles nothing per shape, so the JAX package's bucket
 padding of rows and vocabularies (a bound on XLA recompiles) has no
 counterpart here.
@@ -58,6 +63,7 @@ from ..models.orset import ORSet
 from ..models.seqlist import op_from_obj as seqlist_op_from_obj
 from ..ops.columnar import (
     CounterColumns,
+    OrsetColumns,
     Vocab,
     counter_ops_to_columns,
     dense_to_vclock,
@@ -120,7 +126,15 @@ class TorchAccelerator(HostAccelerator):
     ``device``: ``None`` means ``"cuda"``, and then CUDA must be
     available: the accelerator raises rather than carry on silently on
     the CPU.  ``device="cpu"`` runs the same route through the plain
-    PyTorch versions of the kernels, as the tests do."""
+    PyTorch versions of the kernels, as the tests do.
+
+    ``mesh``: a ``parallel.mesh.Mesh``.  With two or more shards every
+    fold and merge routes through the sharded functions — op rows over
+    ``dp``, state planes over ``mp`` — so ``Core.compact`` runs on every
+    shard; the device is the mesh's home.  ``sharded_stream`` (None =
+    on) lets the fold session stream through the sharded fold (parallel/
+    session.py ``_device_feed_sharded``) instead of buffering the whole
+    batch for one sharded fold at finish."""
 
     # Above this many plane cells per batch row the dense planes' init and
     # sweep dominate the fold; below SPARSE_MIN_CELLS they are cheap.
@@ -130,7 +144,13 @@ class TorchAccelerator(HostAccelerator):
     # this many rows per launch (ops/stream.py), as in the JAX package
     STREAM_CHUNK_ROWS = 1 << 22
 
-    def __init__(self, device=None, min_device_batch: int = MIN_DEVICE_BATCH):
+    def __init__(self, device=None, min_device_batch: int = MIN_DEVICE_BATCH,
+                 mesh=None, sharded_stream: bool | None = None):
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.home:
+                raise ValueError(f"TorchAccelerator: device {device} is not "
+                                 f"the mesh's home {mesh.home}")
+            device = mesh.home
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
@@ -142,8 +162,18 @@ class TorchAccelerator(HostAccelerator):
             raise ValueError(f"TorchAccelerator: unsupported device {device}")
         self.device = device
         self.min_device_batch = min_device_batch
-        # device-resident plane reuse across fold rounds
+        self.mesh = mesh
+        self.sharded_stream = (sharded_stream is not False
+                               and self._mesh_active())
+        # device-resident plane reuse across fold rounds (one device
+        # only: the sharded fold never fills it)
         self._plane_cache: _OrsetPlaneCache | None = None
+
+    def _mesh_active(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _dp(self) -> int:
+        return self.mesh.shape["dp"] if self._mesh_active() else 1
 
     def _upload(self, arrays) -> list:
         """numpy arrays → tensors on ``self.device``; counts the bytes
@@ -316,6 +346,11 @@ class TorchAccelerator(HostAccelerator):
         E, R = len(members), len(replicas)
         if E == 0 or R == 0:
             return state
+        if self._mesh_active():
+            # rows over dp, planes over mp: the mp axis is what makes
+            # huge planes tractable, so the sparse route does not apply
+            return self._fold_orset_sharded(state, kind, member, actor,
+                                            counter, members, replicas)
         if self._use_sparse(E, R, n_rows):
             # the sparse writeback bumps the epoch itself (and stashes
             # its rows for the checkpoint under that epoch): only the
@@ -363,6 +398,46 @@ class TorchAccelerator(HostAccelerator):
             state, members, replicas, out,
             cache.canon if cache is not None else None,
         )
+        return state
+
+    def _fold_orset_sharded(self, state: ORSet, kind, member, actor, counter,
+                            members: Vocab, replicas: Vocab) -> ORSet:
+        """The mesh tail: pad the rows to the dp axis and the planes' member
+        axis to the mp axis (zero rows, sliced off at writeback), fold
+        through ``mesh.orset_fold_sharded`` (one K1 launch per shard on
+        the card), write the planes back."""
+        from . import mesh as pmesh
+
+        mesh = self.mesh
+        dp, mp = mesh.shape["dp"], mesh.shape["mp"]
+        E, R = len(members), len(replicas)
+        with trace.span("fold.planes"):
+            clock0, add0, rm0 = orset_state_to_planes(state, members, replicas,
+                                                      scanned=True)
+            E_pad = -(-E // mp) * mp
+            if E_pad != E:
+                z = np.zeros((E_pad - E, R), np.int32)
+                add0 = np.concatenate([add0, z])
+                rm0 = np.concatenate([rm0, z])
+            cols = OrsetColumns(
+                np.asarray(kind, np.int8), np.asarray(member, np.int32),
+                np.asarray(actor, np.int32), np.asarray(counter, np.int32),
+            )
+            pmesh.pad_rows_for_mesh(cols, dp, R)
+            rows = pmesh.process_rows(mesh, cols.kind, cols.member, cols.actor,
+                                      cols.counter)
+        with trace.span("fold.device"):
+            dev = self._upload((clock0, add0, rm0, *rows))
+            out = pmesh.orset_fold_sharded(mesh, *dev)
+            del dev
+            clock, add, rm = (x.cpu().numpy() for x in out)
+        with trace.span("fold.writeback"):
+            folded = orset_planes_to_state(clock, add[:E], rm[:E], members,
+                                           replicas)
+        state.clock = folded.clock
+        state.entries = folded.entries
+        state.deferred = folded.deferred
+        self._note_orset_writeback(state)
         return state
 
     # -------------------------------------------------------- fold_payloads
@@ -468,11 +543,15 @@ class TorchAccelerator(HostAccelerator):
                 actor_set.update(dfr)
         return sorted(actor_set)
 
-    def _map_fold_device(self, n_rows: int):
-        """The scatter phase's device for a batch of ``n_rows`` decoded
-        rows: this accelerator's from ``min_device_batch`` rows, else None
-        (the numpy phase)."""
-        return self.device if n_rows >= self.min_device_batch else None
+    def _map_fold_route(self, n_rows: int) -> dict:
+        """The scatter phase's route for a batch of ``n_rows`` decoded
+        rows, as ``crdtmap_fold_host`` keywords: under an active mesh the
+        sharded phase on the mesh, else this accelerator's device from
+        ``min_device_batch`` rows, else the numpy phase (no device)."""
+        if self._mesh_active():
+            return {"device": self.device, "mesh": self.mesh}
+        return {"device": self.device if n_rows >= self.min_device_batch
+                else None}
 
     def _fold_map_payloads(self, state: CrdtMap, payloads: list,
                            actors_hint=()) -> bool:
@@ -500,7 +579,7 @@ class TorchAccelerator(HostAccelerator):
         with trace.span("fold.map"):
             crdtmap_fold_host(state, B, A, Rm, Kk, keys, members,
                               Vocab(actors_sorted),
-                              device=self._map_fold_device(n_rows))
+                              **self._map_fold_route(n_rows))
         return True
 
     # -------------------------------------------- catalogue bulk front ends
@@ -746,17 +825,37 @@ class TorchAccelerator(HostAccelerator):
             return state
         with trace.span("fold.planes"):
             dense = [vclock_to_dense(c, replicas).astype(np.int64) for c in clocks]
-        rows = (cols.actor, cols.counter.astype(np.int64))
+        sign, actor, counter = cols.sign, cols.actor, cols.counter.astype(np.int64)
+        sharded = self._mesh_active()
+        if sharded:
+            from . import mesh as pmesh
+
+            # rows over dp: pad with actor == R sentinels
+            padn = -(-len(sign) // self._dp()) * self._dp() - len(sign)
+            sign = np.concatenate([sign, np.zeros(padn, np.int8)])
+            actor = np.concatenate([actor, np.full(padn, R, actor.dtype)])
+            counter = np.concatenate([counter, np.zeros(padn, np.int64)])
+            sign, actor, counter = pmesh.process_rows(self.mesh, sign, actor,
+                                                      counter)
         with trace.span("fold.device"):
             if pn:
                 p0, n0, sign, actor, counter = self._upload(
-                    (*dense, cols.sign, *rows))
-                p, n, _ = pncounter_fold(p0, n0, sign, actor, counter,
-                                         num_replicas=R)
+                    (*dense, sign, actor, counter))
+                if sharded:
+                    p, n, _ = pmesh.pncounter_fold_sharded(
+                        self.mesh, p0, n0, sign, actor, counter)
+                else:
+                    p, n, _ = pncounter_fold(p0, n0, sign, actor, counter,
+                                             num_replicas=R)
                 out = [p.cpu().numpy(), n.cpu().numpy()]
             else:
-                clock0, actor, counter = self._upload((*dense, *rows))
-                clock, _ = gcounter_fold(clock0, actor, counter, num_replicas=R)
+                clock0, actor, counter = self._upload((*dense, actor, counter))
+                if sharded:
+                    clock, _ = pmesh.gcounter_fold_sharded(
+                        self.mesh, clock0, actor, counter)
+                else:
+                    clock, _ = gcounter_fold(clock0, actor, counter,
+                                             num_replicas=R)
                 out = [clock.cpu().numpy()]
         with trace.span("fold.writeback"):
             if pn:
@@ -777,10 +876,22 @@ class TorchAccelerator(HostAccelerator):
         # fits int32; the kernel orders the pair without it either way
         V = len(cols.values_sorted)
         num_values = V if len(cols.actors_sorted) * V < 2**31 else None
+        rows = (cols.key, cols.ts_hi, cols.ts_lo, cols.actor, cols.value)
+        if self._mesh_active():
+            from . import mesh as pmesh
+
+            # rows over dp: pad with key == K sentinels
+            padn = -(-len(cols.key) // self._dp()) * self._dp() - len(cols.key)
+            rows = tuple(np.concatenate([x, np.full(padn, fill, np.int32)])
+                         for x, fill in zip(rows, (Kn, 0, 0, 0, 0)))
+            rows = pmesh.process_rows(self.mesh, *rows)
         with trace.span("fold.device"):
-            dev = self._upload(
-                (cols.key, cols.ts_hi, cols.ts_lo, cols.actor, cols.value))
-            out = lww_fold(*dev, num_keys=Kn, num_values=num_values)
+            dev = self._upload(rows)
+            if self._mesh_active():
+                out = pmesh.lww_fold_sharded(self.mesh, *dev, num_keys=Kn,
+                                             num_values=num_values)
+            else:
+                out = lww_fold(*dev, num_keys=Kn, num_values=num_values)
             m_hi, m_lo, m_actor, m_value, present = (x.cpu().numpy() for x in out)
         with trace.span("fold.writeback"):
             self._lww_writeback(state, cols, m_hi, m_lo, m_actor, m_value,
@@ -832,11 +943,14 @@ class TorchAccelerator(HostAccelerator):
     def merge_states(self, state, others: list):
         if not others:
             return state
-        if (isinstance(state, ORSet) and len(others) + 1 >= 3
-                and all(map(orset_fits_int32, (state, *others)))):
+        if isinstance(state, ORSet) and all(
+                map(orset_fits_int32, (state, *others))):
             # (a counter past int32, which the planes cannot hold, takes
             # the host merge)
-            return self._merge_orsets(state, others)
+            if self._mesh_active():
+                return self._merge_orsets_sharded(state, others)
+            if len(others) + 1 >= 3:
+                return self._merge_orsets(state, others)
         if isinstance(state, MVReg):
             total = len(state.vals) + sum(len(o.vals) for o in others)
             if total >= self.min_device_batch:
@@ -878,10 +992,64 @@ class TorchAccelerator(HostAccelerator):
             clocks = np.zeros((V, R), np.int64)
             clocks[rows, cols] = vals
         with trace.span("merge.device"):
-            (dev,) = self._upload((clocks,))
-            keep = mvreg_dominance_keep(dev).cpu().numpy()
+            if self._mesh_active():
+                from . import mesh as pmesh
+
+                # candidates over dp: pad V with invalid rows
+                Vp = -(-V // self._dp()) * self._dp()
+                clocks = np.concatenate(
+                    [clocks, np.zeros((Vp - V, R), np.int64)])
+                valid = np.arange(Vp) < V
+                dev = self._upload(pmesh.process_rows(self.mesh, clocks,
+                                                      valid))
+                keep = pmesh.mvreg_keep_sharded(self.mesh, *dev)
+                keep = pmesh.gather_rows(self.mesh, keep).cpu().numpy()[:V]
+            else:
+                (dev,) = self._upload((clocks,))
+                keep = mvreg_dominance_keep(dev).cpu().numpy()
         state.vals = [pairs[i] for i in np.flatnonzero(keep)]
         state._canonicalize()
+        return state
+
+    def _merge_orsets_sharded(self, state: ORSet, others: list) -> ORSet:
+        """Pairwise merges with the planes over mp (``mesh.
+        orset_merge_sharded``): elementwise, no collective.  An empty
+        vocabulary merges on the host, clocks included, as the host loop
+        does (the JAX route does the same here; its one-device merge
+        returns the state unmerged, ROADMAP queue 3)."""
+        from . import mesh as pmesh
+
+        mp = self.mesh.shape["mp"]
+        members, replicas = Vocab(), Vocab()
+        for s in [state, *others]:
+            orset_scan_vocab(s, members, replicas)
+        E, R = len(members), len(replicas)
+        if E == 0 or R == 0:
+            return super().merge_states(state, others)
+        E_pad = -(-E // mp) * mp
+
+        def planes(s):
+            clock, add, rm = orset_state_to_planes(s, members, replicas,
+                                                   scanned=True)
+            if E_pad != E:
+                z = np.zeros((E_pad - E, R), np.int32)
+                add = np.concatenate([add, z])
+                rm = np.concatenate([rm, z])
+            return self._upload((clock, add, rm))
+
+        with trace.span("merge.device"):
+            acc = planes(state)
+            for other in others:
+                acc = pmesh.orset_merge_sharded(self.mesh, *acc,
+                                                *planes(other))
+            clock, add, rm = (x.cpu().numpy() for x in acc)
+        with trace.span("merge.writeback"):
+            merged = orset_planes_to_state(clock, add[:E], rm[:E], members,
+                                           replicas)
+        state.clock = merged.clock
+        state.entries = merged.entries
+        state.deferred = merged.deferred
+        self._note_orset_writeback(state)
         return state
 
     def _merge_orsets(self, state: ORSet, others: list) -> ORSet:

@@ -23,7 +23,14 @@ Three modes for the OR-Set, chosen by regime:
 * **DEVICE_STREAM** — past that, the batch planes live on the device,
   start from zero, and fixed-shape row chunks stream through the fold
   kernel with ``retire_rm=False`` (ops/stream.py), one launch per chunk;
-  finish pulls them back and combines them with the state.
+  finish pulls them back and combines them with the state.  Under an
+  ACTIVE MESH (and the accelerator's ``sharded_stream``, on by default)
+  promotion always streams, sharded (``_device_feed_sharded``): chunks
+  over ``dp``, planes over ``mp``, each chunk one
+  ``mesh.orset_fold_sharded`` in partial-reduction mode (one K2 launch
+  per shard).  A mesh without the sharded stream, or one that spans
+  processes, stays buffered and folds once at finish through the
+  whole-batch sharded fold.
 
 Both reduce modes combine at finish with op-APPLY semantics
 (:func:`apply_batch_planes_host`) against the state re-read there, never
@@ -46,8 +53,8 @@ the map's four row families, and finish runs the columnar map fold once
 against the state read there (its scatter phase on the device from
 ``min_device_batch`` rows).
 
-Left out of the copy: the mesh branch of DEVICE_STREAM and the
-device-memory sampling at fold boundaries.  The device-decode experiment
+Left out of the copy: the device-memory sampling at fold boundaries.
+The device-decode experiment
 (``CRDT_DEVICE_DECODE=1``, off by default) gates the OR-Set session's
 decode as in the JAX package.
 """
@@ -93,14 +100,21 @@ class SessionDeclined(Exception):
     it another way."""
 
 
-def apply_batch_planes_host(clock0, add0, rm0, add_b, rm_b):
+def apply_batch_planes_host(clock0, add0, rm0, add_b, rm_b, clock_b=None):
     """numpy twin of :func:`crdt_enc_tpu_torch.ops.orset.
     orset_apply_batch_planes`: batch planes (reductions of OPS) applied to
     the state planes — the replay gate against the current clock, the
     add/rm max, the kill and the retire.  The two never diverge
-    (tests/test_torch_session.py)."""
+    (tests/test_torch_session.py).
+
+    ``clock_b``: the batch's own clock (the max add counter per actor
+    over every row), where ``add_b`` has been through the kill: a dot the
+    batch added and then removed is gone from ``add_b`` but still
+    advances the clock, as in the one-big-fold."""
     add_b = np.where(add_b > clock0[None, :], add_b, 0)
     clock = np.maximum(clock0, add_b.max(axis=0, initial=0))
+    if clock_b is not None:
+        clock = np.maximum(clock, clock_b)
     add = np.maximum(add0, add_b)
     rm = np.maximum(rm0, rm_b)
     add = np.where(add > rm, add, 0)
@@ -261,8 +275,15 @@ class OrsetFoldSession:
     def _promote(self) -> None:
         """Leave BUFFER: pick the representation for this regime and
         replay the buffered chunks through it."""
+        mesh_on = self.accel._mesh_active()
+        if mesh_on and (not self.accel.sharded_stream
+                        or self.accel.mesh.spans_processes):
+            # the whole-batch sharded fold at finish: the sharded stream
+            # is off, or the mesh spans processes, whose ranks would have
+            # to stream their chunks in lockstep
+            return
         E_est = max(len(self.members), 1)
-        if E_est * self.R <= HOST_PLANE_CELLS:
+        if not mesh_on and E_est * self.R <= HOST_PLANE_CELLS:
             self.mode = "host_reduce"
             self._h_add = np.zeros((E_est, self.R), np.int32)
             self._h_rm = np.zeros((E_est, self.R), np.int32)
@@ -276,12 +297,24 @@ class OrsetFoldSession:
             # combined with the live state at finish by op-APPLY semantics,
             # and never reading the state here keeps it safe against
             # concurrent applies (this runs off the event loop)
-            dev = self.accel.device
-            self._d_planes = (
-                torch.zeros(max(self.R, 1), dtype=torch.int32, device=dev),
-                torch.zeros((self._d_E, self.R), dtype=torch.int32, device=dev),
-                torch.zeros((self._d_E, self.R), dtype=torch.int32, device=dev),
-            )
+            if mesh_on:
+                from . import mesh as pmesh
+
+                # member axis over mp: each shard owns E_pad/mp rows
+                mp = self.accel.mesh.shape["mp"]
+                self._d_E = -(-E_est // mp) * mp
+                self._d_planes = pmesh.sharded_stream_planes(
+                    self.accel.mesh, self._d_E, self.R)
+            else:
+                dev = self.accel.device
+                self._d_planes = (
+                    torch.zeros(max(self.R, 1), dtype=torch.int32,
+                                device=dev),
+                    torch.zeros((self._d_E, self.R), dtype=torch.int32,
+                                device=dev),
+                    torch.zeros((self._d_E, self.R), dtype=torch.int32,
+                                device=dev),
+                )
             for cols in self._buffered:
                 self._device_feed(*cols)
         self._buffered = []
@@ -333,6 +366,9 @@ class OrsetFoldSession:
     # ------------------------------------------------ device-stream internals
     def _grow_device_planes(self) -> None:
         E_new = len(self.members)
+        if self.accel._mesh_active():
+            mp = self.accel.mesh.shape["mp"]
+            E_new = -(-E_new // mp) * mp
         clock, add, rm = self._d_planes
         z = torch.zeros((E_new - self._d_E, self.R), dtype=torch.int32,
                         device=add.device)
@@ -340,7 +376,40 @@ class OrsetFoldSession:
         self._d_spare = None
         self._d_E = E_new
 
+    def _device_feed_sharded(self, kind, member, actor, counter) -> None:
+        """DEVICE_STREAM over the accelerator's mesh: the rows pad to the
+        dp axis and stream as fixed-shape chunks through
+        ``mesh.sharded_stream_fold_step`` (``retire_rm=False``, one K2
+        launch per shard), the accumulator planes assembled on the mesh
+        between chunks; chunk k+1's upload through the mesh's row
+        placement is still issued under chunk k's fold
+        (``fold_chunks_overlapped`` with ``put``)."""
+        from . import mesh as pmesh
+
+        mesh = self.accel.mesh
+        dp = mesh.shape["dp"]
+        if len(self.members) > self._d_E:
+            self._grow_device_planes()
+        step = pmesh.sharded_stream_fold_step(mesh)
+        put, _, _ = pmesh.stream_sharding(mesh)
+
+        def fold_step(planes, chunk):
+            self.device_chunks += 1
+            return step(*planes, *chunk)
+
+        with trace.span("session.device_fold"):
+            rows = min(DEVICE_CHUNK_ROWS, len(kind))
+            rows = -(-rows // dp) * dp  # the chunk shape must divide dp
+            self._d_planes = fold_chunks_overlapped(
+                self._d_planes,
+                iter_orset_chunks(kind, member, actor, counter, rows, self.R),
+                fold_step,
+                put=put,
+            )
+
     def _device_feed(self, kind, member, actor, counter) -> None:
+        if self.accel._mesh_active():
+            return self._device_feed_sharded(kind, member, actor, counter)
         if len(self.members) > self._d_E:
             self._grow_device_planes()
 
@@ -404,14 +473,20 @@ class OrsetFoldSession:
                 )
         else:
             with trace.span("session.device_finish"):
-                _, d_add, d_rm = (x.cpu().numpy() for x in self._d_planes)
+                d_clock, d_add, d_rm = (x.cpu().numpy()
+                                        for x in self._d_planes)
                 self._d_planes = self._d_spare = None
                 E_pad = max(self._d_E, E)
                 clock0, add0, rm0 = self._state_planes(E_pad)
                 d_add = self._pad_batch(d_add, E_pad, R_final)
                 d_rm = self._pad_batch(d_rm, E_pad, R_final)
+                # the streamed planes went through the kill, so the
+                # stream's clock carries the dots the batch removed (the
+                # JAX session drops it, ROADMAP queue 3)
+                d_clock = self._pad_batch(d_clock[None, : self.R], 1,
+                                          R_final)[0]
                 clock, add, rm = apply_batch_planes_host(
-                    clock0, add0, rm0, d_add, d_rm
+                    clock0, add0, rm0, d_add, d_rm, d_clock
                 )
         with trace.span("session.writeback"):
             folded = orset_planes_to_state(
@@ -617,7 +692,7 @@ class MapFoldSession:
         with trace.span("session.map_fold"):
             crdtmap_fold_host(state, B, A, Rm, Kk, self.keys, self.members,
                               replicas,
-                              device=self.accel._map_fold_device(self.rows_fed))
+                              **self.accel._map_fold_route(self.rows_fed))
         return state
 
 

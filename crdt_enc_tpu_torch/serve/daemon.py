@@ -1,8 +1,7 @@
 """Always-on fleet daemon: a self-healing control plane over FoldService.
 
-The port's copy of ``crdt_enc_tpu/serve/daemon.py`` on one device (the
-``mesh`` argument is not ported).  :class:`FoldService` is one *cycle*;
-production is a *process*.  The :class:`FleetDaemon` owns a service and
+The port's copy of ``crdt_enc_tpu/serve/daemon.py``.  :class:`FoldService`
+is one *cycle*; production is a *process*.  The :class:`FleetDaemon` owns a service and
 runs the supervised forever-loop, with the failure behaviour a long-lived
 control plane needs:
 
@@ -150,9 +149,14 @@ class FleetDaemon:
     ``time.monotonic`` for every wall-time read."""
 
     def __init__(self, tenants=(), config: DaemonConfig | None = None,
-                 live_port: int | None = None, seed: int = 0, clock=None):
+                 live_port: int | None = None, seed: int = 0, mesh=None,
+                 clock=None):
         self.config = config if config is not None else DaemonConfig()
-        self.service = FoldService([], self.config.serve, live_port=live_port)
+        # the mesh goes straight through to the service: scheduling,
+        # backoff and drain do not depend on the device layout, only the
+        # fold launches change shape
+        self.service = FoldService([], self.config.serve, live_port=live_port,
+                                   mesh=mesh)
         self._entries: dict[str, TenantEntry] = {}
         self._rng = random.Random(f"crdt-daemon-{seed}")
         self._cycle = 0

@@ -1,8 +1,8 @@
 """Multi-tenant fold service: thousands of small remotes, one launch each
 bucket.
 
-The port's copy of ``crdt_enc_tpu/serve/service.py`` on one device (the
-mesh branches are not ported).  A solo ``Core.compact()`` pays a whole
+The port's copy of ``crdt_enc_tpu/serve/service.py``.  A solo
+``Core.compact()`` pays a whole
 ingest, session, kernel launch and replication probe per remote;
 :class:`FoldService` shares them across a fleet of open cores:
 
@@ -43,6 +43,18 @@ the plane upload; after a seal the entry is stamped with the snapshot's
 name, and the next cycle cuts that tenant's delta on the device from the
 same planes (``ops.orset.orset_plane_diff``), copying only the diff rows
 to the host.
+
+**Mesh** (``FoldService(mesh=)``, a ``parallel.mesh.Mesh`` of two or
+more shards): the bucket folds run the sharded tenant folds — tenant
+lanes over ``dp``, member planes over ``mp``, one K2 launch per shard
+(``mesh.orset_fold_tenants_sharded``, span ``serve.shard``, counters
+``serve_sharded_folds`` and ``serve_sharded_tenants``) — the planner
+quantizes bucket slots to dp and member classes to mp, the device-cut
+delta diffs through ``mesh.tenant_plane_diff_sharded``, and solo spills
+fold through a service-owned ``TorchAccelerator(mesh=)``.  The warm tier
+belongs to the mesh (``PlaneWarmTier(mesh_key=)``).  A mesh that spans
+processes is refused: its dp-sharded arguments are process-local, and a
+cycle's tenants are not split across ranks.
 
 **Replication probes**: every tenant's seal samples replication with
 ``_backlog=[]`` (the cycle's ingest folded everything its listing
@@ -217,10 +229,29 @@ class FoldService:
     """
 
     def __init__(self, tenants, config: ServeConfig | None = None,
-                 live_port: int | None = None):
+                 live_port: int | None = None, mesh=None):
         self.tenants = list(tenants)
         self.config = config if config is not None else ServeConfig()
-        self.warm = PlaneWarmTier(self.config.warm_bytes)
+        # a device mesh of two or more shards: the bucket folds run the
+        # sharded tenant folds, oversize spills a service-owned mesh
+        # accelerator's sharded fold (see the module docs)
+        self.mesh = mesh
+        self._mesh_active = mesh is not None and mesh.size > 1
+        self._mesh_accel = None
+        if self._mesh_active:
+            if mesh.spans_processes:
+                raise ValueError("FoldService folds on an in-process mesh; "
+                                 "this one spans processes")
+            from ..parallel.accel import TorchAccelerator
+
+            self._mesh_accel = TorchAccelerator(min_device_batch=1, mesh=mesh)
+            trace.gauge("serve_mesh_devices", mesh.size)
+        mesh_key = mesh if self._mesh_active else None
+        self.warm = PlaneWarmTier(self.config.warm_bytes, mesh_key=mesh_key)
+        # the mesh-identity guard, where entries are consumed: a tier
+        # built for another mesh holds planes laid out for that mesh
+        if not self.warm.compatible_with(mesh_key):
+            raise ValueError("warm tier belongs to a different mesh identity")
         # a service-owned live telemetry endpoint (obs/live.py):
         # live_port=0 binds an ephemeral port (self.live.port); None = no
         # server (a process-default CRDT_OBS_HTTP server, if any, still
@@ -568,13 +599,19 @@ class FoldService:
                 shape = prepared[0]
                 w.prepared = prepared[1]
                 by_idx[w.idx] = w
-                shapes.setdefault(_tenant_device(w), []).append(shape)
+                # under a mesh every tenant folds on the mesh
+                shapes.setdefault(
+                    self.mesh.home if self._mesh_active else _tenant_device(w),
+                    [],
+                ).append(shape)
             for dev_shapes in shapes.values():
                 dev_buckets, solo = plan_buckets(
                     dev_shapes,
                     rows_cap=self.config.rows_cap,
                     cells_cap=self.config.cells_cap,
                     tenants_cap=self.config.tenants_cap,
+                    dp=self.mesh.shape["dp"] if self._mesh_active else 1,
+                    mp=self.mesh.shape["mp"] if self._mesh_active else 1,
                 )
                 buckets += dev_buckets
                 for key in solo:
@@ -645,7 +682,7 @@ class FoldService:
         E_b = _bucket(bucket.members)
         R_b = _bucket(bucket.replicas)
         T = bucket.slots
-        dev = _tenant_device(by_idx[bucket.tenants[0]])
+        dev = self._bucket_device(bucket, by_idx)
         kind = np.zeros((T, N_b), np.int8)
         member = np.zeros((T, N_b), np.int32)
         actor = np.full((T, N_b), R_b, np.int32)  # dummy slots: all padding
@@ -720,10 +757,27 @@ class FoldService:
             ]
         if dev.type == "cuda":
             trace.add("h2d_bytes", h2d)
-        with trace.span("serve.fold", meta=bi):
-            out = orset_ops.orset_fold_tenant_layout(
-                clock0, add0, rm0, *rows, num_members=E_b, num_replicas=R_b
-            )
+        if self._mesh_active:
+            # tenant lanes over dp, member planes over mp: slot and member
+            # classes already divide the mesh by the planner's law
+            from ..parallel import mesh as pmesh
+
+            with trace.span("serve.shard", meta=bi):
+                c, a, r = pmesh.orset_fold_tenants_sharded(
+                    self.mesh, clock0.view(T, R_b),
+                    orset_ops.tenant_planes(add0, T),
+                    orset_ops.tenant_planes(rm0, T), *rows,
+                )
+                out = (c.reshape(T * R_b), pmesh.tenant_layout(a),
+                       pmesh.tenant_layout(r))
+            trace.add("serve_sharded_folds", 1)
+            trace.add("serve_sharded_tenants", len(bucket.tenants))
+        else:
+            with trace.span("serve.fold", meta=bi):
+                out = orset_ops.orset_fold_tenant_layout(
+                    clock0, add0, rm0, *rows, num_members=E_b,
+                    num_replicas=R_b,
+                )
         obs_runtime.sample_device_memory(dev)
         with trace.span("serve.scatter", meta=bi):
             clock_all = out[0].cpu().numpy().reshape(T, R_b)
@@ -802,7 +856,19 @@ class FoldService:
 
         with trace.span("delta.cut", meta=bi):
             clock_b, add_b, rm_b = before
-            code, _ = orset_ops.orset_plane_diff(clock_b, add_b, rm_b, *out)
+            if self._mesh_active:
+                from ..parallel import mesh as pmesh
+
+                tp = orset_ops.tenant_planes
+                code, _ = pmesh.tenant_plane_diff_sharded(
+                    self.mesh, clock_b.view(T, R_b), tp(add_b, T),
+                    tp(rm_b, T), out[0].view(T, R_b), tp(out[1], T),
+                    tp(out[2], T),
+                )
+                code = pmesh.tenant_layout(code)
+            else:
+                code, _ = orset_ops.orset_plane_diff(clock_b, add_b, rm_b,
+                                                     *out)
             # only the cut slots' rows are gathered and copied: a cold
             # tenant's diff covers its whole fold
             slots = torch.tensor([s for s, _ in cut_slots],
@@ -841,7 +907,7 @@ class FoldService:
         N_b = _bucket(bucket.rows)
         R_b = _bucket(bucket.replicas)
         T = bucket.slots
-        dev = _tenant_device(by_idx[bucket.tenants[0]])
+        dev = self._bucket_device(bucket, by_idx)
         actor = np.full((T, N_b), R_b, np.int32)
         counter = np.zeros((T, N_b), np.int32)
         clock0 = np.zeros((T, R_b), np.int32)
@@ -854,12 +920,19 @@ class FoldService:
         if dev.type == "cuda":
             trace.add("h2d_bytes",
                       clock0.nbytes + actor.nbytes + counter.nbytes)
-        with trace.span("serve.fold", meta=bi):
-            out = gcounter_fold_tenants(
-                *(torch.from_numpy(x).to(dev)
-                  for x in (clock0, actor, counter)),
-                num_replicas=R_b,
-            )
+        dev_rows = [torch.from_numpy(x).to(dev)
+                    for x in (clock0, actor, counter)]
+        if self._mesh_active:
+            from ..parallel import mesh as pmesh
+
+            with trace.span("serve.shard", meta=bi):
+                out = pmesh.gcounter_fold_tenants_sharded(self.mesh,
+                                                          *dev_rows)
+            trace.add("serve_sharded_folds", 1)
+            trace.add("serve_sharded_tenants", len(bucket.tenants))
+        else:
+            with trace.span("serve.fold", meta=bi):
+                out = gcounter_fold_tenants(*dev_rows, num_replicas=R_b)
         with trace.span("serve.scatter", meta=bi):
             out_all = out.cpu().numpy()
             for slot, key in enumerate(bucket.tenants):
@@ -873,6 +946,13 @@ class FoldService:
                 w.result.path = "batched"
                 w.result.rows = len(a)
                 trace.add("serve_rows_folded", len(a))
+
+    def _bucket_device(self, bucket, by_idx) -> torch.device:
+        """The device a bucket folds on: the mesh's home under a mesh,
+        else its tenants' shared device."""
+        if self._mesh_active:
+            return self.mesh.home
+        return _tenant_device(by_idx[bucket.tenants[0]])
 
     @staticmethod
     def _fallback_rows(w: _TenantWork) -> int:
@@ -891,9 +971,19 @@ class FoldService:
             if not w.ok or not w.payloads:
                 continue
             core = w.core
+            # under a mesh a columnar spill folds through the
+            # service-owned mesh accelerator's sharded fold (one large
+            # tenant uses every shard); its writeback bumps the epoch, so
+            # planes the tenant's own accelerator cached expire
+            spill_accel = (
+                self._mesh_accel
+                if self._mesh_accel is not None
+                and w.kind in ("orset", "gcounter")
+                else core.accel
+            )
             try:
                 if w.result.path == "solo":
-                    ok = core.accel.fold_payloads(
+                    ok = spill_accel.fold_payloads(
                         core._data.state, list(w.payloads),
                         actors_hint=w.actors_sorted,
                     )

@@ -56,14 +56,28 @@ class WarmEntry:
 
 
 class PlaneWarmTier:
-    """LRU of :class:`WarmEntry` keyed by tenant state identity."""
+    """LRU of :class:`WarmEntry` keyed by tenant state identity.
 
-    def __init__(self, byte_budget: int = DEFAULT_BYTE_BUDGET):
+    ``mesh_key`` pins the tier to one device mesh: a tier built for a
+    mesh holds the planes of the sharded tenant folds, laid out for that
+    mesh, and a service must never hand a foreign tier its entries.  The
+    key is compared by identity in :meth:`compatible_with`; ``None`` is
+    the one-device tier."""
+
+    def __init__(self, byte_budget: int = DEFAULT_BYTE_BUDGET,
+                 mesh_key=None):
         if byte_budget < 1:
             raise ValueError("byte_budget must be positive")
         self.byte_budget = int(byte_budget)
+        self.mesh_key = mesh_key
         self._entries: OrderedDict[int, WarmEntry] = OrderedDict()
         self._bytes = 0
+
+    def compatible_with(self, mesh_key) -> bool:
+        """True when entries stored by this tier belong to ``mesh_key``
+        (an identity match: two meshes over the same devices are still
+        two meshes)."""
+        return self.mesh_key is mesh_key
 
     def __len__(self) -> int:
         return len(self._entries)

@@ -46,18 +46,22 @@ class PopulationSubstrate:
     One accelerator, ``TorchAccelerator(device, min_device_batch=1)``
     (``device=None`` means ``"cuda"``): its plane cache is keyed by
     state identity (weakref validated), so lanes never alias.  One
-    FoldService: ``run_cycle_shared`` serializes overlapping owners, and
+    FoldService, on ``mesh`` when one is given (``parallel.mesh.
+    mesh_for_population``; the runners' service and daemon steps then
+    fold on it): ``run_cycle_shared`` serializes overlapping owners, and
     the identity-keyed warm tier gives each lane the same byte-exact
     reuse a private service would.  Nothing in here is schedule-keyed:
     RNG streams, storage, fault counters, and cryptors all stay in the
     lanes (module docs: the determinism law)."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, *, mesh=None):
         from ..parallel.accel import TorchAccelerator
         from ..serve import FoldService, ServeConfig
 
+        self.mesh = mesh
         self.accel = TorchAccelerator(device, min_device_batch=1)
-        self.service = FoldService([], ServeConfig(seal_empty=True))
+        self.service = FoldService([], ServeConfig(seal_empty=True),
+                                   mesh=mesh)
 
     def close(self) -> None:
         self.service.close()

@@ -209,10 +209,12 @@ class SimRunner:
     backend (the shared remote + per-replica local dirs live under it);
     the memory backend ignores it.  ``device`` is where odd replicas fold
     (``None`` means ``"cuda"``, which raises without a card;
-    ``"cpu"`` runs the kernels' plain PyTorch versions)."""
+    ``"cpu"`` runs the kernels' plain PyTorch versions).  ``mesh`` (a
+    ``parallel.mesh.Mesh``; default the substrate's) makes the
+    ``service`` and ``daemon`` steps fold on that mesh."""
 
     def __init__(self, schedule: Schedule, *, tmpdir: str | None = None,
-                 device=None, substrate=None):
+                 device=None, mesh=None, substrate=None):
         self.schedule = schedule
         self.tmpdir = tmpdir
         # population mode (sim/population.py): the shared substrate
@@ -223,6 +225,9 @@ class SimRunner:
         self.substrate = substrate
         if substrate is not None:
             device = substrate.accel.device
+            if mesh is None:
+                mesh = substrate.mesh
+        self.mesh = mesh  # service and daemon cycles fold on the mesh
         self.device = "cuda" if device is None else device
         self.replicas: list[_Replica] = []
         self.members = [
@@ -572,7 +577,7 @@ class SimRunner:
                 self._service_pool = self.substrate.service
             else:
                 self._service_pool = FoldService(
-                    [], ServeConfig(seal_empty=True)
+                    [], ServeConfig(seal_empty=True), mesh=self.mesh
                 )
         cores = [t.core for t in tenants]
         if self.substrate is not None:
@@ -706,6 +711,7 @@ class SimRunner:
                     serve=ServeConfig(seal_empty=True),
                 ),
                 seed=self.schedule.seed,
+                mesh=self.mesh,
                 # the deterministic-clock seam: daemon wall-time reads
                 # (uptime, SLO burn window) count cycles instead of
                 # reading the host clock, so replays stay bit-for-bit

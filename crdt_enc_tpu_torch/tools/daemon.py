@@ -8,7 +8,8 @@
         [--deltas]
 
     python -m crdt_enc_tpu_torch.tools.daemon selftest \\
-        [--device cuda] [--tenants 6] [--cycles 6] [--faulty 2] [--seed 0]
+        [--device cuda] [--tenants 6] [--cycles 6] [--faulty 2] [--seed 0] \\
+        [--mesh dp=N[,mp=M]]
 
 ``run`` opens one fs-backed :class:`~crdt_enc_tpu_torch.core.core.Core` per
 ``--tenant LOCAL=REMOTE`` pair (XChaCha data cryptor, plain key wrap,
@@ -27,7 +28,10 @@ into backoff/quarantine while healthy tenants keep sealing — then the
 faults heal, the fleet recovers, the daemon drains, and every remote
 must fsck clean AND refold cold on the host reference byte-identical to
 the daemon's live tenant state.  Exit 0 on a clean pass, 1 on any failed
-expectation.
+expectation.  ``--mesh dp=N[,mp=M]`` runs the whole smoke through a
+mesh-backed service (the sharded tenant folds of ``parallel/mesh.py``):
+on ``--device cuda`` over the visible cards, and it exits 2 when ``dp·mp``
+exceeds them; on ``--device cpu`` over ``dp·mp`` CPU shards.
 
 ``--device`` names the device every tenant folds on: ``cuda`` (the
 default, the card) or ``cpu`` (the plain PyTorch versions of the
@@ -175,6 +179,36 @@ def _cmd_run(args) -> int:
     return asyncio.run(_run(args))
 
 
+def _parse_mesh(spec: str | None, device):
+    """``dp=N[,mp=M]`` → ``(mesh, None)``, ``(None, None)`` without a
+    spec, or ``(None, 2)`` after printing why: a malformed spec, a mesh
+    of fewer than two shards (``parse_mesh_spec``, so ``--mesh dp=1`` can
+    never smoke the unsharded path while claiming a mesh), or more shards
+    than ``device`` offers — the visible cards for ``cuda``; ``cpu``
+    takes ``dp·mp`` CPU shards, as the JAX CLI counts the host's virtual
+    devices."""
+    if not spec:
+        return None, None
+    import torch
+
+    from ..parallel.mesh import make_mesh, parse_mesh_spec
+
+    try:
+        dp, mp = parse_mesh_spec(spec)
+    except ValueError as e:
+        print(f"--mesh: {e} (got {spec!r})", file=sys.stderr)
+        return None, 2
+    if device.type == "cpu":
+        return make_mesh((dp, mp), devices=[device] * (dp * mp)), None
+    found = torch.cuda.device_count()
+    if found < dp * mp:
+        print(f"--mesh dp={dp},mp={mp} needs {dp * mp} devices, found "
+              f"{found} ({torch.cuda.get_device_name(0)}); pass --device "
+              "cpu for a mesh of CPU shards", file=sys.stderr)
+        return None, 2
+    return make_mesh((dp, mp)), None
+
+
 # ----------------------------------------------------------- selftest
 async def _selftest(args) -> int:
     from ..backends.memory import MemoryRemote, MemoryStorage
@@ -188,6 +222,9 @@ async def _selftest(args) -> int:
 
     device, rc = device_or_exit(args.device)
     if device is None:
+        return rc
+    mesh, rc = _parse_mesh(args.mesh, device)
+    if rc is not None:
         return rc
 
     class _FlakyStorage(MemoryStorage):
@@ -239,7 +276,7 @@ async def _selftest(args) -> int:
         quarantine_probe_every=3, backoff_base=1.0, backoff_cap=2.0,
         breaker_after=T + 1, serve=ServeConfig(seal_empty=False),
     )
-    daemon = FleetDaemon(cores, cfg, seed=args.seed)
+    daemon = FleetDaemon(cores, cfg, seed=args.seed, mesh=mesh)
     for w in wrappers:
         w.arm()
     flaky.broken = True
@@ -358,6 +395,8 @@ def main(argv=None) -> int:
     p_st.add_argument("--faulty", type=int, default=2,
                       help="tenants wrapped in the all-fault injector")
     p_st.add_argument("--seed", type=int, default=0)
+    p_st.add_argument("--mesh", default=None, metavar="dp=N[,mp=M]",
+                      help="run the smoke through a mesh-backed service")
     p_st.set_defaults(fn=_cmd_selftest)
 
     try:

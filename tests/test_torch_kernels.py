@@ -994,3 +994,71 @@ def test_fleet_daemon_cycle_launches_one_fold_per_bucket(dev, monkeypatch):
         await host.drain()
 
     asyncio.run(go())
+
+
+# ---- the mesh on one card ------------------------------------------------------
+
+
+def card_mesh(dev, dp, mp):
+    from crdt_enc_tpu_torch.parallel import make_mesh
+
+    return make_mesh((dp, mp), devices=[dev] * (dp * mp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,mp", [(4, 1), (2, 2), (1, 4)])
+def test_sharded_folds_launch_per_shard_on_the_card(dev, dp, mp):
+    """On shards of one card each per-shard body launches its kernel: the
+    whole-batch fold K1 dp·mp times, the streaming step K2 dp·mp times,
+    the tenant fold K2 dp·mp times, the LWW fold K5 dp times; every
+    result equals the plain version on the CPU."""
+    from crdt_enc_tpu_torch.parallel import mesh as pmesh
+
+    mesh = card_mesh(dev, dp, mp)
+    E, R, N = 64, 96, 4000
+    cpu_in = state(E, R, 3) + rows(N, E, R, 4)
+    card_in = [x.to(dev) for x in cpu_in]
+    for retire_rm in (True, False):
+        plain = P.orset_fold_plain(*cpu_in, num_members=E, num_replicas=R,
+                                   retire_rm=retire_rm)
+        for impl, entry in (("scatter", "orset_scatter"),
+                            ("fold", "orset_fold")):
+            before = dict(F.launches)
+            got = pmesh.orset_fold_sharded(mesh, *card_in, impl=impl,
+                                           retire_rm=retire_rm)
+            assert F.launches[entry] - before[entry] == dp * mp
+            assert_equal(got, plain)
+    clock0, add0, rm0, kind, member, actor, counter = tenant_batch(
+        8, 16, 8, 40, 5)
+    plain = P.orset_fold_tenants_plain(clock0, add0, rm0, kind, member,
+                                       actor, counter, num_members=16,
+                                       num_replicas=8)
+    # as the service passes them: (T, E, R) views of (E, T·R) layouts
+    views = [P.tenant_planes(x.to(dev).permute(1, 0, 2).reshape(16, -1), 8)
+             for x in (add0, rm0)]
+    before = F.launches["orset_fold"]
+    got = pmesh.orset_fold_tenants_sharded(
+        mesh, clock0.to(dev), *views,
+        *(x.to(dev) for x in (kind, member, actor, counter)))
+    assert F.launches["orset_fold"] - before == dp * mp
+    assert_equal(got, plain)
+    for name in ("random", "ties"):
+        lww, K, _ = lww_batch(name, device="cpu")
+        before = LC.launches["lww_fold"]
+        got = pmesh.lww_fold_sharded(mesh, *(c.to(dev) for c in lww),
+                                     num_keys=K)
+        assert LC.launches["lww_fold"] - before == dp
+        assert_tables_equal(L.lww_fold_plain(*lww, num_keys=K), got)
+
+
+@pytest.mark.cuda
+def test_a_one_card_mesh_refuses_a_second_card(dev, capsys):
+    """``tools.daemon selftest --mesh dp=2 --device cuda`` exits 2 and
+    names the one card it found, as the JAX CLI does on one chip."""
+    from crdt_enc_tpu_torch.tools import daemon as daemon_cli
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("needs exactly one CUDA device")
+    assert daemon_cli.main(["selftest", "--device", "cuda", "--mesh",
+                            "dp=2"]) == 2
+    assert "found 1" in capsys.readouterr().err

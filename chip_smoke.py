@@ -75,9 +75,9 @@ Phases:
    the phase prints its format and size, then reopens the device replica
    from its own local directory, which must open from the checkpoint with
    the cold state's bytes and fold nothing more;
-11. the stream route past 2^22 rows: 10,485,760 config-3-width rows
-   (2.5 x ``STREAM_CHUNK_ROWS``) through ``TorchAccelerator().fold_payloads``
-   (in-memory op-file payloads) and ``fold_ops`` (op objects), each three
+11. the stream route past 2^22 rows: 6,291,456 config-3-width rows
+   (1.5 x ``STREAM_CHUNK_ROWS``) through ``TorchAccelerator().fold_payloads``
+   (in-memory op-file payloads) and ``fold_ops`` (op objects), each two
    fold launches, both states equal to one fold launch over all rows and
    to the plain fold on the CPU; peak device memory, chunk count, wall;
 12. fold sessions: phase 10's op files as in-memory payloads through
@@ -99,8 +99,8 @@ Phases:
    E = 4,096, R = 1,000);
 15. the rest of the catalogue, each byte-equal to the host loop on a
    byte-identical copy and read back by a third replica: (a) the shared
-   tag index (CrdtMap<orset>) at config 3's width — 500,000 ops (half its
-   backlog) over 10,000 actors, 1,024 keys of 8 tags, 16 writers a key —
+   tag index (CrdtMap<orset>) at config 3's width — 250,000 ops (a
+   quarter of its backlog) over 10,000 actors, 1,024 keys of 8 tags, 16 writers a key —
    compacted from
    an encrypted ``MemoryStorage`` through ``MapFoldSession`` (no chunk
    declined, the scatter phase on the card; rows per family, card memory
@@ -204,6 +204,24 @@ Phases:
    (phase 5) and the kernels' ``nvcc`` build wall (phase 2), the two
    numbers its baseline entry rests on; the machine has no JAX, so the run
    also shows the twin imports none;
+21. the mesh on shards of the card (``phase_mesh``: sharded ops at
+   config-3 width, a (2, 2) compaction, a (2, 1) service and daemon, an
+   NCCL group of one);
+22. the consumer replica: (a) the RFC 7748, 8032, 5869 and 8439 vectors
+   of tests/test_torch_x25519_keys.py through the port's hand-written
+   X25519, Ed25519, HKDF-SHA256 and native ChaCha20-Poly1305, with neither
+   ``cryptography`` nor JAX loaded; (b) phase 10's op files and 8
+   snapshots sealed into an encrypted in-memory remote whose keys the
+   ``X25519KeyCryptor`` seals to three writer identities and a consumer's,
+   then a consumer with ``checkpoint_on_read=True`` on the card and one
+   with the host loop on a byte-identical copy: the first read (the
+   snapshot merge launches K4 once, one reseal), a quiet poll (no
+   reseal, no launch), a 10,000-op tail (one reseal), a warm reopen from
+   that checkpoint, each step byte-equal across the two, and an identity
+   outside the roster refused; (c) ``fold_payload_stream`` over
+   ``decrypt_blobs_chunked`` of the same op files in 8 chunks and
+   ``fold_payloads`` over them opened in one batch, each byte-equal to the
+   host loop's state, with K2's launches on the dense route;
 then the kernels line and the result line.  Phase 5 also times the merge
 at the compaction's own shape (S = 9, E = 4,096, R = 5,000) against its
 plain version, and phases 5 and 9 give the merge and K3's shape their
@@ -214,7 +232,8 @@ card.  A run that stalls past ``WATCHDOG_S`` (1,180 s, just under the
 1,200 s a run may take) prints every thread's stack, removes its
 temporary directory and exits nonzero.  ``python3 chip_smoke.py
 --stall-loop SECONDS`` runs only phase 18 (b)'s serial-equality check,
-again and again, and dumps the stacks of a pass that stalls.  Without a CUDA device, or without the package beside it, it exits
+again and again, and dumps the stacks of a pass that stalls; ``python3
+chip_smoke.py --consumer`` runs phases 1, 2 and 22 alone.  Without a CUDA device, or without the package beside it, it exits
 nonzero and prints no result.
 """
 
@@ -274,9 +293,10 @@ K3_E, K3_R, K3_SEED = 4096, 261_000, 9
 # (its replica's empty one and 8 snapshots) over 4,096 members and the
 # 5,000 actors the snapshots saw
 K4_S, K4_R, K4_SEED = 9, 5000, 12
-# phase 11: 2.5 x STREAM_CHUNK_ROWS config-3-width rows, as op files of
-# STREAM_FILE_OPS ops
-STREAM_N, STREAM_SEED, STREAM_FILE_OPS = 10_485_760, 11, 1024
+# phase 11: 1.5 x STREAM_CHUNK_ROWS config-3-width rows (two chunks, the
+# second partial), as op files of STREAM_FILE_OPS ops; cut from 2.5 x when
+# phase 22 joined, to keep the script inside its time limit
+STREAM_N, STREAM_SEED, STREAM_FILE_OPS = 6_291_456, 11, 1024
 # phase 12: op files fed to a session per chunk
 SESSION_FEED_FILES = 2048
 # phase 13: BASELINE config 5 (benchmarks/suite.py bench_streaming, bench.py
@@ -298,11 +318,12 @@ CC_TAIL_OPS, CC_ROUNDS, CC_TAIL_SEED = 1_000, 4, 16
 # phase 15: the rest of the catalogue at config 3's fleet and backlog.
 # (a) the shared tag index (examples/tags_map.py): CrdtMap<orset> ops over
 # 10,000 actors, 1,024 keys of 8 tags, each key written by a fixed group of
-# 16 actors; every MAP_BEYOND-th key remove defers for good.  Half config
-# 3's 1M-op backlog: the host-loop reference applies ~70 us an op (70.3 s
-# for 1M ops on the H100 machine's host), which alone would take the phase
-# past its share of the script's time
-MAP_N, MAP_R, MAP_K, MAP_TAGS, MAP_GROUP = N_ROWS // 2, N_REPLICAS, 1024, 8, 16
+# 16 actors; every MAP_BEYOND-th key remove defers for good.  A quarter of
+# config 3's 1M-op backlog: the host-loop reference applies ~70 us an op
+# (70.3 s for 1M ops on the H100 machine's host), which alone would take
+# the phase past its share of the script's time (half until phase 22
+# joined)
+MAP_N, MAP_R, MAP_K, MAP_TAGS, MAP_GROUP = N_ROWS // 4, N_REPLICAS, 1024, 8, 16
 MAP_BEYOND, MAP_SEED = 500, 17
 # (c) 16 MVReg snapshots of 2,048 (clock, value) pairs in all over 10,000
 # actors, 8 actors a clock (the host loop's pairwise merge is O(V^2))
@@ -1804,9 +1825,9 @@ def planes_bytes(planes, E: int, actors: list) -> bytes:
 
 
 def phase_stream(device) -> dict:
-    """STREAM_N config-3-width rows, 2.5 x ``STREAM_CHUNK_ROWS``, through
-    ``TorchAccelerator().fold_payloads`` and ``fold_ops``: each three fold
-    launches (the counts reset just before each route and read just
+    """STREAM_N config-3-width rows, 1.5 x ``STREAM_CHUNK_ROWS``, through
+    ``TorchAccelerator().fold_payloads`` and ``fold_ops``: each one fold
+    launch a chunk (the counts reset just before each route and read just
     after), each state equal to one fold launch over all rows and to the
     plain fold on the CPU.  Returns the launches, walls and peaks."""
     import torch
@@ -5608,6 +5629,402 @@ def phase_mesh(device: str = "cuda") -> dict:
             "wall_s": wall}
 
 
+# ---- the consumer replica (phase 22) -----------------------------------------
+
+# phase 22: the consumer replica at config-3 width.  Phase 10's op files
+# and COMPACT_SNAPSHOTS snapshots in an encrypted in-memory remote whose
+# keys the X25519 cryptor seals to a roster of three writer identities and
+# the consumer's; a TAIL_OPS-op tail; then fold_payload_stream over the
+# same op files in CONSUMER_CHUNKS chunks
+CONSUMER_SEED, CONSUMER_CHUNKS = 41, 8
+X25519_TESTS = os.path.join("tests", "test_torch_x25519_keys.py")
+CONSUMER_HEADER = (
+    f"== 22. the consumer replica (config 3: N={N_ROWS}, R={N_REPLICAS}, "
+    f"E={N_MEMBERS}, {COMPACT_SNAPSHOTS} snapshots, X25519 key cryptor, "
+    f"checkpoint_on_read; a {TAIL_OPS}-op tail) and fold_payload_stream in "
+    f"{CONSUMER_CHUNKS} chunks; the RFC 7748/8032/5869/8439 vectors")
+
+
+def x25519_vectors() -> dict:
+    """22 (a): the RFC 7748, 8032, 5869 and 8439 vectors of
+    tests/test_torch_x25519_keys.py, run in process through its own test
+    functions (that file imports neither JAX nor ``cryptography``)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        X25519_TESTS)
+    spec = importlib.util.spec_from_file_location("x25519_vectors", path)
+    T = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(T)
+    checks = [
+        *((T.test_rfc7748_single_step_vectors, v) for v in T.X25519_VECTORS),
+        *((T.test_rfc7748_iterated_vectors, (n,))
+          for n in sorted(T.X25519_ITERATED)),
+        (T.test_rfc7748_diffie_hellman, ()),
+        (T.test_x25519_rejects_an_all_zero_shared_secret, ()),
+        *((T.test_rfc8032_vectors, v) for v in T.ED25519_VECTORS),
+        (T.test_ed25519_verify_rejects_non_canonical_s_and_bad_points, ()),
+        *((T.test_rfc5869_vectors, v) for v in T.HKDF_VECTORS),
+        (T.test_hkdf_salt_none_is_32_zero_bytes, ()),
+        (T.test_rfc8439_aead_vector_through_the_native_export, ()),
+    ]
+    t0 = time.perf_counter()
+    for fn, args in checks:
+        fn(*args)
+    wall = time.perf_counter() - t0
+    out = {"checks": len(checks), "wall_s": wall,
+           "cryptography_loaded": "cryptography" in sys.modules,
+           "jax_loaded": "jax" in sys.modules}
+    print(f"  (a) {len(checks)} RFC vector checks passed in {wall:.2f} s "
+          f"(cryptography imported: {out['cryptography_loaded']}, jax "
+          f"imported: {out['jax_loaded']})", flush=True)
+    if out["cryptography_loaded"] or out["jax_loaded"]:
+        raise AssertionError("the vectors ran beside cryptography or JAX")
+    return out
+
+
+def x25519_options(storage, priv: bytes, roster: list, accel, **kw):
+    from crdt_enc_tpu_torch import (
+        OpenOptions, X25519KeyCryptor, XChaChaCryptor, orset_adapter,
+    )
+
+    version = uuid.UUID("c3b80d17-42fe-4e95-b7a8-2d50c61e9f07").bytes
+    return OpenOptions(
+        storage=storage, cryptor=XChaChaCryptor(),
+        key_cryptor=X25519KeyCryptor(priv, roster), adapter=orset_adapter(),
+        supported_data_versions=(version,), current_data_version=version,
+        create=True, accelerator=accel, **kw,
+    )
+
+
+def seeded_identities(rng, n: int) -> list:
+    """``n`` identities as (64-byte private bundle, public bundle), the
+    private halves drawn from ``rng``."""
+    from crdt_enc_tpu_torch import X25519KeyCryptor
+
+    out = []
+    for _ in range(n):
+        priv = rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
+        out.append((priv, X25519KeyCryptor(priv).public_identity))
+    return out
+
+
+async def seal_consumer_remote(files: list, ids: list, roster: list):
+    """The consumer's in-memory remote: writer ``ids[0]`` creates the key
+    (sealed to ``roster``) and seals every op file; snapshot i comes from
+    a copy holding the version-1 files of the actors with ``actor % 16 ==
+    i``, compacted by writer ``ids[1 + i % 2]`` (phase 10's layout).
+    Returns the op-file writer and the remote."""
+    import asyncio
+
+    from crdt_enc_tpu_torch import (
+        Core, HostAccelerator, MemoryRemote, MemoryStorage,
+    )
+
+    base = MemoryRemote()
+    writer = await Core.open(x25519_options(MemoryStorage(base), ids[0][0],
+                                            roster, HostAccelerator()))
+    remote = copy_memory_remote(base)
+    side = [copy_memory_remote(base) for _ in range(COMPACT_SNAPSHOTS)]
+    main = MemoryStorage(remote)
+    side_st = [MemoryStorage(r) for r in side]
+    for b in range(0, len(files), COMPACT_WRITE_BATCH):
+        batch = files[b : b + COMPACT_WRITE_BATCH]
+        blobs = await asyncio.gather(*(writer._seal(ops) for *_, ops in batch))
+        stores = []
+        for (ai, ab, v, _), blob in zip(batch, blobs):
+            stores.append(main.store_ops(ab, v, blob))
+            if v == 1 and ai % 16 < COMPACT_SNAPSHOTS:
+                stores.append(side_st[ai % 16].store_ops(ab, v, blob))
+        await asyncio.gather(*stores)
+    for i, r in enumerate(side):
+        sealer = await Core.open(x25519_options(
+            MemoryStorage(r), ids[1 + i % 2][0], roster, HostAccelerator()))
+        await sealer.compact()
+        (name,) = r.states
+        remote.states[name] = r.states[name]
+    return writer, remote
+
+
+def consumer_read(core_or_opts) -> tuple:
+    """``Core.open`` (when given options) and one ``read_remote()``: the
+    core, the wall, the trace snapshot and the launches, each counted from
+    0 just before."""
+    from crdt_enc_tpu_torch import Core
+    from crdt_enc_tpu_torch.utils import trace
+
+    async def go():
+        core = core_or_opts
+        if not hasattr(core, "read_remote"):
+            core = await Core.open(core_or_opts)
+        await core.read_remote()
+        return core
+
+    reset_launches()
+    trace.reset()
+    t0 = time.perf_counter()
+    core = run_async(go())
+    wall = time.perf_counter() - t0
+    return core, wall, trace.snapshot(), read_launches()
+
+
+def span_s(snap: dict, name: str) -> float:
+    return snap["spans"].get(name, {}).get("seconds", 0.0)
+
+
+def span_n(snap: dict, name: str) -> int:
+    return snap["spans"].get(name, {}).get("count", 0)
+
+
+def phase_consumer_remote(files: list, cols, E: int, R: int,
+                          device: str) -> dict:
+    """22 (b): a consumer replica (``checkpoint_on_read=True``) on the card
+    and one with the host loop on a byte-identical copy, step by step."""
+    from crdt_enc_tpu_torch import HostAccelerator, MemoryStorage
+    from crdt_enc_tpu_torch import TorchAccelerator, canonical_bytes
+    from crdt_enc_tpu_torch.backends import NotARecipient
+    from crdt_enc_tpu_torch.core.core import CoreError
+
+    rng = np.random.default_rng(CONSUMER_SEED)
+    ids = seeded_identities(rng, 5)  # three writers, the consumer, outsider
+    roster = [pub for _, pub in ids[:4]]
+    consumer_priv, outsider_priv = ids[3][0], ids[4][0]
+    t0 = time.perf_counter()
+    writer, remote = run_async(seal_consumer_remote(files, ids, roster))
+    host_remote = copy_memory_remote(remote)
+    n_ops = sum(len(f[3]) for f in files)
+    seal_s = time.perf_counter() - t0
+    print(f"  (b) remote sealed in {seal_s:.1f} s: {len(files)} op files, "
+          f"{n_ops} ops, {len(remote.states)} snapshots; keys sealed to "
+          f"{len(roster)} X25519 identities", flush=True)
+
+    accel = TorchAccelerator(device=device)
+    probe = SessionProbe(accel)
+    card_store, host_store = MemoryStorage(remote), MemoryStorage(host_remote)
+
+    def card_opts():
+        return x25519_options(card_store, consumer_priv, roster, accel,
+                              checkpoint_on_read=True)
+
+    def host_opts():
+        return x25519_options(host_store, consumer_priv, roster,
+                              HostAccelerator(), checkpoint_on_read=True)
+
+    steps: dict = {}
+
+    def check(step: str, card, host, wall, host_wall, snap, launches,
+              saves: int, sessions_before: int) -> bytes:
+        cb = card.with_state(canonical_bytes)
+        hb = host.with_state(canonical_bytes)
+        same = cb == hb and card.info().next_op_versions == \
+            host.info().next_op_versions
+        session = (probe.sessions[-1]
+                   if len(probe.sessions) > sessions_before else None)
+        want_fold = 0 if session is None else session_launches(accel, session)
+        got_saves = span_n(snap, "checkpoint.save")
+        steps[step] = dict(
+            wall_s=wall, host_wall_s=host_wall, launches=launches,
+            checkpoint_saves=got_saves,
+            checkpoint_save_s=span_s(snap, "checkpoint.save"),
+            checkpoint_bytes=snap["counters"].get("checkpoint_bytes", 0),
+            session_mode=None if session is None else session.mode,
+            session_rows=None if session is None else session.rows_fed,
+            spans={k: v["seconds"] for k, v in snap["spans"].items()},
+            counters=snap["counters"])
+        print(f"  (b) {step}: card {wall:.3f} s, host loop {host_wall:.3f} s; "
+              f"session {steps[step]['session_mode']}; checkpoint.save "
+              f"x{got_saves} ({steps[step]['checkpoint_save_s'] * 1e3:.1f} ms, "
+              f"{steps[step]['checkpoint_bytes']} bytes); launches "
+              f"{launches}; bytes and cursors equal to the host loop's: "
+              f"{same}", flush=True)
+        if not same or got_saves != saves or (
+                device == "cuda" and launches["orset_fold"] != want_fold):
+            raise AssertionError(
+                f"(b) {step}: equal {same}, checkpoint saves {got_saves} "
+                f"(expected {saves}), K2 {launches['orset_fold']} (expected "
+                f"{want_fold})")
+        return cb
+
+    n = len(probe.sessions)
+    with RssSampler() as rss:
+        card, wall, snap, launches = consumer_read(card_opts())
+    host, host_wall, _, _ = consumer_read(host_opts())
+    first = check("read 1 (open, merge, fold)", card, host, wall, host_wall,
+                  snap, launches, 1, n)
+    if device == "cuda" and launches["orset_merge_many"] != 1:
+        raise AssertionError(f"(b) the snapshot merge launched K4 "
+                             f"{launches['orset_merge_many']} times, not once")
+    steps["read 1 (open, merge, fold)"].update(rss.fields(""))
+    for k, v in sorted(snap["spans"].items()):
+        print(f"    span {k}: {v['seconds'] * 1e3:.1f} ms x{v['count']}",
+              flush=True)
+    print(f"    {rss.line()}", flush=True)
+
+    n = len(probe.sessions)
+    _, wall, snap, launches = consumer_read(card)
+    _, host_wall, _, _ = consumer_read(host)
+    check("read 2 (quiet)", card, host, wall, host_wall, snap, launches, 0, n)
+    if any(launches.values()):
+        raise AssertionError(f"(b) the quiet poll launched {launches}")
+
+    clock, version = compactor_clocks(cols, files, R)
+    tail = tail_files(rng, clock, version, actor_ids(R), E, TAIL_OPS)
+
+    async def write_tail():
+        import asyncio
+
+        blobs = await asyncio.gather(*(writer._seal(ops) for *_, ops in tail))
+        await asyncio.gather(*(
+            st.store_ops(ab, v, blob)
+            for (_, ab, v, _), blob in zip(tail, blobs)
+            for st in (MemoryStorage(remote), MemoryStorage(host_remote))))
+
+    run_async(write_tail())
+    n = len(probe.sessions)
+    _, wall, snap, launches = consumer_read(card)
+    _, host_wall, _, _ = consumer_read(host)
+    after_tail = check(f"read 3 ({TAIL_OPS}-op tail)", card, host, wall,
+                       host_wall, snap, launches, 1, n)
+
+    warm, wall, snap, launches = consumer_read(card_opts())
+    wb = warm.with_state(canonical_bytes)
+    folded = (snap["counters"].get("ops_folded", 0)
+              + snap["counters"].get("op_files_bulk_folded", 0))
+    steps["warm reopen"] = dict(
+        wall_s=wall, launches=launches, folded=folded,
+        opened_from_checkpoint=warm.opened_from_checkpoint,
+        checkpoint_saves=span_n(snap, "checkpoint.save"),
+        checkpoint_load_s=span_s(snap, "checkpoint.load"),
+        checkpoint_verify_s=span_s(snap, "checkpoint.verify"))
+    print(f"  (b) warm reopen and a read: {wall:.3f} s, opened_from_checkpoint "
+          f"{warm.opened_from_checkpoint} (fallback "
+          f"{warm.checkpoint_fallback_reason}); checkpoint.load "
+          f"{steps['warm reopen']['checkpoint_load_s'] * 1e3:.1f} ms; bytes "
+          f"equal to read 3's: {wb == after_tail}; {folded} folded, "
+          f"checkpoint.save x{steps['warm reopen']['checkpoint_saves']}, "
+          f"launches {launches}", flush=True)
+    if (not warm.opened_from_checkpoint or wb != after_tail or folded
+            or steps["warm reopen"]["checkpoint_saves"] or any(
+                launches.values())):
+        raise AssertionError("(b) the consumer did not reopen warm from the "
+                             "checkpoint its read resealed")
+
+    async def outsider():
+        from crdt_enc_tpu_torch import Core
+
+        try:
+            await Core.open(x25519_options(
+                MemoryStorage(copy_memory_remote(host_remote)), outsider_priv,
+                roster, HostAccelerator()))
+        except (NotARecipient, CoreError) as e:
+            return type(e).__name__
+        return None
+
+    refused = run_async(outsider())
+    print(f"  (b) an identity outside the roster: {refused}", flush=True)
+    if refused is None:
+        raise AssertionError("(b) an identity outside the roster opened the "
+                             "remote")
+    total = {k: sum(s["launches"][k] for s in steps.values())
+             for k in read_launches()}
+    return {"steps": steps, "outsider": refused, "seal_s": seal_s,
+            "op_files": len(files), "ops": n_ops, "tail_ops": TAIL_OPS,
+            "snapshots": COMPACT_SNAPSHOTS, "launches": total,
+            "first_bytes": first}
+
+
+def phase_consumer_stream(files: list, E: int, R: int, device: str,
+                          host_bytes: bytes) -> dict:
+    """22 (c): ``fold_payload_stream`` over ``decrypt_blobs_chunked`` of
+    the op files in CONSUMER_CHUNKS chunks, then ``fold_payloads`` over
+    the same blobs opened in one batch; each state byte-equal to the host
+    loop's (the consumer's first read in (b), the same op files)."""
+    from crdt_enc_tpu_torch import ORSet, TorchAccelerator, canonical_bytes
+    from crdt_enc_tpu_torch.backends import xchacha
+    from crdt_enc_tpu_torch.utils import codec, trace
+
+    rng = np.random.default_rng(CONSUMER_SEED + 1)
+    key = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    blobs = [xchacha.encrypt_blob(key, codec.pack(ops)) for *_, ops in files]
+    n_rows = sum(len(f[3]) for f in files)
+    actors = actor_ids(R)
+    print(f"  (c) {len(blobs)} op files encrypted in "
+          f"{time.perf_counter() - t0:.1f} s ({n_rows} rows)", flush=True)
+    accel = TorchAccelerator(device=device)
+    route = ("sparse (native host fold)" if accel._use_sparse(E, R, n_rows)
+             else "dense (K2)")
+    want = 0 if route.startswith("sparse") else -(-n_rows //
+                                                   accel.STREAM_CHUNK_ROWS)
+    out: dict = {"route": route, "rows": n_rows, "files": len(blobs),
+                 "chunks": CONSUMER_CHUNKS}
+    for label in ("fold_payload_stream", "fold_payloads"):
+        reset_launches()
+        trace.reset()
+        t0 = time.perf_counter()
+        state = ORSet()
+        if label == "fold_payload_stream":
+            ok = accel.fold_payload_stream(
+                state, xchacha.decrypt_blobs_chunked(
+                    key, blobs, n_chunks=CONSUMER_CHUNKS), actors_hint=actors)
+        else:
+            with trace.span("stream.decrypt"):
+                clears = xchacha.decrypt_blobs(key, blobs)
+            ok = accel.fold_payloads(state, clears, actors_hint=actors)
+            del clears
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        snap = trace.snapshot()
+        got = canonical_bytes(state)
+        spans = {k: (v["seconds"], v["count"])
+                 for k, v in snap["spans"].items()}
+        out[label] = dict(wall_s=wall, launches=launches, spans=spans,
+                          h2d_bytes=snap["counters"].get("h2d_bytes", 0))
+        print(f"  (c) {label}: wall {wall:.3f} s, route {route}, launches "
+              f"{launches}, bytes equal to the host loop's: "
+              f"{got == host_bytes}", flush=True)
+        for k, (sec, cnt) in sorted(spans.items()):
+            print(f"    span {k}: {sec * 1e3:.1f} ms x{cnt}", flush=True)
+        if not ok or got != host_bytes or (
+                device == "cuda" and launches["orset_fold"] != want):
+            raise AssertionError(
+                f"(c) {label}: folded {ok}, equal {got == host_bytes}, K2 "
+                f"{launches['orset_fold']} (expected {want} on the {route} "
+                "route)")
+        del state
+    out["stream_over_fold_payloads"] = (out["fold_payload_stream"]["wall_s"]
+                                        / out["fold_payloads"]["wall_s"])
+    print(f"  (c) the stream's wall / fold_payloads' wall (decrypt "
+          f"included in both): {out['stream_over_fold_payloads']:.3f}",
+          flush=True)
+    return out
+
+
+def phase_consumer(device: str = "cuda") -> dict:
+    """Phase 22: (a) the RFC vectors, (b) the consumer replica, (c) the
+    payload stream.  Each part's kernel launches counted from 0."""
+    E, R = N_MEMBERS, N_REPLICAS
+    t0 = time.perf_counter()
+    vectors = x25519_vectors()
+    cols = gen_columns(N_ROWS, R, E, SEED)
+    files = compaction_files(cols, actor_ids(R))
+    print(f"  {len(files)} op files made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    remote = phase_consumer_remote(files, cols, E, R, device)
+    del cols
+    print(device_line(), flush=True)
+    stream = phase_consumer_stream(files, E, R, device,
+                                   remote.pop("first_bytes"))
+    wall = time.perf_counter() - t0
+    launches = {k: remote["launches"][k]
+                + stream["fold_payload_stream"]["launches"][k]
+                + stream["fold_payloads"]["launches"][k]
+                for k in remote["launches"]}
+    print(f"  phase 22 wall {wall:.1f} s; launches {launches}", flush=True)
+    return {"vectors": vectors, "remote": remote, "stream": stream,
+            "launches": launches, "wall_s": wall}
+
+
 KERNELS = {
     "orset_scatter": ("crdt_enc_tpu_torch/csrc/orset_fold.cu",
                       "crdt_enc_tpu/ops/pallas_fold.py:628",
@@ -5701,6 +6118,14 @@ def print_build_log() -> None:
                 print(f"  {src} {kernel}: {line.split(':', 1)[-1].strip()}")
 
 
+_T0 = time.perf_counter()
+
+
+def header(text: str, **kw) -> None:
+    """A phase's header line, with the seconds since the script started."""
+    print(f"{text} [t={time.perf_counter() - _T0:.1f} s]", **kw)
+
+
 def start_watchdog() -> None:
     """A stalled run prints every thread's stack, removes
     ``_CLEANUP_DIRS`` and exits nonzero at ``WATCHDOG_S`` instead of dying
@@ -5734,12 +6159,12 @@ def main() -> int:
     t_start = time.perf_counter()
     E, R, N = N_MEMBERS, N_REPLICAS, N_ROWS
     name = torch.cuda.get_device_name(0)
-    print("== 1. device", flush=True)
+    header("== 1. device", flush=True)
     print(device_line(), flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
 
-    print("== 2. build", flush=True)
+    header("== 2. build", flush=True)
     build_s = cuda_build.build()
     print(f"  kernels built in {build_s:.2f}s", flush=True)
     print_build_log()
@@ -5752,7 +6177,7 @@ def main() -> int:
         print(f"  {label} built and loaded in {time.perf_counter() - t0:.2f}s",
               flush=True)
 
-    print(f"== 3. kernels against plain (N={N}, E={E}, R={R}, S={MERGE_S})",
+    header(f"== 3. kernels against plain (N={N}, E={E}, R={R}, S={MERGE_S})",
           flush=True)
     t0 = time.perf_counter()
     cols = gen_columns(N, R, E, SEED)
@@ -5762,10 +6187,10 @@ def main() -> int:
     errs, fold_inputs, stacks, skewed = phase_kernels(cols, cols2, E, R,
                                                       "cuda")
 
-    print("== 4. the slice end to end", flush=True)
+    header("== 4. the slice end to end", flush=True)
     launches = phase_end_to_end(cols, E, R, "cuda")
 
-    print("== 5. times (median of 7, CUDA events)", flush=True)
+    header("== 5. times (median of 7, CUDA events)", flush=True)
     rate = memory_rate(name)
     times = phase_times(fold_inputs, stacks, skewed, E, R, rate)
     del fold_inputs, stacks, skewed
@@ -5775,22 +6200,22 @@ def main() -> int:
     errs["orset_merge_many"] = max(errs["orset_merge_many"], k4_err)
     times["orset_merge_many"]["compaction_shape"] = k4_shape
 
-    print(f"== 6. LWW kernel against plain (config 4: N={LWW_N}, K={LWW_K}, "
+    header(f"== 6. LWW kernel against plain (config 4: N={LWW_N}, K={LWW_K}, "
           f"R={LWW_R}, V={LWW_V}; heavy ties; saturated; {PAST_N} rows; "
           f"both routes, both modes)", flush=True)
     lww_errs, lww_dev = phase_lww_kernels("cuda")
     errs.update(lww_errs)
 
-    print("== 7. LWW and counters end to end", flush=True)
+    header("== 7. LWW and counters end to end", flush=True)
     launches["lww_fold"] = phase_lww_end_to_end("cuda")
     phase_counters_end_to_end("cuda")
 
-    print("== 8. LWW times (median of 7, CUDA events; device times per launch "
+    header("== 8. LWW times (median of 7, CUDA events; device times per launch "
           "from torch.profiler)", flush=True)
     times["lww_fold"] = phase_lww_times(lww_dev, rate)
     del lww_dev
 
-    print(f"== 9. K3's shape (E={K3_E}, R={K3_R}, N={N_ROWS})", flush=True)
+    header(f"== 9. K3's shape (E={K3_E}, R={K3_R}, N={N_ROWS})", flush=True)
     k3_errs, k3 = phase_k3("cuda", rate)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5812,7 +6237,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     import torch
 
     E, R, N = N_MEMBERS, N_REPLICAS, N_ROWS
-    print(f"== 10. compaction end to end (config 3: N={N}, R={R}, E={E}, "
+    header(f"== 10. compaction end to end (config 3: N={N}, R={R}, E={E}, "
           f"{COMPACT_OPS_PER_FILE} ops a file, S={COMPACT_SNAPSHOTS} "
           "snapshots; encrypted FsStorage)", flush=True)
     print(device_line(), flush=True)
@@ -5824,28 +6249,28 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     gc.collect()
     torch.cuda.empty_cache()
 
-    print(f"== 11. the stream route past 2^22 rows (N={STREAM_N}, E={E}, "
+    header(f"== 11. the stream route past 2^22 rows (N={STREAM_N}, E={E}, "
           f"R={R})", flush=True)
     print(device_line(), flush=True)
     stream = phase_stream("cuda")
     gc.collect()
     torch.cuda.empty_cache()
 
-    print(f"== 12. fold sessions ({len(files)} op files of phase 10, "
+    header(f"== 12. fold sessions ({len(files)} op files of phase 10, "
           f"{SESSION_FEED_FILES} a feed)", flush=True)
     print(device_line(), flush=True)
     sessions = phase_sessions(files, actor_ids(R), "cuda")
     del files
     gc.collect()
 
-    print(f"== 13. config 5 in the sparse regime (N={CFG5_N}, R={CFG5_R}, "
+    header(f"== 13. config 5 in the sparse regime (N={CFG5_N}, R={CFG5_R}, "
           f"E={CFG5_E}, {COMPACT_OPS_PER_FILE} ops a file; encrypted "
           "MemoryStorage)", flush=True)
     print(device_line(), flush=True)
     config5 = phase_config5("cuda")
     gc.collect()
 
-    print(f"== 14. the plane cache at config-3 width ({len(CACHE_SEEDS)} "
+    header(f"== 14. the plane cache at config-3 width ({len(CACHE_SEEDS)} "
           f"batches of fresh dots, N={N} each) and incremental compaction "
           f"with deltas ({TAIL_OPS}-op tails over phase 10's remote)",
           flush=True)
@@ -5860,7 +6285,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
           f"{inc_launches}", flush=True)
     del live
     gc.collect()
-    print(f"== 14c. the plane cache through Core.compact() (E={CC_E}, "
+    header(f"== 14c. the plane cache through Core.compact() (E={CC_E}, "
           f"R={CC_R}, N={CC_N}; {CC_ROUNDS} tails of {CC_TAIL_OPS} ops; "
           "encrypted FsStorage)", flush=True)
     print(device_line(), flush=True)
@@ -5868,7 +6293,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     gc.collect()
     torch.cuda.empty_cache()
 
-    print(f"== 15. the rest of the catalogue (CrdtMap<orset> N={MAP_N}, "
+    header(f"== 15. the rest of the catalogue (CrdtMap<orset> N={MAP_N}, "
           f"R={MAP_R}; LWW register N={LWW_N}; MVReg S={MV_S}, V={MV_V}; "
           "G-Set, SeqList, MerkleReg, empty; encrypted MemoryStorage)",
           flush=True)
@@ -5877,7 +6302,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     gc.collect()
     torch.cuda.empty_cache()
 
-    print(f"== 16. the multi-tenant fold service ({FLEET_T} tenants of "
+    header(f"== 16. the multi-tenant fold service ({FLEET_T} tenants of "
           f"{FLEET_N} ops, R={FLEET_R}, E={FLEET_E}, {FLEET_OPF}-op files; "
           f"{CAP_T} tenants at the cells cap, E={CAP_E}, R={CAP_R}, "
           f"N={CAP_N}; three cycles; encrypted MemoryStorage)", flush=True)
@@ -5887,7 +6312,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     gc.collect()
     torch.cuda.empty_cache()
 
-    print(f"== 17. the fleet daemon (FleetDaemon over phase 16's {FLEET_T} + "
+    header(f"== 17. the fleet daemon (FleetDaemon over phase 16's {FLEET_T} + "
           f"{CAP_T} tenants, the card's copy and the host reference's; "
           f"{DAEMON_FLAKY} tenants down for {DAEMON_OUTAGE} cycles; then "
           f"tools.daemon run over {CLI_T} FsStorage tenants)", flush=True)
@@ -5896,7 +6321,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     gc.collect()
     daemon["cli"] = phase_daemon_cli("cuda", root)
 
-    print(f"== 18. the adversarial simulator (fleet {SIM_FLEET[1]} replicas x "
+    header(f"== 18. the adversarial simulator (fleet {SIM_FLEET[1]} replicas x "
           f"{SIM_FLEET[2]} steps; {SIM_POP_N} schedules at P={SIM_POP_P}; "
           f"bench shape {SIM_BENCH_R}x{SIM_BENCH_STEPS}; tools.sim replay, "
           "tools.daemon selftest)", flush=True)
@@ -5906,7 +6331,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     sim["wall_s"] = time.perf_counter() - t0
     print(f"  phase 18 wall {sim['wall_s']:.1f} s", flush=True)
 
-    print(f"== 19. the operator's read side (obs_report over the card's own "
+    header(f"== 19. the operator's read side (obs_report over the card's own "
           f"records: a config-3 stream, {OBS_FLEET_DEVICES} devices, a "
           f"{FLEET_T // OBS_SCALE}-tenant service, the committed goldens, "
           f"simcov), the reference migration ({MIG_ACTORS} x {MIG_FILES} x "
@@ -5917,12 +6342,12 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("== 20. the static-analysis twin (crdt_enc_tpu_torch.tools.analyze "
+    header("== 20. the static-analysis twin (crdt_enc_tpu_torch.tools.analyze "
           "--diff-baseline over the checkout; the K2 launch's effect chain)",
           flush=True)
     analysis = phase_analysis(times["orset_fold"]["host_enqueue_ms"], build_s)
 
-    print(f"== 21. the mesh on the card (sharded ops at config-3 width on "
+    header(f"== 21. the mesh on the card (sharded ops at config-3 width on "
           f"{', '.join(f'({a}, {b})' for a, b in MESH_SHAPES)} shards of "
           f"cuda:0; Core.compact() on a (2, 2) mesh at 1/{MESH_DEPTH} of "
           f"config 3's rows, in memory; a (2, 1) mesh FoldService and FleetDaemon over "
@@ -5933,6 +6358,12 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     for k, v in mesh["errs"].items():
         if k in errs:
             errs[k] = max(errs[k], v)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header(CONSUMER_HEADER, flush=True)
+    print(device_line(), flush=True)
+    consumer = phase_consumer("cuda")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5998,6 +6429,11 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
             for part in ("stream", "fleet", "service", "migration",
                          "device_decode")}
         entry["mesh_launches"] = mesh["launches"][kname]
+        entry["consumer_launches"] = {
+            **{step: s["launches"][kname]
+               for step, s in consumer["remote"]["steps"].items()},
+            **{route: consumer["stream"][route]["launches"][kname]
+               for route in ("fold_payload_stream", "fold_payloads")}}
         if kname == "orset_fold":
             entry["serving"] = {
                 "route": "tenant layout: (E_b, T*R_b) planes, padding at "
@@ -6021,6 +6457,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     print(json.dumps({"analysis": analysis}), flush=True)
     print(json.dumps({"mesh": {k: v for k, v in mesh.items()
                                if k != "errs"}}), flush=True)
+    print(json.dumps({"consumer": consumer}), flush=True)
     print(device_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6089,7 +6526,40 @@ def stall_loop(budget_s: float) -> int:
     return 0
 
 
+def consumer_only() -> int:
+    """``python3 chip_smoke.py --consumer``: phases 1, 2 and 22 alone, the
+    consumer replica's quick check on the card; its last line is the
+    phase's JSON, not the result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from crdt_enc_tpu_torch import native
+    from crdt_enc_tpu_torch.ops import cuda_build
+
+    start_watchdog()
+    t0 = time.perf_counter()
+    print(device_line(), flush=True)
+    print(f"  kernels built in {cuda_build.build():.2f}s", flush=True)
+    native.load()
+    native.load_state()
+    header(CONSUMER_HEADER, flush=True)
+    try:
+        consumer = phase_consumer("cuda")
+    finally:
+        close_loop()
+    print(f"chip_smoke --consumer wall {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    print(device_line(), flush=True)
+    print(json.dumps({"consumer": consumer}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--stall-loop"]:
         sys.exit(stall_loop(float(sys.argv[2])))
+    if sys.argv[1:2] == ["--consumer"]:
+        sys.exit(consumer_only())
     sys.exit(main())

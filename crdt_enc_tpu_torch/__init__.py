@@ -8,7 +8,8 @@ The port covers the compaction front end: ``Core`` (open, apply_ops,
 read_remote, compact, and the local fold checkpoint that lets a
 replica reopen warm) over the ``FsStorage`` / ``MemoryStorage``,
 ``XChaChaCryptor``, ``IdentityCryptor``, ``PlainKeyCryptor``,
-``PassphraseKeyCryptor`` and ``GpgKeyCryptor`` plugins, with the native
+``PassphraseKeyCryptor``, ``GpgKeyCryptor`` and ``X25519KeyCryptor``
+plugins, with the native
 decrypt and payload decode and the native state assembly and canonical
 packer (``native/``), and the accelerator boundary ``Core`` uses:
 ``TorchAccelerator.fold_ops`` and ``fold_payloads`` for OR-Set (the
@@ -42,6 +43,7 @@ _EXPORTS = {
     "IdentityCryptor": ".backends.identity_crypto",
     "PassphraseKeyCryptor": ".backends.passphrase_keys",
     "GpgKeyCryptor": ".backends.gpg_keys",
+    "X25519KeyCryptor": ".backends.x25519_keys",
     "orset_adapter": ".core.adapters",
     "gcounter_adapter": ".core.adapters",
     "pncounter_adapter": ".core.adapters",

@@ -10,9 +10,10 @@ default thread pool; the C calls hold no Python state.
 
 The bulk open joins the blobs in Python into one buffer and parses and
 decrypts them natively in two calls, into one packed cleartext buffer
-(``decrypt_blobs_packed``; ``decrypt_blobs`` slices it into views).  The
-JAX package's C-API lengths pass and its pointer-array route for large
-blobs are not copied.
+(``decrypt_blobs_packed``; ``decrypt_blobs`` slices it into views);
+``decrypt_blobs_chunked`` yields such buffers chunk by chunk, decrypting
+the next on a worker thread.  The JAX package's C-API lengths pass and
+its pointer-array route for large blobs are not copied.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import numpy as np
 
 from .. import native
 from ..core.cryptor import Cryptor
-from ..utils import codec
+from ..utils import codec, trace
 from ..utils.version_bytes import VersionBytes
 from ..utils.versions import XCHACHA_DATA_VERSION_1, XCHACHA_KEY_VERSION_1
 
@@ -45,36 +46,64 @@ def _check_key(key: bytes) -> None:
         raise AeadError(f"invalid key length {len(key)}; expected {KEY_LEN}")
 
 
-def seal_raw(key: bytes, nonce: bytes, data: bytes) -> bytes:
-    """The bare AEAD: XChaCha20-Poly1305 seal with an explicit nonce,
-    returning ``ct ‖ tag`` (no envelope), for callers speaking a foreign
-    framing (the reference-remote import and export tools)."""
+def _seal(encrypt: str, nonce_len: int, key: bytes, nonce: bytes,
+          data: bytes, aad: bytes = b"") -> bytes:
     _check_key(key)
-    if len(nonce) != NONCE_LEN:
+    if len(nonce) != nonce_len:
         raise AeadError(f"invalid nonce length {len(nonce)}")
     lib = native.load()
     kp, _k = native.in_ptr(key)
     np_, _n = native.in_ptr(nonce)
+    ap, _a = native.in_ptr(aad)
     pp, _p = native.in_ptr(data)
     op, out = native.out_buf(len(data) + TAG_LEN)
-    lib.xchacha20poly1305_encrypt(kp, np_, None, 0, pp, len(data), op)
+    getattr(lib, encrypt)(kp, np_, ap, len(aad), pp, len(data), op)
     return out.tobytes()
 
 
-def open_raw(key: bytes, nonce: bytes, ct: bytes) -> bytes:
-    """Inverse of :func:`seal_raw`; raises AeadError on tag mismatch."""
+def _open(decrypt: str, nonce_len: int, key: bytes, nonce: bytes, ct: bytes,
+          aad: bytes = b"") -> bytes:
     _check_key(key)
-    if len(nonce) != NONCE_LEN or len(ct) < TAG_LEN:
+    if len(nonce) != nonce_len or len(ct) < TAG_LEN:
         raise AeadError("malformed EncBox (nonce/ciphertext lengths)")
     lib = native.load()
     kp, _k = native.in_ptr(key)
     np_, _n = native.in_ptr(nonce)
+    ap, _a = native.in_ptr(aad)
     cp, _c = native.in_ptr(ct)
     op, out = native.out_buf(len(ct) - TAG_LEN)
-    rc = lib.xchacha20poly1305_decrypt(kp, np_, None, 0, cp, len(ct), op)
-    if rc != 0:
+    if getattr(lib, decrypt)(kp, np_, ap, len(aad), cp, len(ct), op) != 0:
         raise AeadError("authentication failed (wrong key or tampered data)")
     return out.tobytes()
+
+
+def seal_raw(key: bytes, nonce: bytes, data: bytes) -> bytes:
+    """The bare AEAD: XChaCha20-Poly1305 seal with an explicit nonce,
+    returning ``ct ‖ tag`` (no envelope), for callers speaking a foreign
+    framing (the reference-remote import and export tools)."""
+    return _seal("xchacha20poly1305_encrypt", NONCE_LEN, key, nonce, data)
+
+
+def open_raw(key: bytes, nonce: bytes, ct: bytes) -> bytes:
+    """Inverse of :func:`seal_raw`; raises AeadError on tag mismatch."""
+    return _open("xchacha20poly1305_decrypt", NONCE_LEN, key, nonce, ct)
+
+
+IETF_NONCE_LEN = 12
+
+
+def ietf_seal(key: bytes, nonce: bytes, data: bytes, aad: bytes = b"") -> bytes:
+    """The IETF ChaCha20-Poly1305 AEAD of RFC 8439 §2.8 (12-byte nonce),
+    returning ``ct ‖ tag``: the X25519 key cryptor's per-recipient key
+    wrap (backends/x25519_keys.py)."""
+    return _seal("chacha20poly1305_encrypt", IETF_NONCE_LEN, key, nonce, data,
+                 aad)
+
+
+def ietf_open(key: bytes, nonce: bytes, ct: bytes, aad: bytes = b"") -> bytes:
+    """Inverse of :func:`ietf_seal`; raises AeadError on tag mismatch."""
+    return _open("chacha20poly1305_decrypt", IETF_NONCE_LEN, key, nonce, ct,
+                 aad)
 
 
 def encrypt_blob(key: bytes, data: bytes) -> bytes:
@@ -163,6 +192,48 @@ def decrypt_blobs(key: bytes, blobs: list) -> list:
     view = memoryview(out)
     lo_hi = out_offs.tolist()
     return [view[lo_hi[i] : lo_hi[i + 1]] for i in range(len(blobs))]
+
+
+def decrypt_blobs_chunked(
+    key: bytes, blobs: list, *, chunk_blobs: int = 0, n_chunks: int = 8,
+):
+    """Yield decrypted chunks, each a packed ``(buffer, offsets)`` pair of
+    :func:`decrypt_blobs_packed`, with one-chunk lookahead: chunk i+1
+    decrypts on a worker thread (the native batch call releases the GIL)
+    while the consumer decodes chunk i.  Feeds
+    ``TorchAccelerator.fold_payload_stream``.  Each chunk's decrypt is a
+    ``stream.decrypt`` span tagged with the chunk index.  The same errors
+    as :func:`decrypt_blobs_packed`, raised at the failing chunk."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = len(blobs)
+    if n == 0:
+        return
+    if chunk_blobs <= 0:
+        chunk_blobs = max(1, -(-n // max(n_chunks, 1)))
+    spans = [blobs[i : i + chunk_blobs] for i in range(0, n, chunk_blobs)]
+
+    def open_chunk(k):
+        with trace.span("stream.decrypt", meta=k):
+            return decrypt_blobs_packed(key, spans[k])
+
+    if (os.cpu_count() or 1) <= 1:
+        # one core: a lookahead thread overlaps nothing and only adds
+        # executor overhead, so decrypt synchronously
+        for k in range(len(spans)):
+            yield open_chunk(k)
+        return
+
+    with ThreadPoolExecutor(1) as ex:
+        fut = ex.submit(open_chunk, 0)
+        for i in range(len(spans)):
+            nxt = (
+                ex.submit(open_chunk, i + 1)
+                if i + 1 < len(spans)
+                else None
+            )
+            yield fut.result()
+            fut = nxt
 
 
 class XChaChaCryptor(Cryptor):

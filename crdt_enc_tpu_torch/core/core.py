@@ -77,9 +77,17 @@ the solo seal tail, with the service's pre-built checkpoint payload,
 snapshot object and device-cut delta, each accepted only while the
 state's mutation epoch still matches.
 
-Not copied (each still to port): the ``checkpoint_on_read`` reseal of
-consumer replicas and the payload-stream branch of the bulk path (no
-accelerator of the port reaches it: OR-Sets take the session).
+Consumer replicas: with ``OpenOptions.checkpoint_on_read`` a replica
+that never compacts reseals its warm-open checkpoint after every
+``read_remote()`` that moved its cursor or its read snapshots (a quiet
+poll writes nothing).
+
+The payload-stream branch of the bulk path: where the accelerator offers
+``open_payload_stream`` and every file shares one sealing key, the bulk
+path decrypts ``BULK_STREAM_CHUNK`` files at a time, one chunk ahead on
+a worker thread, and feeds each validated chunk to the stream's decoder;
+a declined chunk sends the whole batch down the per-op path.  It is
+reached, as in the JAX package, only where no fold session opens.
 """
 
 from __future__ import annotations
@@ -110,6 +118,7 @@ from .storage import Storage
 
 IO_CONCURRENCY = 16  # bounded pipeline width (reference lib.rs:452,512)
 BULK_MIN_FILES = 16  # below this the per-file asyncio path is cheaper
+BULK_STREAM_CHUNK = 16384  # files per decrypt-lookahead chunk (bulk ingest)
 
 # local fold-checkpoint payload formats (the JAX package's)
 CHECKPOINT_FMT_OBJ = 0  # adapter.state_to_obj (any CRDT type)
@@ -285,6 +294,10 @@ class OpenOptions:
     # and open() restores it after verification (falling back to the
     # cold refold on any mismatch).
     checkpoint: bool = True
+    # ``checkpoint_on_read`` also reseals after every read_remote() that
+    # moved the cursor or the read snapshots: for consumer replicas that
+    # never compact
+    checkpoint_on_read: bool = False
     # delta-state replication: with ``delta`` on and a storage backend
     # that has the delta family, compact() also seals a delta since this
     # replica's previous snapshot, and read_remote() folds ``known base +
@@ -398,6 +411,7 @@ class Core:
         # write of this incarnation probes for un-refolded own history
         self._own_history_checked = False
         self._checkpoint_enabled = opts.checkpoint
+        self._checkpoint_on_read = opts.checkpoint_on_read
         # warm-open outcome: whether open() restored the local checkpoint,
         # and why a present one was rejected
         self.opened_from_checkpoint = False
@@ -1274,6 +1288,17 @@ class Core:
         await self._read_remote_meta()
         await self._read_remote_states()
         await self._read_remote_ops()
+        if self._checkpoint_on_read and self._checkpoint_enabled:
+            # a consumer replica reseals its resume point after every
+            # ingest, but not after a quiet poll (same cursor and read
+            # snapshots as the last seal): a quiet remote must not cost a
+            # re-pack and an fsync per poll
+            d = self._data
+            sig = (
+                dict(d.next_op_versions.counters), frozenset(d.read_states)
+            )
+            if sig != self._checkpoint_sig:
+                await self.save_checkpoint()
         if _sample:
             # the ingest folded everything its own listing found: the
             # backlog is empty as of that listing, no second probe
@@ -1813,15 +1838,31 @@ class Core:
         files, groups = self._unwrap_op_files(files)
         if not files:
             return  # every file quarantined: consumed, cursors held
-        clears: list = [None] * len(files)
+        # one sealing key (the common case) and an accelerator with a
+        # payload stream: chunked decrypt with one-chunk lookahead — the
+        # default pool decrypts chunk i+1 (native, GIL released) while
+        # this task validates and decodes chunk i; one fold at the end
+        open_stream = getattr(self.accel, "open_payload_stream", None)
+        stream = (
+            open_stream(self._data.state, actors_hint=actors)
+            if open_stream is not None and len(groups) == 1
+            else None
+        )
+        payloads: list = []
+        metas: list = []
         with trace.span("ops.bulk_decrypt"):
-            for key, idxs, mids in groups:
-                outs = await self._decrypt_tolerant(
-                    key, [files[i] for i in idxs], mids
-                )
-                for i, clear in zip(idxs, outs):
-                    clears[i] = clear
-            payloads, metas = self._validate_chunk(files, clears)
+            if stream is not None:
+                streamed_ok = await self._stream_bulk_chunks(
+                    stream, files, groups[0], payloads, metas)
+            else:
+                clears: list = [None] * len(files)
+                for key, idxs, mids in groups:
+                    outs = await self._decrypt_tolerant(
+                        key, [files[i] for i in idxs], mids
+                    )
+                    for i, clear in zip(idxs, outs):
+                        clears[i] = clear
+                payloads, metas = self._validate_chunk(files, clears)
         trace.add(
             "bytes_decrypted",
             sum(len(m) for _, _, mids in groups for m in mids),
@@ -1829,7 +1870,11 @@ class Core:
         if not payloads:
             return
         with trace.span("ops.bulk_fold"):
-            if self.accel.fold_payloads(
+            if stream is not None and streamed_ok and stream.finish():
+                self._advance_cursors(metas)
+                trace.add("op_files_bulk_folded", len(payloads))
+                return
+            if stream is None and self.accel.fold_payloads(
                 self._data.state, payloads, actors_hint=actors
             ):
                 self._advance_cursors(metas)
@@ -1845,6 +1890,63 @@ class Core:
             self.accel.fold_ops(self._data.state, batch)
             self._advance_cursors(metas)
             trace.add("ops_folded", len(batch))
+
+    async def _stream_bulk_chunks(self, stream, files: list, group,
+                                  payloads: list, metas: list) -> bool:
+        """The bulk ingest's chunked decrypt with one-chunk lookahead,
+        ``BULK_STREAM_CHUNK`` files a chunk: each chunk is validated (no
+        cursor moves) into ``payloads`` and ``metas`` and fed to
+        ``stream`` while the next one decrypts.  Returns False once the
+        stream declined a chunk (the rest are still validated, so the
+        caller can replay every payload per op)."""
+        key, idxs, mids = group
+        CH = BULK_STREAM_CHUNK
+        slices = [idxs[i : i + CH] for i in range(0, len(idxs), CH)]
+        mid_slices = [mids[i : i + CH] for i in range(0, len(mids), CH)]
+        overlay: dict[Actor, int] = {}
+        barred: set[Actor] = set()  # actors cut at a quarantined file
+        streamed_ok = True
+
+        async def decrypt_chunk(si):
+            # span-tagged with the chunk index, so the overlap with the
+            # decode below shows in the trace event log
+            with trace.span("stream.decrypt", meta=si):
+                return await self._decrypt_tolerant(
+                    key, [files[i] for i in slices[si]], mid_slices[si]
+                )
+
+        nxt = asyncio.create_task(decrypt_chunk(0))
+        try:
+            for si, sl in enumerate(slices):
+                clears = await nxt
+                nxt = (
+                    asyncio.create_task(decrypt_chunk(si + 1))
+                    if si + 1 < len(slices)
+                    else None
+                )
+                if nxt is not None:
+                    # one tick steps the new task into its worker thread,
+                    # so it decrypts WHILE this task validates and decodes
+                    await asyncio.sleep(0)
+                # sync: inner version checks WITHOUT cursor advance —
+                # cursors move only after the fold lands
+                with trace.span("stream.validate", meta=si):
+                    p, m = self._validate_chunk(
+                        [files[i] for i in sl], clears, overlay, barred
+                    )
+                metas.extend(m)
+                payloads.extend(p)
+                if streamed_ok:
+                    with trace.span("stream.decode", meta=si):
+                        streamed_ok = stream.feed(p)
+        finally:
+            if nxt is not None:
+                nxt.cancel()
+                try:
+                    await nxt
+                except (asyncio.CancelledError, Exception):
+                    pass
+        return streamed_ok
 
     def _unwrap_op_files(self, files: list):
         """Outer-envelope unwrap of loaded op files, grouped by sealing

@@ -187,6 +187,14 @@ def _bind(lib) -> None:
         u8p, u8p, u8p, ctypes.c_uint64, u8p, ctypes.c_uint64, u8p
     ]
     lib.xchacha20poly1305_decrypt.restype = ctypes.c_int
+    lib.chacha20poly1305_encrypt.argtypes = [
+        u8p, u8p, u8p, ctypes.c_uint64, u8p, ctypes.c_uint64, u8p
+    ]
+    lib.chacha20poly1305_encrypt.restype = None
+    lib.chacha20poly1305_decrypt.argtypes = [
+        u8p, u8p, u8p, ctypes.c_uint64, u8p, ctypes.c_uint64, u8p
+    ]
+    lib.chacha20poly1305_decrypt.restype = ctypes.c_int
     lib.encbox_parse_batch.argtypes = [
         u8p, u64p, ctypes.c_uint64, u8p, u64p, u64p, u64p
     ]

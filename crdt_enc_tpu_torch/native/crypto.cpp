@@ -6,8 +6,9 @@
 // 12-byte-nonce ChaCha20Poly1305, so the XChaCha construction (HChaCha20
 // subkey derivation + ChaCha20-Poly1305, draft-irtf-cfrg-xchacha) is
 // implemented here from RFC 8439 primitives.  The port's copy of the JAX
-// package's source, cut to the four entry points the port binds: the
-// one-blob seal and open, and the batch parse and decrypt.
+// package's source, cut to the six entry points the port binds: the
+// one-blob seal and open in both nonce sizes, and the batch parse and
+// decrypt.
 //
 // Exposed via a plain C ABI for ctypes (pure C, no Python API).  The batch
 // entry points let the bulk decrypt front end amortize FFI overhead across
@@ -575,7 +576,12 @@ void xchacha_derive(const uint8_t key[32], const uint8_t nonce24[24],
   memcpy(nonce12 + 4, nonce24 + 16, 8);
 }
 
-// IETF ChaCha20-Poly1305 (12-byte nonce).  out = ct || tag(16).
+}  // namespace
+
+extern "C" {
+
+// IETF ChaCha20-Poly1305 (RFC 8439 §2.8, 12-byte nonce).  out = ct || tag(16).
+// Also the recipient key wrap of backends/x25519_keys.py.
 void chacha20poly1305_encrypt(const uint8_t* key, const uint8_t* nonce,
                               const uint8_t* aad, uint64_t aad_len,
                               const uint8_t* pt, uint64_t pt_len,
@@ -597,10 +603,6 @@ int chacha20poly1305_decrypt(const uint8_t* key, const uint8_t* nonce,
   chacha20_xor(key, 1, nonce, in, out, ct_len);
   return 0;
 }
-
-}  // namespace
-
-extern "C" {
 
 // XChaCha20-Poly1305 (24-byte nonce), draft-irtf-cfrg-xchacha.
 void xchacha20poly1305_encrypt(const uint8_t* key, const uint8_t* nonce24,

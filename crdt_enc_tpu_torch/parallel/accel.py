@@ -80,8 +80,10 @@ from ..ops.counters import gcounter_fold, pncounter_fold
 from ..ops.lww import TS_SPLIT_BITS, lww_fold
 from ..ops.mvreg import mvreg_dominance_keep
 from ..ops.native_decode import (
+    combine_orset_spans,
     decode_counter_payload_batch,
     decode_orset_payload_batch,
+    decode_orset_payload_spans,
 )
 from ..ops.orset import orset_fold, orset_merge_many
 from ..ops.stream import ChunkPool, iter_orset_chunks, orset_fold_stream
@@ -776,6 +778,40 @@ class TorchAccelerator(HostAccelerator):
             raise e.__cause__ from None
         return True
 
+    def fold_payload_stream(self, state, chunks, actors_hint=()) -> bool:
+        """OR-Set bulk front end over an *iterator* of decrypted-payload
+        chunks (e.g. ``xchacha.decrypt_blobs_chunked``): each chunk
+        decodes while the producer decrypts the next, then all rows fold
+        once.  On False the stream is closed (a generator's pending
+        lookahead is cancelled at its next yield), ``state`` is untouched
+        and the caller replays its own copy of the payloads down the
+        per-op path."""
+        stream = self.open_payload_stream(state, actors_hint=actors_hint)
+        if stream is None:
+            return False
+        try:
+            for chunk in chunks:
+                if not stream.feed(chunk):
+                    return False
+        finally:
+            close = getattr(chunks, "close", None)
+            if close is not None:
+                close()
+        return stream.finish()
+
+    def open_payload_stream(self, state, actors_hint=()):
+        """Incremental bulk front end: a stream with ``feed(payloads) ->
+        bool`` (decodes one chunk — a payload list or a packed ``(buffer,
+        offsets)`` pair; False = declined, nothing folded) and ``finish()
+        -> bool`` (one combined fold into ``state``), or None where
+        ``state`` has no columnar bulk path (not an OR-Set, or counters
+        past int32).  ``feed`` only decodes, so callers overlap it with
+        their own decrypt of the next chunk; ``state`` mutates only
+        inside ``finish``.  Caller-serialized, like the fold sessions."""
+        if not isinstance(state, ORSet) or not orset_fits_int32(state):
+            return None
+        return _OrsetPayloadStream(self, state, actors_hint)
+
     def _fold_counter_payloads(self, state, payloads: list, actors_hint=()) -> bool:
         """Counter bulk path: native decode straight to (sign, actor,
         counter) columns, one fold.  Dots are monotone per actor, so
@@ -1081,3 +1117,67 @@ class TorchAccelerator(HostAccelerator):
         state.deferred = merged.deferred
         self._note_orset_writeback(state)
         return state
+
+
+class _OrsetPayloadStream:
+    """Incremental OR-Set bulk front end (``TorchAccelerator.
+    open_payload_stream``): a native span decode per chunk, one combined
+    intern and fold at ``finish`` through the accelerator's OR-Set fold
+    (K2 on the dense route, the native host fold in the sparse regime).
+    The core's bulk ingest feeds chunks as its decrypt lookahead lands
+    (``Core._read_remote_ops_bulk``); the state is untouched until
+    ``finish`` returns True, so a declined or abandoned stream leaves the
+    replica exactly as it was."""
+
+    def __init__(self, accel: TorchAccelerator, state: ORSet, actors_hint=()):
+        self.accel = accel
+        self.state = state
+        self.actors_sorted = accel._orset_actor_table(
+            state, actors_hint, accel._plane_cache_for(state))
+        self.parts: list = []
+        self.declined = False
+        self._finished = False
+        # the actor table's native hash index, built once per stream (the
+        # table is fixed for the stream's life) and reused across feeds
+        self._decode_cache: dict = {}
+
+    def feed(self, payloads) -> bool:
+        """Decode one chunk of decrypted payloads.  False = the native
+        decoder declined (unknown actor, non-canonical encoding, a counter
+        past int32); the stream is dead and the caller replays through
+        the per-op path."""
+        if self._finished:
+            raise RuntimeError("payload stream already finished")
+        if self.declined:
+            return False
+        n = len(payloads[1]) - 1 if isinstance(payloads, tuple) else len(
+            payloads)
+        if n <= 0:
+            return True
+        with trace.span("fold.decode"):
+            part = decode_orset_payload_spans(
+                payloads, self.actors_sorted, cache=self._decode_cache
+            )
+        if part is None:
+            self.declined = True
+            return False
+        self.parts.append(part)
+        return True
+
+    def finish(self) -> bool:
+        """Combine every fed chunk and fold into the state (the only
+        mutation).  False = a member vocabulary that collapses as Python
+        values; the state is untouched."""
+        if self._finished:
+            raise RuntimeError("payload stream already finished")
+        if self.declined:
+            raise RuntimeError("payload stream was declined")
+        self._finished = True
+        if not self.parts:
+            return True
+        with trace.span("fold.decode"):
+            decoded = combine_orset_spans(self.parts)
+        self.parts = []
+        return self.accel._fold_orset_decoded(
+            self.state, decoded, self.actors_sorted
+        )

@@ -45,6 +45,14 @@ GPG_KEYS_META_VERSION_1 = uuid.UUID(
 ).bytes
 SUPPORTED_GPG_KEYS_META_VERSIONS = frozenset({GPG_KEYS_META_VERSION_1})
 
+# Recipient-keyed (X25519) key-cryptor remote-meta format: the Keys blob
+# sealed to a set of recipient public keys (ephemeral ECDH + HKDF + AEAD)
+# and signed by the writer (Ed25519).
+X25519_KEYS_META_VERSION_1 = uuid.UUID(
+    "4fb7a9d2-3c16-4e80-9b5a-217f60d8e3c9"
+).bytes
+SUPPORTED_X25519_KEYS_META_VERSIONS = frozenset({X25519_KEYS_META_VERSION_1})
+
 # Application-data versions are chosen by the application that owns the
 # CRDT state type (reference OpenOptions.supported_data_versions,
 # lib.rs:730-731).  A reasonable default for tests:

@@ -524,3 +524,129 @@ def test_cross_package_warm_open(sealer, name, tmp_path):
         assert got == cold.with_state(canonical_bytes)
 
     run(go())
+
+
+# ---- consumer replicas: checkpoint_on_read --------------------------------
+
+
+def test_checkpoint_on_read_consumer_replica(storage_factory):
+    """A consumer that never compacts, with ``checkpoint_on_read``,
+    reseals after each ingest and warm-opens from it
+    (tests/test_checkpoint.py:246)."""
+
+    async def go():
+        w = await Core.open(make_opts(storage_factory("w"), orset_adapter()))
+        for i in range(20):
+            await w.apply_ops([_ops_orset(w, i)])
+        reader = await Core.open(make_opts(
+            storage_factory("r"), orset_adapter(), checkpoint_on_read=True))
+        await reader.read_remote()
+        reopened = await Core.open(
+            make_opts(storage_factory("r"), orset_adapter(), create=False))
+        assert reopened.opened_from_checkpoint
+        assert reopened.with_state(canonical_bytes) == reader.with_state(
+            canonical_bytes)
+
+    run(go())
+
+
+def test_checkpoint_on_read_preserves_cursor_matrix():
+    """A warm reopen of a consumer keeps its replication view: the cursor
+    matrix rides in the checkpoint it resealed on read
+    (tests/test_replication.py:432)."""
+
+    async def go():
+        remote = MemoryRemote()
+        a = await Core.open(make_opts(MemoryStorage(remote), gcounter_adapter()))
+        await a.apply_ops([a.with_state(lambda s: s.inc(a.actor_id))])
+        await a.compact()
+        storage_c = MemoryStorage(remote)
+        c = await Core.open(make_opts(storage_c, gcounter_adapter(),
+                                      checkpoint_on_read=True))
+        await c.read_remote()
+        before = await c.replication_status()
+        assert before["matrix"] == {a.actor_id.hex(): {a.actor_id.hex(): 1}}
+        c2 = await Core.open(make_opts(storage_c, gcounter_adapter(),
+                                       checkpoint_on_read=True))
+        assert c2.opened_from_checkpoint
+        after = await c2.replication_status()
+        assert after["matrix"] == before["matrix"]
+        assert after["watermark"] == before["watermark"]
+
+    run(go())
+
+
+def _saves(snap) -> int:
+    return snap["spans"].get("checkpoint.save", {}).get("count", 0)
+
+
+@pytest.mark.parametrize("name", list(ADAPTER_CASES))
+def test_consumer_replica_reseals_as_the_jax_consumer(name, tmp_path):
+    """A port consumer and a JAX consumer, each with ``checkpoint_on_read``
+    on a copy of the same remote, step in lockstep: the first read
+    reseals, a quiet poll writes no checkpoint, a writer's tail reseals
+    again, and a reopen restores warm.  Each step's canonical bytes and
+    checkpoint count are equal across the packages."""
+    from crdt_enc_tpu.utils import trace as jtrace
+
+    port_adapter, jax_adapter, build = ADAPTER_CASES[name]
+    remotes = {k: str(tmp_path / f"remote-{k}") for k in ("port", "jax")}
+
+    def popts(local, create=True):
+        return make_opts(FsStorage(str(tmp_path / local), remotes["port"]),
+                         port_adapter(), create=create,
+                         checkpoint_on_read=True)
+
+    def jopts_(local, create=True):
+        o = jopts(JFsStorage(str(tmp_path / local), remotes["jax"]),
+                  jax_adapter(), create=create)
+        o.checkpoint_on_read = True
+        return o
+
+    def mirror():
+        shutil.rmtree(remotes["jax"], ignore_errors=True)
+        shutil.copytree(remotes["port"], remotes["jax"])
+
+    async def step(pc, jc, want_saves):
+        trace.reset()
+        jtrace.reset()
+        await pc.read_remote()
+        await jc.read_remote()
+        assert (_saves(trace.snapshot()), _saves(jtrace.snapshot())) == \
+            (want_saves, want_saves)
+        assert pc.with_state(canonical_bytes) == jc.with_state(
+            j_canonical_bytes)
+        assert pc.info().next_op_versions.to_obj() == \
+            jc.info().next_op_versions.to_obj()
+
+    async def go():
+        w = await Core.open(make_opts(
+            FsStorage(str(tmp_path / "w"), remotes["port"]), port_adapter()))
+        for i in range(24):
+            await w.apply_ops([build(w, i)])
+        mirror()
+        pc = await Core.open(popts("pc"))
+        jc = await JCore.open(jopts_("jc"))
+        await step(pc, jc, 1)   # the first ingest reseals
+        await step(pc, jc, 0)   # a quiet poll writes nothing
+        for i in range(24, 30):
+            await w.apply_ops([build(w, i)])
+        mirror()
+        await step(pc, jc, 1)   # the tail reseals
+        await step(pc, jc, 0)
+        warm = await Core.open(popts("pc", create=False))
+        jwarm = await JCore.open(jopts_("jc", create=False))
+        assert warm.opened_from_checkpoint and jwarm.opened_from_checkpoint
+        assert warm.with_state(canonical_bytes) == pc.with_state(
+            canonical_bytes) == jwarm.with_state(j_canonical_bytes)
+        # the warm consumers' first poll is quiet: no reseal either side
+        await step(warm, jwarm, 0)
+        # a consumer without the option never writes a checkpoint
+        trace.reset()
+        plain = await Core.open(make_opts(
+            FsStorage(str(tmp_path / "plain"), remotes["port"]),
+            port_adapter()))
+        await plain.read_remote()
+        assert _saves(trace.snapshot()) == 0
+
+    run(go())

@@ -30,6 +30,7 @@ import types
 import urllib.request
 
 import pytest
+from _jax_gc_guard import hold_the_cyclic_collector  # noqa: F401 (autouse)
 
 from crdt_enc_tpu.backends import IdentityCryptor as JIdentityCryptor
 from crdt_enc_tpu.backends import MemoryRemote as JMemoryRemote

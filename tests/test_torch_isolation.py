@@ -1,6 +1,6 @@
 """The port stands alone: no module of crdt_enc_tpu_torch, and not
-chip_smoke.py, imports jax, jaxlib, the JAX package (crdt_enc_tpu) or
-msgpack.  The machine with the card has none of them."""
+chip_smoke.py, imports jax, jaxlib, the JAX package (crdt_enc_tpu),
+msgpack or cryptography.  The machine with the card has none of them."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "crdt_enc_tpu", "msgpack"}
+FORBIDDEN = {"jax", "jaxlib", "crdt_enc_tpu", "msgpack", "cryptography"}
 FILES = sorted(
     str(p.relative_to(ROOT))
     for p in [*(ROOT / "crdt_enc_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
@@ -49,6 +49,31 @@ def test_the_scan_catches_each_forbidden_form():
     src = (
         "import jax.numpy as jnp\nfrom crdt_enc_tpu.ops import orset\n"
         "import msgpack\nimportlib.import_module('jaxlib')\n"
+        "from cryptography.hazmat.primitives import hashes\n"
         "from .ops import orset\nimport crdt_enc_tpu_torch\n"
     )
     assert imported_top_levels(ast.parse(src)) & FORBIDDEN == FORBIDDEN
+
+
+@pytest.mark.parametrize("path", [
+    "crdt_enc_tpu_torch/backends/_curves.py",
+    "crdt_enc_tpu_torch/backends/x25519_keys.py",
+])
+def test_the_key_cryptor_modules_are_scanned(path):
+    """The X25519 cryptor writes its primitives out: the scan above covers
+    both of its modules, which import no ``cryptography``."""
+    assert path in FILES
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    assert not imported_top_levels(tree) & FORBIDDEN
+
+
+@pytest.mark.parametrize("path", [
+    "tests/test_torch_kernels.py",
+    "tests/test_torch_x25519_keys.py",
+])
+def test_the_card_side_test_files_stand_alone(path):
+    """The test files the card's machine runs (chip_smoke.py phase 22
+    runs the RFC vectors of the second) import neither JAX, the JAX
+    package, msgpack nor cryptography."""
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    assert not imported_top_levels(tree) & FORBIDDEN

@@ -24,6 +24,7 @@ import uuid
 import jax
 import numpy as np
 import pytest
+from _jax_gc_guard import hold_the_cyclic_collector  # noqa: F401 (autouse)
 import torch
 
 import crdt_enc_tpu.models as J

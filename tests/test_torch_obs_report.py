@@ -22,6 +22,7 @@ import time
 
 import numpy as np
 import pytest
+from _jax_gc_guard import hold_the_cyclic_collector  # noqa: F401 (autouse)
 
 from crdt_enc_tpu.backends import MemoryRemote as JMemoryRemote
 from crdt_enc_tpu.backends import MemoryStorage as JMemoryStorage

@@ -21,6 +21,7 @@ import json
 import threading
 
 import pytest
+from _jax_gc_guard import hold_the_cyclic_collector  # noqa: F401 (autouse)
 
 import crdt_enc_tpu.sim as jsim
 import crdt_enc_tpu_torch.sim as psim

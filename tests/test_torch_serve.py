@@ -26,6 +26,7 @@ import shutil
 
 import numpy as np
 import pytest
+from _jax_gc_guard import hold_the_cyclic_collector  # noqa: F401 (autouse)
 import torch
 
 from crdt_enc_tpu.backends import FsStorage as JFsStorage
@@ -903,6 +904,44 @@ def test_warm_tier_finalizer_records_nothing(monkeypatch):
     c = S()
     tier.store(c, None, None, (torch.zeros(2, dtype=torch.int32),))
     assert trace.snapshot()["gauges"]["serve_warm_bytes"] == 32
+
+
+def test_the_guard_keeps_the_jax_warm_finalizer_out_of_the_trace_lock():
+    """The JAX warm tier's finalizer still takes the JAX trace lock
+    (crdt_enc_tpu/serve/warm.py:138-142 → obs/record.py:286).  Under this
+    file's guard (tests/_jax_gc_guard.py) a cyclic tenant state that dies
+    while a thread holds that lock is not collected there: the thread
+    allocates past every collection threshold and returns, and a
+    collection outside the lock (the guard's, at the module's end) drops
+    the entry."""
+    import gc
+    import threading
+
+    from crdt_enc_tpu.models import ORSet as JORSet
+    from crdt_enc_tpu.obs import record as jrecord
+    from crdt_enc_tpu.serve.warm import PlaneWarmTier as JPlaneWarmTier
+
+    assert not gc.isenabled()
+    tier = JPlaneWarmTier(byte_budget=1 << 20)
+    state = JORSet()
+    state.cycle = state  # only the cyclic collector frees it
+    tier.store(state, [], [], (np.zeros(4, np.int32),))
+    del state
+    done = threading.Event()
+
+    def hold_the_lock_and_allocate():
+        with jrecord._lock:
+            junk = [[i] for i in range(4 * gc.get_threshold()[0])]
+            del junk
+        done.set()
+
+    t = threading.Thread(target=hold_the_lock_and_allocate, daemon=True)
+    t.start()
+    t.join(30)
+    assert done.is_set(), "the JAX trace lock's holder waited on itself"
+    assert len(tier) == 1
+    gc.collect()
+    assert len(tier) == 0
 
 
 def test_warm_tier_reuse_across_cycles_byte_identical():

@@ -17,6 +17,7 @@ from __future__ import annotations
 import asyncio
 
 import pytest
+from _jax_gc_guard import hold_the_cyclic_collector  # noqa: F401 (autouse)
 import torch
 
 from crdt_enc_tpu.parallel import mesh as jmesh

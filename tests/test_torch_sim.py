@@ -19,6 +19,7 @@ import json
 import os
 
 import pytest
+from _jax_gc_guard import hold_the_cyclic_collector  # noqa: F401 (autouse)
 import torch
 
 import crdt_enc_tpu.sim as jsim

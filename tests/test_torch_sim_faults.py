@@ -24,6 +24,7 @@ import os
 import types
 
 import pytest
+from _jax_gc_guard import hold_the_cyclic_collector  # noqa: F401 (autouse)
 
 
 def package(name: str):

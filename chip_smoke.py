@@ -3,8 +3,9 @@
 
 The main workloads are BASELINE configs 3 and 4 at full width: the OR-Set
 compaction path (1,000,000 add/remove ops over 10,000 replicas and 4,096
-members, made from a seed by a copy of bench.py's ``gen_columns``: about
-10% removes, dead removes as ``actor = R`` sentinel rows) and the LWW-map
+members, made from a seed by the port bench's ``gen_columns``, which
+equals bench.py's: about 10% removes, dead removes as ``actor = R``
+sentinel rows) and the LWW-map
 fold (1,000,000 writes over 1,000,000 keys and 10,000 actors, a copy of
 benchmarks/suite.py's config-4 generator), beside configs 1 and 2
 (G-Counter 4 x 1k, PN-Counter 1k x 100k), and BASELINE config 5 (200k
@@ -115,10 +116,11 @@ Phases:
 16. the multi-tenant fold service (``FoldService``): K2 through the
    tenant layout (the tenants' planes side by side as ``(E_b, T·R_b)``,
    padding rows at ``actor = T·R_b``) against its plain version at the
-   fleets' bucket shapes, then fleet (a), 2,048 tenants at bench.py
+   fleets' bucket shapes, then fleet (a), 1,024 tenants at bench.py
    --e2e-multitenant's shape (384 ops over 4 replicas and 64 members,
-   24-op files; 1/8 G-Counters, 8 oversize solo spills, 8 decoder
-   declines, 16 empty, 16 with 3 snapshots), and fleet (b), one bucket at
+   24-op files; 1/8 G-Counters, 4 oversize solo spills, 4 decoder
+   declines, 8 empty, 8 with 3 snapshots; 2,048 until phase 23 joined),
+   and fleet (b), one bucket at
    the cells cap (16 tenants of 1,024 members x 1,024 replicas, 32,768
    ops), as encrypted in-memory remotes in three byte-identical copies:
    three service cycles (all ops; a 10% tail, served from the warm tier
@@ -222,6 +224,18 @@ Phases:
    ``decrypt_blobs_chunked`` of the same op files in 8 chunks and
    ``fold_payloads`` over them opened in one batch, each byte-equal to the
    host loop's state, with K2's launches on the dense route;
+23. the bench entry points: ``crdt_enc_tpu_torch.bench``'s ten modes (the
+   config-3 fold, streaming, device decode, multitenant and its (2, 1)
+   mesh arm on shards of the card, daemon, idle cycle, warm open, delta,
+   strong read, and the simulator serial and at P = 2), the five
+   ``benchmarks.suite`` configs, ``benchmarks.compaction_e2e`` (its
+   children in process) and ``benchmarks.streaming_phases``, in process
+   at their ``--smoke`` sizes with ``--device cuda``: each prints one
+   record on the card (``backend`` "cuda", the card's name) with every
+   byte-equality gate true and a roofline share under 100% where it
+   reports one, appended to one ``--record`` file, over which ``python3
+   -m crdt_enc_tpu_torch.tools.obs_report trend`` exits 0; the kernel
+   launches per entry come from its record;
 then the kernels line and the result line.  Phase 5 also times the merge
 at the compaction's own shape (S = 9, E = 4,096, R = 5,000) against its
 plain version, and phases 5 and 9 give the merge and K3's shape their
@@ -233,7 +247,9 @@ card.  A run that stalls past ``WATCHDOG_S`` (1,180 s, just under the
 temporary directory and exits nonzero.  ``python3 chip_smoke.py
 --stall-loop SECONDS`` runs only phase 18 (b)'s serial-equality check,
 again and again, and dumps the stacks of a pass that stalls; ``python3
-chip_smoke.py --consumer`` runs phases 1, 2 and 22 alone.  Without a CUDA device, or without the package beside it, it exits
+chip_smoke.py --consumer`` runs phases 1, 2 and 22 alone, and ``python3
+chip_smoke.py --bench`` phases 1–9 and 23 (its last line is phase 23's
+JSON, after the kernels line).  Without a CUDA device, or without the package beside it, it exits
 nonzero and prints no result.
 """
 
@@ -255,6 +271,15 @@ import time
 import uuid
 
 import numpy as np
+
+# the package beside this script: its bench's workload generators and the
+# card's memory rates are the ones every phase below uses
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from crdt_enc_tpu_torch.bench import (  # noqa: E402
+    actor_bytes_table,
+    gen_columns,
+    peak_bytes_per_s,
+)
 
 N_ROWS, N_REPLICAS, N_MEMBERS = 1_000_000, 10_000, 4096
 # seconds after which a stalled run dumps its threads' stacks and exits:
@@ -341,6 +366,12 @@ OTHER_SEED = 19
 # tenants of 1,024 members x 1,024 replicas and 32,768 ops.  Cycle 2 adds
 # a 10% tail of op files to every tenant with ops; cycle 3 is quiet.
 FLEET_T, FLEET_N, FLEET_R, FLEET_E, FLEET_OPF = 2048, 384, 4, 64, 24
+# phases 16 and 17 run fleet (a) at 1/SERVE_SCALE of that mix (1,024
+# tenants: 128 G-Counters, 4 oversize, 4 declines, 8 empty, 8 with
+# snapshots); cut from the whole mix when phase 23 joined, since the bench's
+# --e2e-multitenant and --e2e-daemon modes now measure fleets at the JAX
+# bench's full size
+SERVE_SCALE = 2
 FLEET_GC, FLEET_BIG, FLEET_BIG_N = FLEET_T // 8, 8, 40_000
 FLEET_DECLINE, FLEET_EMPTY, FLEET_SNAP, FLEET_SNAPSHOTS = 8, 16, 16, 3
 CAP_T, CAP_E, CAP_R, CAP_N = 16, 1024, 1024, 32_768
@@ -389,42 +420,10 @@ MIG_ACTORS, MIG_FILES, MIG_OPS, MIG_GROUPS, MIG_SEED = 64, 32, 8, 8, 31
 DD_N, DD_R, DD_OPF, DD_ITERS, DD_SEED, DD_CHUNKS = \
     200_000, 100_000, 48, 5, 7, 8
 
-# peak device-memory rates (NVIDIA data sheets); float32 outside the
-# tensor cores is the table's nearest rate for the kernels' int32 ALU work
-H100_SXM_BYTES_PER_S = 3.35e12
-H100_PCIE_BYTES_PER_S = 2.0e12
-H100_NVL_BYTES_PER_S = 3.9e12
+# float32 outside the tensor cores is the table's nearest peak rate for the
+# kernels' int32 ALU work; the memory rates are the bench's
+# (crdt_enc_tpu_torch.bench.peak_bytes_per_s)
 CUDA_CORE_OPS_PER_S = 67e12
-
-
-def gen_columns(N: int, R: int, E: int, seed: int = 7):
-    """Vectorized op-stream generator (a copy of bench.py's): per-actor
-    sequential add dots, ~10% removes whose horizon is the actor's
-    add-count so far; removes before the actor ever added become
-    ``actor = R`` sentinel rows."""
-    rng = np.random.default_rng(seed)
-    kind = (rng.random(N) < 0.10).astype(np.int8)
-    member = rng.integers(0, E, N, dtype=np.int32)
-    actor = rng.integers(0, R, N, dtype=np.int32)
-    is_add = kind == 0
-    order = np.argsort(actor, kind="stable")
-    s_actor = actor[order]
-    s_isadd = is_add[order].astype(np.int64)
-    cum = np.cumsum(s_isadd)
-    starts = np.searchsorted(s_actor, np.arange(R))
-    first = np.minimum(starts, N - 1)
-    base = np.where(starts < N, cum[first] - s_isadd[first], 0)
-    within = cum - base[s_actor]
-    counter = np.empty(N, np.int64)
-    counter[order] = within
-    counter = counter.astype(np.int32)
-    dead_rm = (~is_add) & (counter == 0)
-    actor = np.where(dead_rm, R, actor).astype(np.int32)
-    return kind, member, actor, counter
-
-
-def actor_ids(R: int) -> list:
-    return [uuid.UUID(int=a + 1).bytes for a in range(R)]
 
 
 def ops_from_columns(kind, member, actor, counter, actors: list):
@@ -497,14 +496,6 @@ def fs_type(path: str) -> str:
     except OSError:
         pass
     return kind
-
-
-def memory_rate(name: str) -> float:
-    if "PCIe" in name:
-        return H100_PCIE_BYTES_PER_S
-    if "NVL" in name:
-        return H100_NVL_BYTES_PER_S
-    return H100_SXM_BYTES_PER_S
 
 
 def max_abs_err(ref, got) -> int:
@@ -630,7 +621,7 @@ def phase_end_to_end(cols, E: int, R: int, device):
     from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
     from crdt_enc_tpu_torch.utils import trace
 
-    actors = actor_ids(R)
+    actors = actor_bytes_table(R)
     N = len(cols[0])
     bounds = np.linspace(0, N, MERGE_S + 1).astype(int)
     t0 = time.perf_counter()
@@ -1034,7 +1025,7 @@ def phase_lww_end_to_end(device):
     from crdt_enc_tpu_torch.ops import lww_fold_cuda as LC
 
     key, ts, actor, value = gen_lww(LWW_N, LWW_K, LWW_R)
-    actors = actor_ids(LWW_R)
+    actors = actor_bytes_table(LWW_R)
     t0 = time.perf_counter()
     ops = [LWWOp(k, t, actors[a], v) for k, t, a, v in zip(
         key.tolist(), ts.tolist(), actor.tolist(), value.tolist())]
@@ -1081,13 +1072,13 @@ def phase_counters_end_to_end(device):
     rng = np.random.default_rng(1)
     actor = rng.integers(0, GC_R, GC_N, dtype=np.int32)
     counter = running_count(actor, GC_R)
-    actors = actor_ids(GC_R)
+    actors = actor_bytes_table(GC_R)
     g_ops = [Dot(actors[a], c) for a, c in zip(actor.tolist(), counter.tolist())]
     rng = np.random.default_rng(2)
     actor = rng.integers(0, PN_R, PN_N, dtype=np.int32)
     sign = (rng.random(PN_N) < 0.3).astype(np.int8)
     counter = running_count(actor * 2 + sign, PN_R * 2)
-    actors = actor_ids(PN_R)
+    actors = actor_bytes_table(PN_R)
     pn_ops = [(s, Dot(actors[a], c)) for a, s, c in zip(
         actor.tolist(), sign.tolist(), counter.tolist())]
     for label, cls, ops in (
@@ -1837,7 +1828,7 @@ def phase_stream(device) -> dict:
     from crdt_enc_tpu_torch.ops import orset_fold_cuda as F
 
     E, R, N = N_MEMBERS, N_REPLICAS, STREAM_N
-    actors = actor_ids(R)
+    actors = actor_bytes_table(R)
     t0 = time.perf_counter()
     cols = gen_columns(N, R, E, STREAM_SEED)
     payloads = op_file_payloads(cols, actors, STREAM_FILE_OPS)
@@ -2082,7 +2073,7 @@ def phase_config5(device) -> dict:
     from crdt_enc_tpu_torch.utils import codec, trace
 
     N, R, E = CFG5_N, CFG5_R, CFG5_E
-    actors = actor_ids(R)
+    actors = actor_bytes_table(R)
     t0 = time.perf_counter()
     cols = gen_columns(N, R, E, CFG5_SEED)
     files = compaction_files(cols, actors)
@@ -2259,7 +2250,7 @@ def phase_plane_cache(E: int, R: int, device) -> dict:
     from crdt_enc_tpu_torch.models.vclock import Dot
     from crdt_enc_tpu_torch.utils import trace
 
-    actors = actor_ids(R)
+    actors = actor_bytes_table(R)
     plane_bytes = 4 * (R + 2 * E * R)
     t0 = time.perf_counter()
     batches, offset, side_op = [], 0, None
@@ -2405,7 +2396,7 @@ def phase_incremental(live: dict, clock, version, E: int, R: int, device,
 
     card, host, accel, probe = (live[k] for k in
                                 ("card", "host", "accel", "probe"))
-    actors = actor_ids(R)
+    actors = actor_bytes_table(R)
     rng = np.random.default_rng(TAIL_SEED)
     snap_dir = os.path.join(live["remote"], "states")
 
@@ -2579,7 +2570,7 @@ def phase_cache_compaction(device, root: str) -> dict:
     from crdt_enc_tpu_torch.utils import trace
 
     E, R = CC_E, CC_R
-    actors = actor_ids(R)
+    actors = actor_bytes_table(R)
     cols = gen_columns(CC_N, R, E, CC_SEED)
     files = compaction_files(cols, actors)
     clock, version = compactor_clocks(cols, files, R)
@@ -2749,7 +2740,7 @@ def map_history(seed: int = MAP_SEED) -> tuple:
     defers for good.  Returns (per-actor streams, the number of each op
     kind)."""
     rng = np.random.default_rng(seed)
-    actors = actor_ids(MAP_R)
+    actors = actor_bytes_table(MAP_R)
     perm = rng.permutation(MAP_R)
     groups = [sorted(int(perm[(k * MAP_GROUP + j) % MAP_R])
                      for j in range(MAP_GROUP)) for k in range(MAP_K)]
@@ -2919,7 +2910,7 @@ def lwwreg_columns(device):
     from crdt_enc_tpu_torch.ops.lww import ts_split
 
     key, ts, actor, value = gen_lww(LWW_N, 1, LWW_R)
-    actors = actor_ids(LWW_R)
+    actors = actor_bytes_table(LWW_R)
     streams: dict = {}
     for t, a, v in zip(ts.tolist(), actor.tolist(), value.tolist()):
         streams.setdefault(actors[a], []).append([t, actors[a], v])
@@ -3036,7 +3027,7 @@ def mvreg_snapshots(seed: int = MV_SEED) -> tuple:
     from crdt_enc_tpu_torch.models import MVReg, MVRegOp, VClock
 
     rng = np.random.default_rng(seed)
-    actors = actor_ids(MV_R)
+    actors = actor_bytes_table(MV_R)
     unused: list = []  # fresh clocks no successor has raised yet
     snaps, ops = [], []
     per = MV_V // MV_S
@@ -3176,7 +3167,7 @@ def other_histories() -> dict:
     from crdt_enc_tpu_torch.models import MerkleReg, SeqList
 
     rng = np.random.default_rng(OTHER_SEED)
-    actors = actor_ids(8)
+    actors = actor_bytes_table(8)
     out = {}
     out["gset_adapter"] = {a: [[int(rng.integers(1000)), f"m{i}"][i % 2]
                                for i in range(60)] for a in actors}
@@ -3299,7 +3290,7 @@ def serve_fleet_spec(scale: int = 1, cap: bool = True) -> list:
     from crdt_enc_tpu_torch import ORSet
     from crdt_enc_tpu_torch.models.orset import op_from_obj
 
-    actors = actor_ids(FLEET_R)
+    actors = actor_bytes_table(FLEET_R)
     spec = []
     seed = SERVE_SEED * 10_000
     n_gc, n_big, n_decline, n_empty, n_snap = (
@@ -3345,7 +3336,7 @@ def serve_fleet_spec(scale: int = 1, cap: bool = True) -> list:
         spec.append(("decline", "orset", files, []))
     for t in range(n_empty):
         spec.append(("empty", "orset", [], []))
-    cap_actors = actor_ids(CAP_R)
+    cap_actors = actor_bytes_table(CAP_R)
     for t in range(CAP_T if cap else 0):
         seed += 1
         spec.append(("cells_cap", "orset", serve_orset_files(
@@ -3574,7 +3565,7 @@ def phase_serve(device: str, rate: float) -> dict:
         raise AssertionError("the tenant-layout fold disagrees with its plain "
                              f"version (max_abs_err {err})")
     t0 = time.perf_counter()
-    spec = serve_fleet_spec()
+    spec = serve_fleet_spec(scale=SERVE_SCALE)
     remotes, tails = run_async(seal_fleet(spec))
     labels = [s[0] for s in spec]
     n_ops = [sum(len(f[2]) for f in files) for _, _, files, _ in spec]
@@ -3851,8 +3842,9 @@ def capture_service(daemon) -> list:
 
 def fleet_plane_bytes() -> list:
     """Each tenant's int32 planes (clock, add, rm) at its full width."""
-    n_a = FLEET_T - FLEET_EMPTY
-    return [4 * (FLEET_R + 2 * FLEET_E * FLEET_R)] * n_a + [0] * FLEET_EMPTY \
+    n_empty = FLEET_EMPTY // SERVE_SCALE
+    n_a = FLEET_T // SERVE_SCALE - n_empty
+    return [4 * (FLEET_R + 2 * FLEET_E * FLEET_R)] * n_a + [0] * n_empty \
         + [4 * (CAP_R + 2 * CAP_E * CAP_R)] * CAP_T
 
 
@@ -3919,7 +3911,7 @@ def phase_daemon(device: str) -> dict:
         "tenant_cost_bytes": cfg.tenant_cost_bytes,
         "flaky": DAEMON_FLAKY, "outage_cycles": DAEMON_OUTAGE}}
     t0 = time.perf_counter()
-    spec = serve_fleet_spec()
+    spec = serve_fleet_spec(scale=SERVE_SCALE)
     remotes, tails = run_async(seal_fleet(spec))
     labels = [s[0] for s in spec]
     orset_plain = [i for i, l in enumerate(labels) if l == "orset"]
@@ -4207,7 +4199,7 @@ def phase_daemon_cli(device: str, root: str) -> dict:
     from crdt_enc_tpu_torch.tools import daemon as daemon_cli
 
     base = os.path.join(root, "daemon_cli")
-    actors = actor_ids(FLEET_R)
+    actors = actor_bytes_table(FLEET_R)
     t0 = time.perf_counter()
 
     async def write():
@@ -4606,7 +4598,7 @@ def phase_obs_stream(device: str, root: str) -> dict:
     from crdt_enc_tpu_torch.utils import codec
 
     t0 = time.perf_counter()
-    actors = actor_ids(N_REPLICAS)
+    actors = actor_bytes_table(N_REPLICAS)
     files = compaction_files(gen_columns(N_ROWS, N_REPLICAS, N_MEMBERS, SEED),
                              actors)
     n_ops = sum(len(f[3]) for f in files)
@@ -4668,7 +4660,7 @@ def phase_obs_fleet(device: str, root: str) -> dict:
 
     base = os.path.join(root, "obs_fleet")
     remote = os.path.join(base, "remote")
-    actors = actor_ids(FLEET_R)
+    actors = actor_bytes_table(FLEET_R)
     files = serve_orset_files(FLEET_N, FLEET_R, FLEET_E, OBS_FLEET_SEED,
                               actors)
     # staged in version order, so every stage leaves each actor's log dense
@@ -5360,7 +5352,7 @@ def phase_mesh_compaction(device: str) -> dict:
 
     E, R = N_MEMBERS, N_REPLICAS
     files = compaction_files(gen_columns(N_ROWS // MESH_DEPTH, R, E, SEED),
-                             actor_ids(R))
+                             actor_bytes_table(R))
     t0 = time.perf_counter()
     remote = run_async(seal_remote([f[1:] for f in files], orset_adapter()))
     host_remote = copy_memory_remote(remote)
@@ -5868,7 +5860,7 @@ def phase_consumer_remote(files: list, cols, E: int, R: int,
         raise AssertionError(f"(b) the quiet poll launched {launches}")
 
     clock, version = compactor_clocks(cols, files, R)
-    tail = tail_files(rng, clock, version, actor_ids(R), E, TAIL_OPS)
+    tail = tail_files(rng, clock, version, actor_bytes_table(R), E, TAIL_OPS)
 
     async def write_tail():
         import asyncio
@@ -5948,7 +5940,7 @@ def phase_consumer_stream(files: list, E: int, R: int, device: str,
     t0 = time.perf_counter()
     blobs = [xchacha.encrypt_blob(key, codec.pack(ops)) for *_, ops in files]
     n_rows = sum(len(f[3]) for f in files)
-    actors = actor_ids(R)
+    actors = actor_bytes_table(R)
     print(f"  (c) {len(blobs)} op files encrypted in "
           f"{time.perf_counter() - t0:.1f} s ({n_rows} rows)", flush=True)
     accel = TorchAccelerator(device=device)
@@ -6007,7 +5999,7 @@ def phase_consumer(device: str = "cuda") -> dict:
     t0 = time.perf_counter()
     vectors = x25519_vectors()
     cols = gen_columns(N_ROWS, R, E, SEED)
-    files = compaction_files(cols, actor_ids(R))
+    files = compaction_files(cols, actor_bytes_table(R))
     print(f"  {len(files)} op files made in {time.perf_counter() - t0:.1f} s",
           flush=True)
     remote = phase_consumer_remote(files, cols, E, R, device)
@@ -6023,6 +6015,170 @@ def phase_consumer(device: str = "cuda") -> dict:
     print(f"  phase 22 wall {wall:.1f} s; launches {launches}", flush=True)
     return {"vectors": vectors, "remote": remote, "stream": stream,
             "launches": launches, "wall_s": wall}
+
+
+# phase 23: the port's bench entry points (crdt_enc_tpu_torch.bench and
+# .benchmarks) in process at their --smoke sizes, each mode's and config's
+# one record checked and appended to one --record file, over which
+# obs_report trend must run; the gate fields each must hold true
+BENCH_RUNS = (
+    ("default", [], ("full_batch_equal",)),
+    ("e2e-streaming", ["--e2e-streaming", "--producers", "1,2"],
+     ("full_batch_equal",)),
+    ("device-decode", ["--device-decode"], ("columns_equal",)),
+    ("e2e-multitenant", ["--e2e-multitenant"], ("byte_identical",)),
+    ("e2e-multitenant-mesh", ["--e2e-multitenant", "--mesh", "dp=2"],
+     ("byte_identical",)),
+    ("e2e-daemon", ["--e2e-daemon"], ("byte_identical",)),
+    ("e2e-idle-cycle", ["--e2e-idle-cycle"], ("byte_identical",)),
+    ("e2e-warm-open", ["--e2e-warm-open"],
+     ("byte_identical", "opened_from_checkpoint")),
+    ("e2e-delta", ["--e2e-delta"], ("byte_identical",)),
+    ("e2e-strong-read", ["--e2e-strong-read"], ("byte_identical",)),
+    ("sim", ["--sim"], ()),
+    ("sim-population", ["--sim", "--population", "2"],
+     ("serial_equivalent",)),
+)
+BENCH_HEADER = (
+    "== 23. the bench entry points (crdt_enc_tpu_torch.bench's ten modes, "
+    "benchmarks.suite's five configs, compaction_e2e, streaming_phases) at "
+    "--smoke on the card, one --record file, obs_report trend over it")
+
+
+def stdout_text(fn, argv: list) -> tuple:
+    """``fn(argv)`` with its standard output captured: ``(exit code,
+    text)``; standard error passes through."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    return rc, buf.getvalue()
+
+
+def stdout_lines(fn, argv: list) -> tuple:
+    """``fn(argv)``'s exit code and its JSON lines."""
+    rc, text = stdout_text(fn, argv)
+    return rc, [json.loads(ln) for ln in text.splitlines() if ln.strip()]
+
+
+def check_bench_record(label: str, rec: dict, gates, device: str,
+                       name: str | None) -> None:
+    """A bench record measured on ``device`` (the card's ``name``), every
+    gate true, a roofline share under 100% where one is reported."""
+    problems = []
+    if rec.get("backend") != device:
+        problems.append(f"backend {rec.get('backend')!r}")
+    if name is not None and rec.get("device_name") != name:
+        problems.append(f"device_name {rec.get('device_name')!r}")
+    for g in gates:
+        if rec.get(g) is not True:
+            problems.append(f"{g} {rec.get(g)!r}")
+    pct = rec.get("pct_hbm_peak")
+    if pct is not None and not pct < 100.0:
+        problems.append(f"pct_hbm_peak {pct}")
+    if problems:
+        raise AssertionError(f"phase 23 {label}: {', '.join(problems)}")
+
+
+def phase_bench(device: str, root: str) -> dict:
+    """Phase 23 (module docs): every bench mode, every suite config,
+    compaction_e2e (its children in process: at this size the process
+    split measures nothing) and streaming_phases, each checked, then
+    ``obs_report trend`` over their records.  Kernel launches per entry
+    come from each record (counted from 0 by the bench itself)."""
+    import torch
+
+    from crdt_enc_tpu_torch import bench
+    from crdt_enc_tpu_torch.benchmarks import (
+        compaction_e2e,
+        streaming_phases,
+        suite,
+    )
+    from crdt_enc_tpu_torch.tools import obs_report
+
+    name = torch.cuda.get_device_name(0) if device == "cuda" else None
+    path = os.path.join(root, "bench_records.jsonl")
+    record = ["--device", device, "--record", path]
+    out = {"runs": {}, "launches": {k: 0 for k in KERNELS}}
+    t_all = time.perf_counter()
+
+    def note(label: str, rec: dict, t0: float) -> None:
+        wall = time.perf_counter() - t0
+        out["runs"][label] = {
+            "metric": rec["metric"], "config": rec.get("config"),
+            "value": rec["value"], "unit": rec.get("unit"),
+            "wall_s": round(wall, 3), "launches": rec["launches"],
+            **{k: v for k, v in rec.items()
+               if k in ("pct_hbm_peak", "method", "device_ms", "library_ms")
+               or k.endswith("_spread_pct")}}
+        for k in out["launches"]:
+            out["launches"][k] += rec["launches"].get(k, 0)
+        print(f"  {label}: {rec['metric']} = {rec['value']} "
+              f"{rec.get('unit', '')} in {wall:.1f} s; launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }",
+              flush=True)
+
+    for label, flags, gates in BENCH_RUNS:
+        t0 = time.perf_counter()
+        rc, lines = stdout_lines(bench.main, flags + ["--smoke"] + record)
+        if rc != 0 or len(lines) != 1:
+            raise AssertionError(f"phase 23 {label}: exit {rc}, "
+                                 f"{len(lines)} lines")
+        check_bench_record(label, lines[0], gates, device, name)
+        note(label, lines[0], t0)
+    for i in range(1, 6):
+        t0 = time.perf_counter()
+        rc, lines = stdout_lines(suite.main, ["--smoke", "--iters", "1",
+                                              "--config", str(i)] + record)
+        if rc != 0 or len(lines) != 2 or not lines[-1]["all_byte_equal"]:
+            raise AssertionError(f"phase 23 suite config {i}: exit {rc}")
+        check_bench_record(f"suite config {i}", lines[0], ("byte_equal",),
+                           device, name)
+        note(f"suite-config-{i}", lines[0], t0)
+
+    def child(args: list) -> str:
+        rc_, lines_ = stdout_lines(compaction_e2e.main, args)
+        if rc_ != 0:
+            raise AssertionError(f"phase 23 compaction_e2e child {args[:1]}")
+        return json.dumps(lines_[-1])
+
+    t0 = time.perf_counter()
+    spawn = compaction_e2e._child
+    compaction_e2e._child = child
+    try:
+        rc, lines = stdout_lines(compaction_e2e.main, ["--smoke"] + record)
+    finally:
+        compaction_e2e._child = spawn
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"phase 23 compaction_e2e: exit {rc}")
+    check_bench_record("compaction_e2e", lines[0], ("byte_equal",), device,
+                       name)
+    note("compaction_e2e", lines[0], t0)
+    t0 = time.perf_counter()
+    rc, lines = stdout_lines(streaming_phases.main, ["--smoke"] + record)
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"phase 23 streaming_phases: exit {rc}")
+    check_bench_record("streaming_phases", lines[0], ("byte_equal",), device,
+                       name)
+    note("streaming_phases", lines[0], t0)
+    with open(path) as f:
+        n_records = sum(1 for ln in f if ln.strip())
+    want = len(BENCH_RUNS) + 5 + 2
+    if n_records != want:
+        raise AssertionError(f"phase 23: {n_records} records, want {want}")
+    rc, text = stdout_text(obs_report.main, ["trend", path])
+    if rc != 0:
+        raise AssertionError(f"phase 23: obs_report trend exited {rc}")
+    out["trend_configs"] = sum(1 for ln in text.splitlines()
+                               if ln.startswith("# "))
+    out["records"] = n_records
+    out["wall_s"] = round(time.perf_counter() - t_all, 2)
+    print(f"  obs_report trend over {n_records} records: "
+          f"{out['trend_configs']} configs, exit 0", flush=True)
+    print(f"  phase 23 wall {out['wall_s']:.1f} s; launches "
+          f"{out['launches']}", flush=True)
+    return out
 
 
 KERNELS = {
@@ -6145,14 +6301,15 @@ def start_watchdog() -> None:
     faulthandler.dump_traceback_later(WATCHDOG_S + 10, exit=True)
 
 
-def main() -> int:
+def main(bench_only: bool = False) -> int:
+    """Every phase, or with ``bench_only`` phases 1–9 and 23 (``python3
+    chip_smoke.py --bench``)."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from crdt_enc_tpu_torch.ops import cuda_build
 
     start_watchdog()
@@ -6191,7 +6348,7 @@ def main() -> int:
     launches = phase_end_to_end(cols, E, R, "cuda")
 
     header("== 5. times (median of 7, CUDA events)", flush=True)
-    rate = memory_rate(name)
+    rate = peak_bytes_per_s(name)
     times = phase_times(fold_inputs, stacks, skewed, E, R, rate)
     del fold_inputs, stacks, skewed
     gc.collect()
@@ -6223,6 +6380,24 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="crdt-compaction-")
     _CLEANUP_DIRS.append(root)
     try:
+        if bench_only:
+            del cols, cols2
+            gc.collect()
+            torch.cuda.empty_cache()
+            header(BENCH_HEADER, flush=True)
+            print(device_line(), flush=True)
+            bench = phase_bench("cuda", root)
+            kernels = [kernel_entry(k, launches, errs, times, k3_errs, k3)
+                       | {"bench_launches": {
+                           label: run["launches"][k]
+                           for label, run in bench["runs"].items()}}
+                       for k in KERNELS]
+            print(f"chip_smoke --bench wall "
+                  f"{time.perf_counter() - t_start:.1f}s", flush=True)
+            print(device_line(), flush=True)
+            print(json.dumps({"kernels": kernels}), flush=True)
+            print(json.dumps({"bench": bench}), flush=True)
+            return 0
         return run_from_phase_10(root, cols, cols2, launches, errs, times,
                                  k3_errs, k3, name, t_start, build_s)
     finally:
@@ -6230,9 +6405,30 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def kernel_entry(kname: str, launches: dict, errs: dict, times: dict,
+                 k3_errs: dict, k3: dict) -> dict:
+    """A kernel's entry of the kernels line from phases 1–9: its route,
+    source, the TPU kernel it replaces, phase 4's launches, its error
+    against the plain version and its times."""
+    source, replaces, pallas = KERNELS[kname]
+    entry = {
+        "name": kname, "route": "cuda", "source": source,
+        "replaces": replaces, "pallas": pallas,
+        "launches": launches[kname],
+        "max_abs_err": errs[kname], "match": errs[kname] == 0,
+        **times[kname],
+    }
+    if kname in k3_errs:
+        entry["max_abs_err"] = max(entry["max_abs_err"], k3_errs[kname])
+        entry["match"] = entry["max_abs_err"] == 0
+    if kname == "orset_fold":
+        entry["k3"] = k3
+    return entry
+
+
 def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
                       name, t_start, build_s) -> int:
-    """Phases 10 to 21 and the closing lines.  Phase 10's compaction remote
+    """Phases 10 to 23 and the closing lines.  Phase 10's compaction remote
     lives under ``root`` until phase 14 has compacted it twice more."""
     import torch
 
@@ -6242,7 +6438,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
           "snapshots; encrypted FsStorage)", flush=True)
     print(device_line(), flush=True)
     print(f"  remote under {root} ({fs_type(root)})", flush=True)
-    files = compaction_files(cols, actor_ids(R))
+    files = compaction_files(cols, actor_bytes_table(R))
     clock, version = compactor_clocks(cols, files, R)
     compaction, live = phase_compaction(files, E, R, "cuda", root)
     del cols, cols2
@@ -6259,7 +6455,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     header(f"== 12. fold sessions ({len(files)} op files of phase 10, "
           f"{SESSION_FEED_FILES} a feed)", flush=True)
     print(device_line(), flush=True)
-    sessions = phase_sessions(files, actor_ids(R), "cuda")
+    sessions = phase_sessions(files, actor_bytes_table(R), "cuda")
     del files
     gc.collect()
 
@@ -6298,21 +6494,23 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
           "G-Set, SeqList, MerkleReg, empty; encrypted MemoryStorage)",
           flush=True)
     print(device_line(), flush=True)
-    catalogue = phase_catalogue("cuda", memory_rate(name))
+    catalogue = phase_catalogue("cuda", peak_bytes_per_s(name))
     gc.collect()
     torch.cuda.empty_cache()
 
-    header(f"== 16. the multi-tenant fold service ({FLEET_T} tenants of "
+    header(f"== 16. the multi-tenant fold service ({FLEET_T // SERVE_SCALE} "
+          f"tenants of "
           f"{FLEET_N} ops, R={FLEET_R}, E={FLEET_E}, {FLEET_OPF}-op files; "
           f"{CAP_T} tenants at the cells cap, E={CAP_E}, R={CAP_R}, "
           f"N={CAP_N}; three cycles; encrypted MemoryStorage)", flush=True)
     print(device_line(), flush=True)
-    serve = phase_serve("cuda", memory_rate(name))
+    serve = phase_serve("cuda", peak_bytes_per_s(name))
     errs["orset_fold"] = max(errs["orset_fold"], serve["max_abs_err"])
     gc.collect()
     torch.cuda.empty_cache()
 
-    header(f"== 17. the fleet daemon (FleetDaemon over phase 16's {FLEET_T} + "
+    header(f"== 17. the fleet daemon (FleetDaemon over phase 16's "
+          f"{FLEET_T // SERVE_SCALE} + "
           f"{CAP_T} tenants, the card's copy and the host reference's; "
           f"{DAEMON_FLAKY} tenants down for {DAEMON_OUTAGE} cycles; then "
           f"tools.daemon run over {CLI_T} FsStorage tenants)", flush=True)
@@ -6367,20 +6565,16 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     gc.collect()
     torch.cuda.empty_cache()
 
+    header(BENCH_HEADER, flush=True)
+    print(device_line(), flush=True)
+    bench = phase_bench("cuda", root)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     kernels = []
-    for kname, (source, replaces, pallas) in KERNELS.items():
-        entry = {
-            "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "pallas": pallas,
-            "launches": launches[kname],
-            "max_abs_err": errs[kname], "match": errs[kname] == 0,
-            **times[kname],
-        }
-        if kname in k3_errs:
-            entry["max_abs_err"] = max(entry["max_abs_err"], k3_errs[kname])
-            entry["match"] = entry["max_abs_err"] == 0
+    for kname in KERNELS:
+        entry = kernel_entry(kname, launches, errs, times, k3_errs, k3)
         if kname == "orset_fold":
-            entry["k3"] = k3
             entry["stream_launches"] = {
                 r: stream[r]["launches"] for r in ("fold_payloads", "fold_ops")}
             entry["session_launches"] = sessions["device_stream"]["launches"]
@@ -6434,6 +6628,9 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
                for step, s in consumer["remote"]["steps"].items()},
             **{route: consumer["stream"][route]["launches"][kname]
                for route in ("fold_payload_stream", "fold_payloads")}}
+        entry["bench_launches"] = {
+            label: run["launches"][kname]
+            for label, run in bench["runs"].items()}
         if kname == "orset_fold":
             entry["serving"] = {
                 "route": "tenant layout: (E_b, T*R_b) planes, padding at "
@@ -6458,6 +6655,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     print(json.dumps({"mesh": {k: v for k, v in mesh.items()
                                if k != "errs"}}), flush=True)
     print(json.dumps({"consumer": consumer}), flush=True)
+    print(json.dumps({"bench": bench}), flush=True)
     print(device_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6562,4 +6760,4 @@ if __name__ == "__main__":
         sys.exit(stall_loop(float(sys.argv[2])))
     if sys.argv[1:2] == ["--consumer"]:
         sys.exit(consumer_only())
-    sys.exit(main())
+    sys.exit(main(bench_only=sys.argv[1:2] == ["--bench"]))

@@ -681,15 +681,17 @@ class TorchAccelerator(HostAccelerator):
         return open_fold_session(self, state, actors_hint)
 
     def fold_encrypted_stream(self, state, key: bytes, blobs: list, *,
-                              actors_hint=()) -> bool:
+                              actors_hint=(), n_chunks: int | None = None,
+                              n_producers: int = 0) -> bool:
         """Encrypted op-file blobs in, folded ``state`` out, with decrypt,
         decode and fold overlapped (the JAX accelerator's config-5 entry).
 
-        The blobs split into ``ENCRYPTED_STREAM_CHUNKS`` chunks.  Worker
-        threads, one per core but one (ops/stream.py
-        ``stream_producer_count``), claim file-granular stripes of each
-        chunk off one work queue (``run_striped_ingest_pipeline``) and
-        decrypt them natively; the worker landing a chunk's last stripe
+        The blobs split into ``n_chunks`` chunks (None:
+        ``ENCRYPTED_STREAM_CHUNKS``, 8 as in the JAX package).
+        ``n_producers`` worker threads (0: one per core but one,
+        ops/stream.py ``stream_producer_count``) claim file-granular
+        stripes of each chunk off one work queue
+        (``run_striped_ingest_pipeline``) and decrypt them natively; the worker landing a chunk's last stripe
         decodes it, and this thread reduces the chunks in order through a
         fold session (BUFFER, HOST_REDUCE or DEVICE_STREAM by regime), so
         the bytes do not depend on the producer count or the stripe
@@ -714,9 +716,11 @@ class TorchAccelerator(HostAccelerator):
         n = len(blobs)
         if n == 0:
             return True
-        chunk_blobs = -(-n // ENCRYPTED_STREAM_CHUNKS)
+        if n_chunks is None:
+            n_chunks = ENCRYPTED_STREAM_CHUNKS
+        chunk_blobs = -(-n // max(n_chunks, 1))
         spans = [blobs[i : i + chunk_blobs] for i in range(0, n, chunk_blobs)]
-        producers = stream_producer_count()
+        producers = n_producers if n_producers > 0 else stream_producer_count()
         # several producers: each stripe decrypts single-threaded and the
         # pool is the parallelism; one producer keeps the native call's
         # own threads (0 = from the core count)

@@ -78,10 +78,8 @@ ACTIVE = "active"
 BACKOFF = "backoff"
 QUARANTINED = "quarantined"
 
-#: a tenant is due once its backlog holds this many op files
-MIN_BACKLOG_FILES = 1
-#: admission refuses tenants past this many (and past the serve warm
-#: tier's byte budget at the per-tenant resident cost)
+#: admission refuses tenants past this many (and past the byte budget at
+#: the per-tenant resident cost)
 MAX_TENANTS = 100_000
 
 
@@ -97,10 +95,11 @@ class DaemonConfig:
     :meth:`FleetDaemon.run_forever` between cycles."""
 
     interval_s: float = 1.0
-    # scheduler: compact when backlog >= MIN_BACKLOG_FILES or watermark
+    # scheduler: compact when backlog >= min_backlog_files or watermark
     # lag exceeds the freshness-SLO target, and at least every
     # max_idle_cycles regardless; at most `batch` tenants per cycle
     batch: int = 256
+    min_backlog_files: int = 1
     max_idle_cycles: int = 8
     # backoff: delay = min(cap, base·2^(failures-1)) cycles ± jitter
     backoff_base: float = 1.0
@@ -114,8 +113,10 @@ class DaemonConfig:
     # half-open probe every M cycles while degraded
     breaker_after: int = 3
     breaker_probe_every: int = 4
-    # admission: the per-tenant resident cost assumed until the warm
-    # tier has observed one (MAX_TENANTS and serve.warm_bytes bound it)
+    # admission: refuse tenants past MAX_TENANTS, or past the byte budget
+    # admission_bytes (0 = serve.warm_bytes) at the per-tenant resident
+    # cost, assumed tenant_cost_bytes until the warm tier has observed one
+    admission_bytes: int = 0
     tenant_cost_bytes: int = 1 << 20
     serve: ServeConfig = field(
         default_factory=lambda: ServeConfig(seal_empty=False)
@@ -209,7 +210,7 @@ class FleetDaemon:
             raise AdmissionError(
                 f"fleet full ({len(self._entries)} tenants)"
             )
-        budget = self.config.serve.warm_bytes
+        budget = self.config.admission_bytes or self.config.serve.warm_bytes
         projected = (len(self._entries) + 1) * self._admission_cost()
         if projected > budget:
             raise AdmissionError(
@@ -324,7 +325,7 @@ class FleetDaemon:
         status = entry.status()
         if status is None or entry.last_sealed < 0:
             return True
-        if status["backlog"]["files"] >= MIN_BACKLOG_FILES:
+        if status["backlog"]["files"] >= self.config.min_backlog_files:
             return True
         if float(status["divergence"]["watermark_lag"]) > target:
             return True

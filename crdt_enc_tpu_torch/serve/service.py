@@ -100,11 +100,18 @@ class ServeConfig:
     rows_cap: int = bucketing.DEFAULT_ROWS_CAP
     cells_cap: int = bucketing.DEFAULT_CELLS_CAP
     tenants_cap: int = bucketing.DEFAULT_TENANTS_CAP
-    # the warm plane tier's budget (serve.warm), in summed plane bytes
+    # the warm plane tier (serve.warm); off, it is neither consulted nor
+    # filled, and every cycle folds each tenant from its state
+    warm: bool = True
+    # its budget, in summed plane bytes
     warm_bytes: int = DEFAULT_BYTE_BUDGET
     # seal a snapshot for a tenant with no new ops (a solo compact's
     # behaviour); off, a quiet tenant costs nothing per cycle (the daemon)
     seal_empty: bool = True
+    # skip the seal, GC, checkpoint and sample of a quiet tenant whose seal
+    # signature has not moved since its last seal (``serve_noop_cycles``);
+    # off, every cycle re-seals it, the O(state) steady state
+    noop_skip: bool = True
 
 
 @dataclass
@@ -247,10 +254,11 @@ class FoldService:
             self._mesh_accel = TorchAccelerator(min_device_batch=1, mesh=mesh)
             trace.gauge("serve_mesh_devices", mesh.size)
         mesh_key = mesh if self._mesh_active else None
-        self.warm = PlaneWarmTier(self.config.warm_bytes, mesh_key=mesh_key)
+        self.warm = (PlaneWarmTier(self.config.warm_bytes, mesh_key=mesh_key)
+                     if self.config.warm else None)
         # the mesh-identity guard, where entries are consumed: a tier
         # built for another mesh holds planes laid out for that mesh
-        if not self.warm.compatible_with(mesh_key):
+        if self.warm is not None and not self.warm.compatible_with(mesh_key):
             raise ValueError("warm tier belongs to a different mesh identity")
         # a service-owned live telemetry endpoint (obs/live.py):
         # live_port=0 binds an ephemeral port (self.live.port); None = no
@@ -647,7 +655,7 @@ class FoldService:
         state = w.core._data.state
         if w.kind == "orset":
             kind, member, actor, counter, members, replicas = w.cols
-            entry = self.warm.lookup(state)
+            entry = self.warm.lookup(state) if self.warm is not None else None
             if entry is not None:
                 remapped = TorchAccelerator._remap_to_cache(
                     entry, member, actor, members, replicas
@@ -828,6 +836,8 @@ class FoldService:
                 w.result.path = "batched"
                 w.result.rows = n_rows
                 trace.add("serve_rows_folded", n_rows)
+                if self.warm is None:
+                    continue
                 # the tenant's next-cycle planes, epoch-stamped after the
                 # writeback: its own slice, copied out of the bucket so
                 # the bucket's planes can go
@@ -1019,6 +1029,8 @@ class FoldService:
         sealed snapshot's name (the tenant's new delta base), so the next
         cycle cuts its delta from those planes.  Any doubt leaves the
         entry unstamped and the next seal walks the host path."""
+        if self.warm is None:
+            return
         with trace.span("serve.continue"):
             stamped = 0
             for w in works:
@@ -1044,6 +1056,7 @@ class FoldService:
                     return
                 if (
                     w.result.path == "empty"
+                    and self.config.noop_skip
                     and w.core._last_seal_sig is not None
                     and w.core._seal_signature() == w.core._last_seal_sig
                 ):

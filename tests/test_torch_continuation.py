@@ -289,15 +289,18 @@ def test_device_cut_cycle_differential(storage_factory):
 
 
 def test_device_cut_matches_host_diff_arm(storage_factory):
-    """The warm tier cleared after every cycle (host dict-walk diff,
-    retained base bytes) and kept (device cut, dropped base): both arms
-    stay equal to a solo compact."""
+    """The warm tier cleared after every cycle or switched off
+    (``ServeConfig(warm=False)``, as tests/test_continuation.py's twin
+    runs it): the host dict-walk diff, retained base bytes; and kept
+    (device cut, dropped base): every arm stays equal to a solo
+    compact."""
 
     async def go():
-        for arm in ("host", "cut"):
+        for arm in ("host", "warm_off", "cut"):
             writer = await Core.open(make_opts(storage_factory(f"w-{arm}")))
             served = await Core.open(make_opts(storage_factory(f"s-{arm}")))
-            service = FoldService([served], ServeConfig())
+            cfg = ServeConfig(warm=False) if arm == "warm_off" else ServeConfig()
+            service = FoldService([served], cfg)
             trace.reset()
             for rnd in range(3):
                 await _write_orset(writer, 12, b"r%d" % rnd)
@@ -555,6 +558,29 @@ def test_quiet_tenant_reseals_once_its_state_moves():
             [served.with_state(lambda s: s.add_ctx(served.actor_id, b"z"))])
         trace.reset()
         (r,) = await service.run_cycle()
+        assert r.path == "empty" and r.sealed
+        assert not counters().get("serve_noop_cycles")
+        solo = await Core.open(make_opts(MemoryStorage(remote)))
+        await solo.compact()
+        assert solo.with_state(canonical_bytes) == \
+            served.with_state(canonical_bytes)
+
+    run(go())
+
+
+def test_noop_skip_off_is_the_reseal_arm():
+    """``ServeConfig(noop_skip=False)`` (tests/test_continuation.py's
+    twin): every quiet cycle re-seals, equal to a solo compact."""
+
+    async def go():
+        remote = MemoryRemote()
+        writer = await Core.open(make_opts(MemoryStorage(remote)))
+        await _write_orset(writer, 15, b"a")
+        served = await Core.open(make_opts(MemoryStorage(remote)))
+        service = FoldService([served], ServeConfig(noop_skip=False))
+        await service.run_cycle()
+        trace.reset()
+        (r,) = await service.run_cycle()  # quiet, but re-seals
         assert r.path == "empty" and r.sealed
         assert not counters().get("serve_noop_cycles")
         solo = await Core.open(make_opts(MemoryStorage(remote)))

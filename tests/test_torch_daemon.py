@@ -342,6 +342,65 @@ def test_scheduler_compacts_backlog_polls_quiet():
     run(scenario())
 
 
+def test_min_backlog_files_gates_compaction_as_the_jax_daemon():
+    """``DaemonConfig(min_backlog_files=3)``: a tenant whose backlog holds
+    fewer op files is only polled until a third lands; both daemons
+    schedule, poll and seal alike, with equal bytes."""
+
+    async def scenario():
+        tw, fleet = await twin_fleet([(0, b"gate"), (0, b"other")])
+        for side in SIDES:
+            for core, _ in fleet[side.name]:
+                await core.compact()  # in sync, sealed once
+        pair = Pair(fleet, lambda s: quick_cfg(
+            s, max_idle_cycles=100, min_backlog_files=3))
+        assert pair.port.config.min_backlog_files == 3
+        await pair.cycle()
+        selected = []
+        for i in range(3):
+            await tw.write(0, b"g%d" % i)
+            await pair.cycle()  # the poll refreshes the backlog count
+            report = await pair.cycle()
+            selected.append(report["selected"])
+        assert selected[:2] == [[], []]
+        assert selected[2] == ["t0"]
+        pair.bytes_equal()
+        await pair.drain()
+
+    run(scenario())
+
+
+def test_admission_bytes_bounds_the_fleet_as_the_jax_daemon():
+    """``DaemonConfig(admission_bytes=...)`` replaces the serve warm budget
+    as the admission gate's byte budget, as in the JAX daemon; 0 falls
+    back to ``serve.warm_bytes``."""
+
+    async def scenario():
+        _, fleet = await twin_fleet([(6, b"a0"), (0, b"a1"), (0, b"a2")])
+        outcomes = {}
+        for side in SIDES:
+            cores = [c for c, _ in fleet[side.name]]
+            cfg = quick_cfg(side, tenant_cost_bytes=1000,
+                            admission_bytes=2500)
+            assert side.DaemonConfig().admission_bytes == 0
+            daemon = side.Daemon(cores[:1], cfg)
+            tid = await daemon.admit(cores[1])
+            with pytest.raises(side.AdmissionError) as ei:
+                await daemon.admit(cores[2])
+            refused = str(ei.value)
+            daemon.config.admission_bytes = 0  # back to the warm budget
+            tid2 = await daemon.admit(cores[2])
+            report = await daemon.run_cycle()
+            await daemon.drain()
+            outcomes[side.name] = (tid, refused, tid2, scrub_report(report),
+                                   entries(daemon), health(daemon),
+                                   [c.with_state(side.canonical)
+                                    for c in cores])
+        assert outcomes["port"] == outcomes["jax"]
+
+    run(scenario())
+
+
 # ------------------------------------------- backoff/quarantine machine
 
 
@@ -713,17 +772,15 @@ async def strong_fleet(n_tenants: int, with_writer: bool = False):
     return tw, fleet
 
 
-def test_daemon_waiter_jumps_the_queue_and_resolves(monkeypatch):
-    # nothing is due without a waiter: the port's backlog threshold is a
-    # module constant, the JAX daemon's a config field
-    monkeypatch.setattr(daemon_mod, "MIN_BACKLOG_FILES", 99)
+def test_daemon_waiter_jumps_the_queue_and_resolves():
+    # nothing is due without a waiter: both daemons' backlog threshold
+    # is past the tenant's one op file
 
     async def scenario():
         tw, fleet = await strong_fleet(1)
         await tw.write(0, b"w")
         pair = Pair(fleet, lambda s: strong_cfg(
-            s, max_idle_cycles=99,
-            **({"min_backlog_files": 99} if s is JAX else {})))
+            s, max_idle_cycles=99, min_backlog_files=99))
         await pair.cycle()
         r = await pair.cycle()
         assert r["selected"] == []  # nothing due without a waiter

@@ -144,6 +144,32 @@ def test_stream_equals_fold_payloads_the_host_loop_and_jax(chunking, route):
     assert ("fold.device" in spans) == (route == "dense")
 
 
+@pytest.mark.parametrize("n_producers", [1, 4])
+@pytest.mark.parametrize("n_chunks", [1, 3, 8])
+def test_encrypted_stream_chunks_and_producers_equal_the_jax_call(
+        n_chunks, n_producers):
+    """``fold_encrypted_stream(..., n_chunks=, n_producers=)`` as the JAX
+    accelerator takes them: the same state bytes at every chunk count and
+    producer width, the chunk count visible as ``stream.decrypt`` work."""
+    actors, payloads, ops = op_files()
+    key = secrets.token_bytes(32)
+    blobs = [xchacha.encrypt_blob(key, p) for p in payloads]
+    trace.reset()
+    streamed = ORSet()
+    assert cpu_accel().fold_encrypted_stream(
+        streamed, key, blobs, actors_hint=actors, n_chunks=n_chunks,
+        n_producers=n_producers)
+    spans = trace.snapshot()["spans"]
+    assert spans["stream.decode"]["count"] == n_chunks
+    assert spans["stream.decrypt"]["count"] >= n_chunks
+    jax_state = JORSet()
+    assert TpuAccelerator(min_device_batch=1).fold_encrypted_stream(
+        jax_state, key, blobs, actors_hint=actors, n_chunks=n_chunks,
+        n_producers=n_producers)
+    assert canonical_bytes(streamed) == j_canonical_bytes(jax_state) == \
+        host_fold(ops)
+
+
 def test_stream_folds_onto_a_state_with_history():
     """A second stream on top of a folded state equals the host loop over
     both batches, and the JAX stream on the same inputs."""

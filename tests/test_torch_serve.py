@@ -43,6 +43,7 @@ from crdt_enc_tpu.serve import FoldService as JFoldService
 from crdt_enc_tpu.serve import ServeConfig as JServeConfig
 from crdt_enc_tpu.serve import TenantShape as JTenantShape
 from crdt_enc_tpu.serve import plan_buckets as j_plan_buckets
+from crdt_enc_tpu.utils import trace as jtrace
 from crdt_enc_tpu_torch import (
     Core,
     FsStorage,
@@ -501,6 +502,70 @@ def test_mixed_fleet_port_service_equals_solo_and_the_jax_service(tmp_path):
                 s, p, j = [await sealed(c[t]) for c in (solo, port, jax)]
                 assert p == s, f"tenant {t}: port service != port solo"
                 assert p == j, f"tenant {t}: port service != JAX service"
+
+    run(scenario())
+
+
+@pytest.mark.parametrize("warm,noop_skip",
+                         [(False, False), (False, True), (True, False)])
+def test_warm_and_noop_skip_switches_equal_the_jax_service(tmp_path, warm,
+                                                           noop_skip):
+    """``ServeConfig(warm=, noop_skip=)`` as the JAX service has them:
+    with ``warm=False`` the tier is neither consulted nor filled (no warm
+    hit, no device-cut delta), with ``noop_skip=False`` a quiet tenant
+    re-seals every cycle.  Three cycles (all ops, a tail on two tenants,
+    quiet) give the JAX service's paths, rows, seals, counters and sealed
+    bytes, deltas included, and the state, snapshots and cursor of the
+    port's solo ``compact()``."""
+    async def scenario():
+        fleet = Fleet(str(tmp_path))
+
+        async def nothing(core):
+            pass
+
+        for t, n in ((1, 31), (2, 44), (3, 20)):
+            async def w(core, n=n, t=t):
+                await write_orset(core, n, b"s%d" % t)
+            await fleet.add("orset", w)
+        await fleet.add("orset", nothing)
+        fleet.freeze()
+        solo, port, jax = [await fleet.open(v) for v in Fleet.VARIANTS]
+        cfg = dict(warm=warm, noop_skip=noop_skip)
+        psvc = FoldService(port, ServeConfig(**cfg))
+        jsvc = JFoldService(jax, JServeConfig(**cfg))
+        assert (psvc.warm is None) == (jsvc.warm is None) == (not warm)
+        keys = ("serve_warm_hits", "serve_warm_misses", "delta_device_cuts",
+                "serve_noop_cycles", "serve_continuations")
+        for cycle in range(3):
+            if cycle == 1:
+                for t in (0, 2):
+                    await write_orset(fleet.writers[t], 7, b"tail%d" % t,
+                                      rm_every=3)
+                fleet.sync_tails()
+            trace.reset()
+            jtrace.reset()
+            pres = await psvc.run_cycle()
+            jres = await jsvc.run_cycle()
+            for t, c in enumerate(solo):
+                if pres[t].sealed:
+                    await c.compact()
+            assert [(r.path, r.rows, r.sealed) for r in pres] == \
+                [(r.path, r.rows, r.sealed) for r in jres]
+            pc, jc = (tr.snapshot()["counters"] for tr in (trace, jtrace))
+            assert {k: pc.get(k, 0) for k in keys} == \
+                {k: jc.get(k, 0) for k in keys}
+            if not warm:
+                assert pc.get("serve_warm_hits", 0) == 0
+                assert pc.get("delta_device_cuts", 0) == 0
+            if cycle == 2:
+                quiet_sealed = all(r.sealed for r in pres)
+                assert quiet_sealed == (not noop_skip)
+                assert (pc.get("serve_noop_cycles", 0) == 0) == \
+                    (not noop_skip)
+            for t in range(len(solo)):
+                s, p, j = [await sealed(c[t]) for c in (solo, port, jax)]
+                assert p == j, f"tenant {t}: port service != JAX service"
+                assert p[:3] == s[:3], f"tenant {t}: port service != solo"
 
     run(scenario())
 

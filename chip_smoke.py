@@ -76,8 +76,8 @@ Phases:
    the phase prints its format and size, then reopens the device replica
    from its own local directory, which must open from the checkpoint with
    the cold state's bytes and fold nothing more;
-11. the stream route past 2^22 rows: 6,291,456 config-3-width rows
-   (1.5 x ``STREAM_CHUNK_ROWS``) through ``TorchAccelerator().fold_payloads``
+11. the stream route past 2^22 rows: 5,242,880 config-3-width rows
+   (1.25 x ``STREAM_CHUNK_ROWS``) through ``TorchAccelerator().fold_payloads``
    (in-memory op-file payloads) and ``fold_ops`` (op objects), each two
    fold launches, both states equal to one fold launch over all rows and
    to the plain fold on the CPU; peak device memory, chunk count, wall;
@@ -100,8 +100,8 @@ Phases:
    E = 4,096, R = 1,000);
 15. the rest of the catalogue, each byte-equal to the host loop on a
    byte-identical copy and read back by a third replica: (a) the shared
-   tag index (CrdtMap<orset>) at config 3's width — 250,000 ops (a
-   quarter of its backlog) over 10,000 actors, 1,024 keys of 8 tags, 16 writers a key —
+   tag index (CrdtMap<orset>) at config 3's width — 125,000 ops (an
+   eighth of its backlog) over 10,000 actors, 1,024 keys of 8 tags, 16 writers a key —
    compacted from
    an encrypted ``MemoryStorage`` through ``MapFoldSession`` (no chunk
    declined, the scatter phase on the card; rows per family, card memory
@@ -116,10 +116,11 @@ Phases:
 16. the multi-tenant fold service (``FoldService``): K2 through the
    tenant layout (the tenants' planes side by side as ``(E_b, T·R_b)``,
    padding rows at ``actor = T·R_b``) against its plain version at the
-   fleets' bucket shapes, then fleet (a), 1,024 tenants at bench.py
+   fleets' bucket shapes, then fleet (a), 512 tenants at bench.py
    --e2e-multitenant's shape (384 ops over 4 replicas and 64 members,
-   24-op files; 1/8 G-Counters, 4 oversize solo spills, 4 decoder
-   declines, 8 empty, 8 with 3 snapshots; 2,048 until phase 23 joined),
+   24-op files; 1/8 G-Counters, 2 oversize solo spills, 2 decoder
+   declines, 4 empty, 4 with 3 snapshots; 2,048 until phase 23 joined,
+   1,024 until phase 24 did),
    and fleet (b), one bucket at
    the cells cap (16 tenants of 1,024 members x 1,024 replicas, 32,768
    ops), as encrypted in-memory remotes in three byte-identical copies:
@@ -236,6 +237,21 @@ Phases:
    reports one, appended to one ``--record`` file, over which ``python3
    -m crdt_enc_tpu_torch.tools.obs_report trend`` exits 0; the kernel
    launches per entry come from its record;
+24. the settings surface: (a) config 5's op files through ``fold_payloads``
+   of ``TorchAccelerator(sparse_device=True)`` (the COO fold on the card)
+   and of the default accelerator (the native host fold), byte-equal, both
+   walls and the card's peak memory, no fold kernel launched; (b) an
+   encrypted ``FsStorage`` remote compacted twice (a tail between) by a
+   card ``Core`` and a host-loop ``Core`` under ``CRDT_REPL_SAMPLE=0
+   CRDT_DELTA=0``: no ``repl.status`` span, no delta file, equal states,
+   against a card control under the defaults that samples and seals a
+   delta; (c) phase 19 (d)'s 256 tenants through one ``FoldService``
+   cycle at the defaults and one at ``ServeConfig(producers=2,
+   io_width=4)``: equal paths, rows and states and the same K2 launches;
+   (d) a ``FleetDaemon(interval_auto=True)`` over 16 of them on an
+   injected clock: ``next_interval`` goes from ``interval_max_s`` to
+   ``interval_min_s`` while every tenant misses the freshness target
+   (``CRDT_SLO_FRESHNESS_LAG=-1``) and back once the window has passed;
 then the kernels line and the result line.  Phase 5 also times the merge
 at the compaction's own shape (S = 9, E = 4,096, R = 5,000) against its
 plain version, and phases 5 and 9 give the merge and K3's shape their
@@ -247,9 +263,10 @@ card.  A run that stalls past ``WATCHDOG_S`` (1,180 s, just under the
 temporary directory and exits nonzero.  ``python3 chip_smoke.py
 --stall-loop SECONDS`` runs only phase 18 (b)'s serial-equality check,
 again and again, and dumps the stacks of a pass that stalls; ``python3
-chip_smoke.py --consumer`` runs phases 1, 2 and 22 alone, and ``python3
-chip_smoke.py --bench`` phases 1–9 and 23 (its last line is phase 23's
-JSON, after the kernels line).  Without a CUDA device, or without the package beside it, it exits
+chip_smoke.py --consumer`` runs phases 1, 2 and 22 alone, ``python3
+chip_smoke.py --settings`` phases 1, 2 and 24 (its last line is phase
+24's JSON), and ``python3 chip_smoke.py --bench`` phases 1–9 and 23 (its
+last line is phase 23's JSON, after the kernels line).  Without a CUDA device, or without the package beside it, it exits
 nonzero and prints no result.
 """
 
@@ -318,10 +335,11 @@ K3_E, K3_R, K3_SEED = 4096, 261_000, 9
 # (its replica's empty one and 8 snapshots) over 4,096 members and the
 # 5,000 actors the snapshots saw
 K4_S, K4_R, K4_SEED = 9, 5000, 12
-# phase 11: 1.5 x STREAM_CHUNK_ROWS config-3-width rows (two chunks, the
+# phase 11: 1.25 x STREAM_CHUNK_ROWS config-3-width rows (two chunks, the
 # second partial), as op files of STREAM_FILE_OPS ops; cut from 2.5 x when
-# phase 22 joined, to keep the script inside its time limit
-STREAM_N, STREAM_SEED, STREAM_FILE_OPS = 6_291_456, 11, 1024
+# phase 22 joined and from 1.5 x when phase 24 did, to keep the script
+# inside its time limit
+STREAM_N, STREAM_SEED, STREAM_FILE_OPS = 5_242_880, 11, 1024
 # phase 12: op files fed to a session per chunk
 SESSION_FEED_FILES = 2048
 # phase 13: BASELINE config 5 (benchmarks/suite.py bench_streaming, bench.py
@@ -330,9 +348,11 @@ SESSION_FEED_FILES = 2048
 CFG5_N, CFG5_R, CFG5_E, CFG5_SEED = 200_000, 100_000, 1024, 5
 # phase 14: the plane cache's three config-3 batches (the first is phase
 # 3's), and the incremental compaction's 1% tails (10,000 ops a round, as
-# COMPACT_OPS_PER_FILE-op files)
+# COMPACT_OPS_PER_FILE-op files) in TAIL_ROUNDS rounds after phase 10's
+# (one since phase 24 joined, two before; tests/test_torch_delta.py holds
+# longer chains on the CPU)
 CACHE_SEEDS = (SEED, SEED2, 13)
-TAIL_OPS, TAIL_SEED = 10_000, 14
+TAIL_OPS, TAIL_SEED, TAIL_ROUNDS = 10_000, 14, (2,)
 # phase 14c: the plane cache through Core.compact() where the dense route
 # takes the tails: config 3's 4,096 members over config 2's 1,000
 # replicas (E*R = 4,096,000 cells, below SPARSE_MIN_CELLS = 2^22), a
@@ -347,8 +367,8 @@ CC_TAIL_OPS, CC_ROUNDS, CC_TAIL_SEED = 1_000, 4, 16
 # config 3's 1M-op backlog: the host-loop reference applies ~70 us an op
 # (70.3 s for 1M ops on the H100 machine's host), which alone would take
 # the phase past its share of the script's time (half until phase 22
-# joined)
-MAP_N, MAP_R, MAP_K, MAP_TAGS, MAP_GROUP = N_ROWS // 4, N_REPLICAS, 1024, 8, 16
+# joined, a quarter until phase 24 did)
+MAP_N, MAP_R, MAP_K, MAP_TAGS, MAP_GROUP = N_ROWS // 8, N_REPLICAS, 1024, 8, 16
 MAP_BEYOND, MAP_SEED = 500, 17
 # (c) 16 MVReg snapshots of 2,048 (clock, value) pairs in all over 10,000
 # actors, 8 actors a clock (the host loop's pairwise merge is O(V^2))
@@ -366,12 +386,12 @@ OTHER_SEED = 19
 # tenants of 1,024 members x 1,024 replicas and 32,768 ops.  Cycle 2 adds
 # a 10% tail of op files to every tenant with ops; cycle 3 is quiet.
 FLEET_T, FLEET_N, FLEET_R, FLEET_E, FLEET_OPF = 2048, 384, 4, 64, 24
-# phases 16 and 17 run fleet (a) at 1/SERVE_SCALE of that mix (1,024
-# tenants: 128 G-Counters, 4 oversize, 4 declines, 8 empty, 8 with
-# snapshots); cut from the whole mix when phase 23 joined, since the bench's
-# --e2e-multitenant and --e2e-daemon modes now measure fleets at the JAX
-# bench's full size
-SERVE_SCALE = 2
+# phases 16 and 17 run fleet (a) at 1/SERVE_SCALE of that mix (512
+# tenants: 64 G-Counters, 2 oversize, 2 declines, 4 empty, 4 with
+# snapshots); cut from the whole mix when phase 23 joined (since the
+# bench's --e2e-multitenant and --e2e-daemon modes measure fleets at the
+# JAX bench's full size) and from half of it when phase 24 did
+SERVE_SCALE = 4
 FLEET_GC, FLEET_BIG, FLEET_BIG_N = FLEET_T // 8, 8, 40_000
 FLEET_DECLINE, FLEET_EMPTY, FLEET_SNAP, FLEET_SNAPSHOTS = 8, 16, 16, 3
 CAP_T, CAP_E, CAP_R, CAP_N = 16, 1024, 1024, 32_768
@@ -1816,7 +1836,7 @@ def planes_bytes(planes, E: int, actors: list) -> bytes:
 
 
 def phase_stream(device) -> dict:
-    """STREAM_N config-3-width rows, 1.5 x ``STREAM_CHUNK_ROWS``, through
+    """STREAM_N config-3-width rows, 1.25 x ``STREAM_CHUNK_ROWS``, through
     ``TorchAccelerator().fold_payloads`` and ``fold_ops``: each one fold
     launch a chunk (the counts reset just before each route and read just
     after), each state equal to one fold launch over all rows and to the
@@ -2378,8 +2398,9 @@ def phase_incremental(live: dict, clock, version, E: int, R: int, device,
                       root: str, first: dict) -> dict:
     """Part (b): phase 10's compaction is round 1 (it sealed the first
     delta base).  A consumer opens cold over the remote, beside a control
-    consumer with ``delta=False``; then twice a 1% tail (TAIL_OPS ops, one
-    file each for ~210 actors at their next versions) lands in both phase
+    consumer with ``delta=False``; then in each of TAIL_ROUNDS a 1% tail
+    (TAIL_OPS ops, one file each for ~210 actors at their next versions)
+    lands in both phase
     10 remotes, the long-lived device compactor and the host-loop one
     compact again, and both consumers read.  The tail must take the sparse
     route; every compactor and consumer state is byte-equal; the consumer
@@ -2432,7 +2453,7 @@ def phase_incremental(live: dict, clock, version, E: int, R: int, device,
               " bytes", flush=True)
         out["consumers_cold_open_s"] = dict(delta=c_wall, control=s_wall)
         prev_name = snap_name
-        for rnd in (2, 3):
+        for rnd in TAIL_ROUNDS:
             files = tail_files(rng, clock, version, actors, E, TAIL_OPS)
             blobs = await asyncio.gather(*(card._seal(ops)
                                            for *_, ops in files))
@@ -6181,6 +6202,391 @@ def phase_bench(device: str, root: str) -> dict:
     return out
 
 
+# ---- phase 24: the settings surface -----------------------------------------
+
+SETTINGS_HEADER = (
+    f"== 24. settings: (a) sparse_device at config 5 (N={CFG5_N}, "
+    f"R={CFG5_R}, E={CFG5_E}); (b) an encrypted FsStorage compaction under "
+    "CRDT_REPL_SAMPLE=0 CRDT_DELTA=0; (c) a FoldService cycle at "
+    "ServeConfig(producers=2, io_width=4); (d) a burn-paced FleetDaemon")
+# (b): a config-3-shaped remote cut to a few hundred op files, its last
+# SETTINGS_TAIL_PCT% held back as the second compaction's tail
+SETTINGS_FS_N, SETTINGS_FS_R, SETTINGS_FS_E = 24_000, 500, 512
+SETTINGS_TAIL_PCT = 10
+# (d): the daemon's tenants (the first of (c)'s fleet) and its pacing
+SETTINGS_DAEMON_T = 16
+SETTINGS_INTERVAL = dict(interval_min_s=0.05, interval_max_s=8.0,
+                         burn_window_s=30.0)
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_settings_coo(device: str) -> dict:
+    """(a): config 5's op files through ``fold_payloads`` of a
+    ``TorchAccelerator(sparse_device=True)`` (the COO fold on the card)
+    and of the default accelerator (the native host fold), byte-equal,
+    with both walls, the card's peak memory over the COO route, no fold
+    kernel launched, and ``orset_fold_coo`` alone timed with CUDA events
+    on the route's own inputs against the host fold alone."""
+    import torch
+
+    from crdt_enc_tpu_torch import ORSet, TorchAccelerator, canonical_bytes
+    from crdt_enc_tpu_torch.ops.columnar import (
+        Vocab,
+        orset_fold_sparse_host,
+        vclock_to_dense,
+    )
+    from crdt_enc_tpu_torch.ops.orset import orset_fold_coo
+    from crdt_enc_tpu_torch.utils import codec, trace
+
+    N, R, E = CFG5_N, CFG5_R, CFG5_E
+    actors = actor_bytes_table(R)
+    t0 = time.perf_counter()
+    cols = gen_columns(N, R, E, CFG5_SEED)
+    files = compaction_files(cols, actors)
+    payloads = [codec.pack(ops) for *_, ops in files]
+    print(f"  (a) {len(files)} op files built in "
+          f"{time.perf_counter() - t0:.1f} s; 2*E*R = {2 * E * R} "
+          f"(< 2^31: {2 * E * R < 2**31})", flush=True)
+    out: dict = {"N": N, "R": R, "E": E, "op_files": len(files)}
+
+    def route(label, accel):
+        reset_launches()
+        trace.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state = ORSet()
+        t1 = time.perf_counter()
+        if accel.fold_payloads(state, payloads, actors_hint=actors) is not True:
+            raise AssertionError(f"(a) {label}: fold_payloads declined")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        snap = trace.snapshot()
+        launches = read_launches()
+        r = {"wall_s": wall,
+             "peak_mb": (torch.cuda.max_memory_allocated() - base) / 1e6,
+             "spans": {k: v["seconds"] for k, v in snap["spans"].items()},
+             "h2d_bytes": snap["counters"].get("h2d_bytes", 0),
+             "launches": launches}
+        print(f"  (a) {label}: wall {wall * 1e3:.1f} ms, card peak "
+              f"{r['peak_mb']:.1f} MB over the route, h2d "
+              f"{r['h2d_bytes']} B, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        for k, v in sorted(r["spans"].items()):
+            print(f"    span {k}: {v * 1e3:.2f} ms", flush=True)
+        return state, r
+
+    # each route twice: the first COO call also pays the first use of
+    # torch's sort and scatter kernels on the card
+    states = {}
+    for run in ("first", "warm"):
+        for label, key, accel in (
+            ("native host fold", "host_fold", TorchAccelerator(device=device)),
+            ("COO fold on the card", "coo_fold",
+             TorchAccelerator(device=device, sparse_device=True)),
+        ):
+            states[key], r = route(f"{label} ({run})", accel)
+            out[key if run == "first" else f"{key}_warm"] = r
+        host_bytes = canonical_bytes(states["host_fold"])
+        same = canonical_bytes(states["coo_fold"]) == host_bytes
+        print(f"  (a) bytes equal: {same} ({len(host_bytes)} bytes)",
+              flush=True)
+        if not same:
+            raise AssertionError("(a) the COO fold differs from the host "
+                                 "fold")
+    for run in ("", "_warm"):
+        coo, host = out["coo_fold" + run], out["host_fold" + run]
+        if "fold.coo" not in coo["spans"] or "fold.coo" in host["spans"]:
+            raise AssertionError("(a) the routes did not take their folds")
+        if device == "cuda" and not coo["h2d_bytes"]:
+            raise AssertionError("(a) the COO fold uploaded nothing to the "
+                                 "card")
+        if any(coo["launches"].values()) or any(host["launches"].values()):
+            raise AssertionError("(a) a fold kernel launched in the sparse "
+                                 "regime")
+    # the two folds alone, on the route's own columns
+    kind, member, actor, counter = cols
+    members, replicas = Vocab(range(E)), Vocab(actors)
+    clock0 = vclock_to_dense(ORSet().clock, replicas)
+    dev = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+           for a in (clock0, kind, member, actor, counter)]
+
+    def coo_call():
+        return orset_fold_coo(*dev, num_members=E, num_replicas=R)
+
+    t1 = time.perf_counter()
+    orset_fold_sparse_host(ORSet(), kind, member, actor, counter,
+                           Vocab(range(E)), Vocab(actors))
+    out["host_fold_alone_ms"] = (time.perf_counter() - t1) * 1e3
+    out["coo_alone_ms"] = time_ms(coo_call) if device == "cuda" else None
+    print(f"  (a) alone: orset_fold_coo {out['coo_alone_ms']} ms (CUDA "
+          f"events, median of {REPS}; the {N}-row batch's sort and run "
+          f"ends) against the native host fold "
+          f"{out['host_fold_alone_ms']:.2f} ms (one call, host clock)",
+          flush=True)
+    del dev, payloads, files, cols
+    return out
+
+
+def settings_fs_files():
+    """(b)'s op files: config-3-shaped rows at SETTINGS_FS_* over their
+    own actors, as (actor index, actor id, version, ops)."""
+    actors = actor_bytes_table(SETTINGS_FS_R)
+    cols = gen_columns(SETTINGS_FS_N, SETTINGS_FS_R, SETTINGS_FS_E, SEED)
+    return compaction_files(cols, actors)
+
+
+def remote_files(remote: str) -> dict:
+    """relative path -> bytes of every file under ``remote``."""
+    out = {}
+    for d, _, names in os.walk(remote):
+        for n in names:
+            p = os.path.join(d, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, remote)] = f.read()
+    return out
+
+
+def phase_settings_fs(device: str, root: str) -> dict:
+    """(b): one encrypted FsStorage remote, copied three ways with one
+    compactor identity: a card ``Core`` and a host-loop ``Core`` compact
+    it under ``CRDT_REPL_SAMPLE=0 CRDT_DELTA=0``, then again after a
+    tail; neither takes a ``repl.status`` span or writes a delta file,
+    and their states equal.  A card ``Core`` under the defaults (the
+    control) takes the sample and seals a delta on the same rounds, so
+    the switches are what made the difference."""
+    import asyncio
+
+    from crdt_enc_tpu_torch import (
+        Core,
+        FsStorage,
+        HostAccelerator,
+        TorchAccelerator,
+        canonical_bytes,
+    )
+    from crdt_enc_tpu_torch.utils import trace
+
+    base = os.path.join(root, "settings")
+    t0 = time.perf_counter()
+    files = settings_fs_files()
+    n_tail = max(1, len(files) * SETTINGS_TAIL_PCT // 100)
+    head, tail = files[:-n_tail], files[-n_tail:]
+
+    async def build():
+        writer = await Core.open(compaction_options(
+            base, "writer", os.path.join(base, "remote"), HostAccelerator()))
+        blobs = await asyncio.gather(*(writer._seal(ops)
+                                       for *_, ops in files))
+        store = FsStorage(os.path.join(base, "store"),
+                          os.path.join(base, "remote"))
+        await asyncio.gather(*(store.store_ops(ab, v, blob) for
+                               (_, ab, v, _), blob in
+                               zip(head, blobs[:len(head)])))
+        # the compactor's identity, copied with the remote
+        await Core.open(compaction_options(base, "ident",
+                                           os.path.join(base, "remote"),
+                                           HostAccelerator()))
+        return [(ab, v, blob) for (_, ab, v, _), blob in
+                zip(tail, blobs[len(head):])]
+
+    tail_blobs = run_async(build())
+    variants = ("card", "host", "control")
+    for v in variants:
+        shutil.copytree(os.path.join(base, "remote"),
+                        os.path.join(base, f"remote-{v}"))
+        shutil.copytree(os.path.join(base, "ident"),
+                        os.path.join(base, f"local-{v}"))
+    print(f"  (b) {len(head)} + {len(tail)} op files "
+          f"({SETTINGS_FS_N} rows, R={SETTINGS_FS_R}, E={SETTINGS_FS_E}) "
+          f"sealed and copied in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def compact_twice(v: str, accel) -> tuple:
+        remote = os.path.join(base, f"remote-{v}")
+
+        async def go():
+            trace.reset()
+            t1 = time.perf_counter()
+            core = await Core.open(compaction_options(
+                base, f"local-{v}", remote, accel, create=False))
+            await core.compact()
+            store = FsStorage(os.path.join(base, f"local-{v}"), remote)
+            for ab, ver, blob in tail_blobs:
+                await store.store_ops(ab, ver, blob)
+            await core.compact()
+            return core, time.perf_counter() - t1
+
+        reset_launches()
+        core, wall = run_async(go())
+        snap = trace.snapshot()
+        deltas = [p for p in remote_files(remote) if p.startswith("deltas")]
+        r = {"wall_s": wall, "deltas": len(deltas),
+             "repl_status": snap["spans"].get("repl.status", {}).get(
+                 "count", 0),
+             "delta_files_sealed": snap["counters"].get(
+                 "delta_files_sealed", 0),
+             "launches": read_launches()}
+        print(f"  (b) {v}: two compactions {wall:.2f} s, repl.status spans "
+              f"{r['repl_status']}, delta files {r['deltas']}, launches "
+              f"{ {k: n for k, n in r['launches'].items() if n} }", flush=True)
+        return core.with_state(canonical_bytes), r
+
+    out: dict = {"op_files": len(files), "tail_files": len(tail)}
+    with environ(CRDT_REPL_SAMPLE="0", CRDT_DELTA="0"):
+        card, out["card"] = compact_twice("card", TorchAccelerator(device))
+        host, out["host"] = compact_twice("host", HostAccelerator())
+    control, out["control"] = compact_twice("control",
+                                            TorchAccelerator(device))
+    for v in ("card", "host"):
+        if out[v]["repl_status"] or out[v]["deltas"]:
+            raise AssertionError(f"(b) {v}: the switches did not act: "
+                                 f"{out[v]}")
+    if not (out["control"]["repl_status"] and out["control"]["deltas"]):
+        raise AssertionError(f"(b) the control sealed no delta or took no "
+                             f"sample: {out['control']}")
+    if not card == host == control:
+        raise AssertionError("(b) the compacted states differ")
+
+    async def read_back():
+        core = await Core.open(compaction_options(
+            base, "reader", os.path.join(base, "remote-card"),
+            HostAccelerator()))
+        await core.read_remote()
+        return core.with_state(canonical_bytes)
+
+    if run_async(read_back()) != host:
+        raise AssertionError("(b) the card's remote does not read back")
+    print(f"  (b) card = host loop = control ({len(host)} bytes); the card's "
+          "remote reads back", flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def phase_settings_serve(device: str) -> dict:
+    """(c) and (d): phase 19 (d)'s 256-tenant mix sealed once and copied;
+    one ``FoldService`` cycle at the defaults and one at
+    ``ServeConfig(producers=2, io_width=4)``, each tenant's state equal
+    across the two, with the same K2 launches; then a
+    ``FleetDaemon(interval_auto=True)`` over SETTINGS_DAEMON_T of the
+    configured tenants on an injected clock, its ``next_interval`` driven
+    from ``interval_max_s`` to ``interval_min_s`` by a freshness target
+    every tenant misses (``CRDT_SLO_FRESHNESS_LAG=-1``), and back once
+    the target is met and the window has passed."""
+    from crdt_enc_tpu_torch import TorchAccelerator, canonical_bytes
+    from crdt_enc_tpu_torch.serve import (
+        DaemonConfig,
+        FleetDaemon,
+        FoldService,
+        ServeConfig,
+    )
+    from crdt_enc_tpu_torch.utils import trace
+
+    t0 = time.perf_counter()
+    spec = serve_fleet_spec(scale=OBS_SCALE, cap=False)
+    remotes, _ = run_async(seal_fleet(spec))
+    cfg = ServeConfig(producers=2, io_width=4)
+    fleets = {
+        "default": serve_open(remotes, spec, TorchAccelerator(device), set()),
+        "configured": serve_open([copy_memory_remote(r) for r in remotes],
+                                 spec, TorchAccelerator(device), set()),
+    }
+    print(f"  (c) {len(spec)} tenants sealed and opened twice in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out: dict = {"tenants": len(spec)}
+    results = {}
+    for label, config in (("default", ServeConfig()), ("configured", cfg)):
+        service = FoldService(fleets[label], config)
+        reset_launches()
+        trace.reset()
+        t1 = time.perf_counter()
+        try:
+            results[label] = run_async(service.run_cycle())
+        finally:
+            service.close()
+        wall = time.perf_counter() - t1
+        snap = trace.snapshot()
+        launches = read_launches()
+        errors = [r.error for r in results[label] if r.error]
+        out[label] = {
+            "wall_s": wall, "launches": launches,
+            "stream_producers": snap["gauges"].get("stream_producers"),
+            "sealed": sum(1 for r in results[label] if r.sealed),
+            "errors": len(errors)}
+        print(f"  (c) {label}: cycle {wall:.3f} s, "
+              f"{out[label]['sealed']} sealed, decode producers "
+              f"{out[label]['stream_producers']}, launches "
+              f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+        if errors:
+            raise AssertionError(f"(c) {label}: tenant errors {errors[:3]}")
+    d, c = out["default"], out["configured"]
+    if c["stream_producers"] != 2:
+        raise AssertionError("(c) the decode fan-out did not take "
+                             "producers=2")
+    if c["launches"] != d["launches"] or (
+            device == "cuda" and not c["launches"]["orset_fold"]):
+        raise AssertionError(f"(c) launches differ: {d['launches']} against "
+                             f"{c['launches']}")
+    paths = [[(r.path, r.rows, r.sealed) for r in results[k]]
+             for k in ("default", "configured")]
+    states = [[core.with_state(canonical_bytes) for core in fleets[k]]
+              for k in ("default", "configured")]
+    if paths[0] != paths[1] or states[0] != states[1]:
+        raise AssertionError("(c) the configured cycle's tenants differ from "
+                             "the default cycle's")
+    print(f"  (c) every tenant's path, rows and state equal; K2 "
+          f"{c['launches']['orset_fold']} launches in each cycle", flush=True)
+
+    clock = [0.0]
+    daemon = FleetDaemon(
+        fleets["configured"][:SETTINGS_DAEMON_T],
+        DaemonConfig(interval_auto=True, **SETTINGS_INTERVAL),
+        clock=lambda: clock[0])
+    seq = [daemon.next_interval()]
+    with environ(CRDT_SLO_FRESHNESS_LAG="-1"):
+        for step in (1.0, 2.0):
+            clock[0] = step
+            run_async(daemon.run_cycle())
+            seq.append(daemon.next_interval())
+    clock[0] = 2.0 + 2 * SETTINGS_INTERVAL["burn_window_s"]
+    run_async(daemon.run_cycle())
+    seq.append(daemon.next_interval())
+    run_async(daemon.drain())
+    lo, hi = (SETTINGS_INTERVAL["interval_min_s"],
+              SETTINGS_INTERVAL["interval_max_s"])
+    print(f"  (d) next_interval: {seq} (max {hi}, min {lo})", flush=True)
+    if not (abs(seq[0] - hi) < 1e-9 and all(abs(s - lo) < 1e-9
+                                            for s in seq[1:3])
+            and abs(seq[3] - hi) < 1e-9):
+        raise AssertionError(f"(d) the burn did not pace the daemon: {seq}")
+    out["daemon_intervals"] = seq
+    return out
+
+
+def phase_settings(device: str, root: str) -> dict:
+    """Phase 24 (module docs): (a) to (d)."""
+    t0 = time.perf_counter()
+    out = {"coo": phase_settings_coo(device)}
+    gc.collect()
+    out["fs"] = phase_settings_fs(device, root)
+    out["serve"] = phase_settings_serve(device)
+    out["wall_s"] = round(time.perf_counter() - t0, 2)
+    print(f"  phase 24 wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 KERNELS = {
     "orset_scatter": ("crdt_enc_tpu_torch/csrc/orset_fold.cu",
                       "crdt_enc_tpu/ops/pallas_fold.py:628",
@@ -6428,8 +6834,8 @@ def kernel_entry(kname: str, launches: dict, errs: dict, times: dict,
 
 def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
                       name, t_start, build_s) -> int:
-    """Phases 10 to 23 and the closing lines.  Phase 10's compaction remote
-    lives under ``root`` until phase 14 has compacted it twice more."""
+    """Phases 10 to 24 and the closing lines.  Phase 10's compaction remote
+    lives under ``root`` until phase 14 has compacted it once more."""
     import torch
 
     E, R, N = N_MEMBERS, N_REPLICAS, N_ROWS
@@ -6476,9 +6882,9 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     incremental = phase_incremental(live, clock, version, E, R, "cuda", root,
                                     compaction)
     inc_launches = {k: sum(incremental[f"round{r}"]["launches"][k]
-                           for r in (2, 3)) for k in KERNELS}
-    print(f"  launches over rounds 2 and 3 (device compactions only): "
-          f"{inc_launches}", flush=True)
+                           for r in TAIL_ROUNDS) for k in KERNELS}
+    print(f"  launches over the tail rounds {TAIL_ROUNDS} (device "
+          f"compactions only): {inc_launches}", flush=True)
     del live
     gc.collect()
     header(f"== 14c. the plane cache through Core.compact() (E={CC_E}, "
@@ -6571,6 +6977,12 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
     gc.collect()
     torch.cuda.empty_cache()
 
+    header(SETTINGS_HEADER, flush=True)
+    print(device_line(), flush=True)
+    settings = phase_settings("cuda", root)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     kernels = []
     for kname in KERNELS:
         entry = kernel_entry(kname, launches, errs, times, k3_errs, k3)
@@ -6583,7 +6995,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
             "plane_cache_fold_ops": plane_cache["fold_ops"]["launches"][kname],
             "plane_cache_fold_payloads":
                 plane_cache["fold_payloads"]["launches"][kname],
-            "compaction_rounds_2_3": inc_launches[kname],
+            "compaction_tail_rounds": inc_launches[kname],
             "plane_cache_compaction": cache_compaction["launches"][kname]}
         entry["config5_launches"] = {
             r: config5[r]["launches"][kname]
@@ -6631,6 +7043,13 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
         entry["bench_launches"] = {
             label: run["launches"][kname]
             for label, run in bench["runs"].items()}
+        entry["settings_launches"] = {
+            "coo_fold_payloads": settings["coo"]["coo_fold"]["launches"][
+                kname],
+            "fs_compactions": settings["fs"]["card"]["launches"][kname],
+            "serve_default": settings["serve"]["default"]["launches"][kname],
+            "serve_configured": settings["serve"]["configured"]["launches"][
+                kname]}
         if kname == "orset_fold":
             entry["serving"] = {
                 "route": "tenant layout: (E_b, T*R_b) planes, padding at "
@@ -6656,6 +7075,7 @@ def run_from_phase_10(root, cols, cols2, launches, errs, times, k3_errs, k3,
                                if k != "errs"}}), flush=True)
     print(json.dumps({"consumer": consumer}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
+    print(json.dumps({"settings": settings}), flush=True)
     print(device_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6755,9 +7175,43 @@ def consumer_only() -> int:
     return 0
 
 
+def settings_only() -> int:
+    """``python3 chip_smoke.py --settings``: phases 1, 2 and 24 alone; its
+    last line is the phase's JSON, not the result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from crdt_enc_tpu_torch import native
+    from crdt_enc_tpu_torch.ops import cuda_build
+
+    start_watchdog()
+    t0 = time.perf_counter()
+    print(device_line(), flush=True)
+    print(f"  kernels built in {cuda_build.build():.2f}s", flush=True)
+    native.load()
+    native.load_state()
+    root = tempfile.mkdtemp(prefix="crdt-settings-")
+    _CLEANUP_DIRS.append(root)
+    header(SETTINGS_HEADER, flush=True)
+    try:
+        settings = phase_settings("cuda", root)
+    finally:
+        close_loop()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"chip_smoke --settings wall {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    print(device_line(), flush=True)
+    print(json.dumps({"settings": settings}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--stall-loop"]:
         sys.exit(stall_loop(float(sys.argv[2])))
     if sys.argv[1:2] == ["--consumer"]:
         sys.exit(consumer_only())
+    if sys.argv[1:2] == ["--settings"]:
+        sys.exit(settings_only())
     sys.exit(main(bench_only=sys.argv[1:2] == ["--bench"]))

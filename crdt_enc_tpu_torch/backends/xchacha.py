@@ -182,13 +182,14 @@ def decrypt_blobs_packed(key: bytes, blobs: list, n_threads: int = 0):
     return out, out_offs
 
 
-def decrypt_blobs(key: bytes, blobs: list) -> list:
-    """Bulk open (:func:`decrypt_blobs_packed`) as a list of
-    **memoryviews**: zero-copy slices of the one cleartext buffer.  Treat
-    them as transient — each view pins the whole buffer, and they are
-    unhashable — and ``bytes(view)`` anything you keep.  Raises AeadError
-    when any envelope is malformed or fails to authenticate."""
-    out, out_offs = decrypt_blobs_packed(key, blobs)
+def decrypt_blobs(key: bytes, blobs: list, n_threads: int = 0) -> list:
+    """Bulk open (:func:`decrypt_blobs_packed`, ``n_threads`` native
+    threads, 0 = from the core count) as a list of **memoryviews**:
+    zero-copy slices of the one cleartext buffer.  Treat them as
+    transient — each view pins the whole buffer, and they are unhashable
+    — and ``bytes(view)`` anything you keep.  Raises AeadError when any
+    envelope is malformed or fails to authenticate."""
+    out, out_offs = decrypt_blobs_packed(key, blobs, n_threads)
     view = memoryview(out)
     lo_hi = out_offs.tolist()
     return [view[lo_hi[i] : lo_hi[i + 1]] for i in range(len(blobs))]
@@ -196,9 +197,11 @@ def decrypt_blobs(key: bytes, blobs: list) -> list:
 
 def decrypt_blobs_chunked(
     key: bytes, blobs: list, *, chunk_blobs: int = 0, n_chunks: int = 8,
+    n_threads: int = 0,
 ):
     """Yield decrypted chunks, each a packed ``(buffer, offsets)`` pair of
-    :func:`decrypt_blobs_packed`, with one-chunk lookahead: chunk i+1
+    :func:`decrypt_blobs_packed` (``n_threads`` native threads a chunk,
+    0 = from the core count), with one-chunk lookahead: chunk i+1
     decrypts on a worker thread (the native batch call releases the GIL)
     while the consumer decodes chunk i.  Feeds
     ``TorchAccelerator.fold_payload_stream``.  Each chunk's decrypt is a
@@ -215,7 +218,7 @@ def decrypt_blobs_chunked(
 
     def open_chunk(k):
         with trace.span("stream.decrypt", meta=k):
-            return decrypt_blobs_packed(key, spans[k])
+            return decrypt_blobs_packed(key, spans[k], n_threads)
 
     if (os.cpu_count() or 1) <= 1:
         # one core: a lookahead thread overlaps nothing and only adds

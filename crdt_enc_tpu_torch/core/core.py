@@ -21,7 +21,9 @@ back to the same canonical bytes in the other:
 
 Op files are read through the reference's route.  With an accelerator
 that opens fold sessions (``TorchAccelerator``), ``_read_remote_ops``
-first takes the pipelined ingest: ``storage.iter_op_chunks`` reads
+first takes the pipelined ingest (as wide as the accelerator's
+``stream_producers``, else ``CRDT_STREAM_PRODUCERS``, else one per core
+but one): ``storage.iter_op_chunks`` reads
 bounded chunks, a producer task unwraps and batch-decrypts each one, and
 this task validates, decodes and reduces it through a fold session
 (parallel/session.py) while the next chunk is read and decrypted; once
@@ -33,15 +35,17 @@ on the bulk path unwraps every outer envelope, opens each sealing key's
 files in one native batch and hands the payloads to ``fold_payloads``,
 decoding per op only where the accelerator declines.
 
-Delta-state replication: with ``OpenOptions.delta`` on (the default) and
-a storage with the delta family, ``compact()`` also seals an encrypted
+Delta-state replication: with ``OpenOptions.delta`` on (the default),
+``CRDT_DELTA`` not ``0`` and a storage with the delta family,
+``compact()`` also seals an encrypted
 delta since this replica's previous snapshot into its own delta log
 (``remote/deltas/<actor-hex>/<N>``), and ``read_remote()`` folds ``known
 base + delta chain`` before it downloads any unread snapshot, falling
 back to the snapshot on any gap, GC'd link or doubt (``delta_fallbacks``,
 ``last_delta_fallback_reason``).  The seal self-verifies (the delta
-applied to the base must give the sealed state's bytes) and is refused
-when it is no smaller than the state.  Each snapshot's and delta's sealer
+applied to the base must give the sealed state's bytes;
+``CRDT_DELTA_VERIFY=0`` skips the check) and is refused when it is no
+smaller than the state.  Each snapshot's and delta's sealer
 cursor feeds the cursor matrix, and each delta carries the sealer's
 stability watermark (obs/replication.py).  The wire is the JAX package's,
 so either package reads a chain the other sealed.
@@ -95,6 +99,7 @@ from __future__ import annotations
 import asyncio
 import hashlib
 import logging
+import os
 import time
 import uuid
 from dataclasses import dataclass, field
@@ -103,6 +108,7 @@ import numpy as np
 
 from ..models.mvreg import MVReg
 from ..models.vclock import Actor, Dot, VClock
+from ..ops import cuda_build
 from ..read.stable import ReadResult
 from ..utils import codec, trace
 from ..utils.lockbox import LockBox
@@ -226,6 +232,13 @@ class RemoteMeta:
             MVReg.from_obj(obj.get(b"s")),
             MVReg.from_obj(obj.get(b"c")),
             MVReg.from_obj(obj.get(b"k")),
+        )
+
+    def is_empty(self) -> bool:
+        return (
+            self.storage.is_empty()
+            and self.cryptor.is_empty()
+            and self.key_cryptor.is_empty()
         )
 
 
@@ -421,13 +434,19 @@ class Core:
         self._remote_id_cache: bytes | None = None
         # delta-state replication: the retained base — the last snapshot
         # THIS replica sealed, as its canonical packed state bytes + name
-        # + cursor obj — is what the next compaction diffs against
-        self._delta_enabled = opts.delta
+        # + cursor obj — is what the next compaction diffs against;
+        # ``CRDT_DELTA=0`` force-disables, ``CRDT_DELTA_VERIFY=0`` skips
+        # the seal-time refold check
+        self._delta_enabled = (
+            opts.delta and os.environ.get("CRDT_DELTA", "") != "0"
+        )
+        self._delta_verify = os.environ.get("CRDT_DELTA_VERIFY", "") != "0"
         self._delta_base: dict | None = None
         self.last_delta_fallback_reason: str | None = None
         # replication sampling (obs/replication.py) on every open,
-        # read_remote and compact; the last status is kept for callers
-        # that want the whole dict
+        # read_remote and compact unless ``CRDT_REPL_SAMPLE=0``; the last
+        # status is kept for callers that want the whole dict
+        self._repl_sample = os.environ.get("CRDT_REPL_SAMPLE", "") != "0"
         self.last_replication_status: dict | None = None
         # (cursor counters, read states) of the last durably sealed
         # checkpoint: the replication status's staleness base
@@ -448,14 +467,11 @@ class Core:
         # pack, seal or scan needs them (a failed build raises here)
         from .. import native
 
-        await asyncio.to_thread(native.load)
-        await asyncio.to_thread(native.load_state)
+        await asyncio.to_thread(native.warm)
         dev = getattr(core.accel, "device", None)
         if dev is not None and dev.type == "cuda":
             # and the CUDA kernels, for an accelerator on a card, before
             # a compaction launches one (a failed build raises here)
-            from ..ops import cuda_build
-
             await asyncio.to_thread(cuda_build.warm)
         raw = await core.storage.load_local_meta()
         if raw is None:
@@ -572,9 +588,11 @@ class Core:
     ) -> dict | None:
         """Status → gauges (``obs.replication.sample``), the freshness
         SLO gauges and the live telemetry server, on every open,
-        read_remote and compact.  A failed probe logs at debug and
-        samples nothing: observability never fails the run it
-        observes."""
+        read_remote and compact; ``CRDT_REPL_SAMPLE=0`` opts out.  A
+        failed probe logs at debug and samples nothing: observability
+        never fails the run it observes."""
+        if not self._repl_sample:
+            return None
         from ..obs import replication
 
         try:
@@ -1722,11 +1740,14 @@ class Core:
         # decodes run in worker threads (the native calls release the
         # interpreter lock); reduces drain strictly first in, first out,
         # so per-actor cursors advance in version order even under a
-        # mid-stream failure.  The in-flight width follows the
-        # core count (the ingest fan-out), at least 2 (one decode of
+        # mid-stream failure.  The in-flight width is the ingest
+        # fan-out (the accelerator's ``stream_producers``, else
+        # ops/stream.py's resolution), at least 2 (one decode of
         # lookahead).
         inflight: list[tuple] = []  # (decode_task, metas, files, clears)
-        n_producers = stream_producer_count()
+        n_producers = getattr(self.accel, "stream_producers", 0)
+        if n_producers <= 0:
+            n_producers = stream_producer_count()
         max_decodes = max(2, n_producers)
         trace.gauge("stream_producers", n_producers)
 
@@ -2315,7 +2336,9 @@ class Core:
                 # a delta no smaller than the state saves nothing
                 trace.add("delta_seal_skipped", 1)
                 plan["dobj"] = None
-            elif not await asyncio.to_thread(self._verify_delta_plan, plan):
+            elif self._delta_verify and not await asyncio.to_thread(
+                self._verify_delta_plan, plan
+            ):
                 logger.warning(
                     "delta diff does not refold to the sealed state; "
                     "refusing to publish it (snapshot only)"

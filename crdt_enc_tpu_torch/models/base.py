@@ -1,7 +1,9 @@
-"""Canonical serialization of CRDT states, and the no-op state type.
+"""The CRDT protocol, canonical serialization of states, and the no-op
+state type.
 
-A copy of ``canonical_bytes`` and ``EmptyCrdt`` from
-``crdt_enc_tpu/models/base.py``: every
+A copy of ``Crdt``, ``canonical_bytes`` and ``EmptyCrdt`` from
+``crdt_enc_tpu/models/base.py``: op-based (CmRDT) apply plus state-based
+(CvRDT) merge, and every
 state type's ``to_obj()`` emits a canonical (sorted, normalized) object,
 so its packed bytes are deterministic whatever the op arrival order —
 which is what makes "byte-identical device result" a meaningful test.
@@ -9,7 +11,23 @@ which is what makes "byte-identical device result" a meaningful test.
 
 from __future__ import annotations
 
+from typing import Any, Protocol, runtime_checkable
+
 from ..utils import codec
+
+
+@runtime_checkable
+class Crdt(Protocol):
+    def apply(self, op: Any) -> None:  # CmRDT
+        ...
+
+    def merge(self, other: "Crdt") -> None:  # CvRDT
+        ...
+
+    def to_obj(self) -> Any: ...
+
+    @classmethod
+    def from_obj(cls, obj: Any) -> "Crdt": ...
 
 
 def canonical_bytes(state) -> bytes:

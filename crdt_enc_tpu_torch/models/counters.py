@@ -35,6 +35,11 @@ class GCounter:
     def read(self) -> int:
         return sum(self.clock.counters.values())
 
+    def reset_remove(self, ctx) -> None:
+        """ResetRemove (for causal-Map children): forget increments the
+        removed context observed."""
+        self.clock.reset_remove(ctx)
+
     def to_obj(self):
         return self.clock.to_obj()
 
@@ -76,6 +81,12 @@ class PNCounter:
 
     def read(self) -> int:
         return self.p.read() - self.n.read()
+
+    def reset_remove(self, ctx) -> None:
+        """ResetRemove (for causal-Map children): both planes forget the
+        removed context."""
+        self.p.reset_remove(ctx)
+        self.n.reset_remove(ctx)
 
     def to_obj(self):
         return [self.p.to_obj(), self.n.to_obj()]

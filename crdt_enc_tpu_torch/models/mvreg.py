@@ -76,6 +76,18 @@ class MVReg:
         self.vals = merged
         self._canonicalize()
 
+    def reset_remove(self, ctx: VClock) -> None:
+        """ResetRemove (for causal-Map children): each surviving value
+        forgets the removed context's dots; values whose entire causal
+        basis was observed-removed vanish."""
+        kept = []
+        for c, v in self.vals:
+            c.reset_remove(ctx)
+            if not c.is_empty():
+                kept.append((c, v))
+        self.vals = kept
+        self._canonicalize()
+
     @staticmethod
     def _survives(clock: VClock, value, opposing: list) -> bool:
         """A pair survives unless some opposing pair strictly dominates it."""

@@ -7,6 +7,7 @@ summarizes a causal history as the per-actor max counter.
 
 from __future__ import annotations
 
+from collections.abc import Iterator
 from dataclasses import dataclass, field
 
 Actor = bytes  # 16-byte UUID
@@ -58,6 +59,13 @@ class VClock:
     def descends(self, other: "VClock") -> bool:
         """Greater or equal on every actor ``other`` has seen."""
         return all(self.get(a) >= c for a, c in other.counters.items())
+
+    def concurrent(self, other: "VClock") -> bool:
+        """Neither history descends from the other."""
+        return not self.descends(other) and not other.descends(self)
+
+    def actors(self) -> Iterator[Actor]:
+        return iter(self.counters)
 
     def copy(self) -> "VClock":
         return VClock(dict(self.counters))

@@ -17,7 +17,9 @@ another Python rebuilds.  It creates Python objects, so it is a library of
 its own loaded with ``ctypes.PyDLL``, whose calls hold the GIL.
 
 A failed build raises, every time it is asked for: no caller of this
-module carries on without a library.
+module carries on without a library.  :func:`warm` builds and loads both
+up front (``Core.open`` calls it in a worker thread), so the first use
+does not pay the build.
 """
 
 from __future__ import annotations
@@ -119,6 +121,15 @@ def _compile(out: Path, sources=SOURCES, flags=CXX_FLAGS) -> None:
     from ..obs import runtime
 
     runtime.note_build("native", time.perf_counter() - t0)
+
+
+def warm() -> None:
+    """Build and load both native libraries now.  The loaders memoize
+    the loaded library, so every later ``load()``/``load_state()`` is a
+    cached hit.  Unlike the JAX package's, which falls back to Python
+    paths, a failed build raises here: the port has no fallback."""
+    load()
+    load_state()
 
 
 def load() -> ctypes.CDLL:

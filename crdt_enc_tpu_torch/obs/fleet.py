@@ -12,7 +12,7 @@ the metrics sink already writes (append-only, schema-stamped):
   (``remote_id``): the **fleet stable watermark** (pointwise min over the
   devices' local clocks), each device's lag behind the fleet union clock
   with its min/p50/p99/max, backlog p50/p99 in files and bytes, and the
-  freshness SLO verdict per device (:data:`obs.slo.FRESHNESS`).
+  freshness SLO verdict per device (:func:`obs.slo.freshness_spec`).
 * :func:`bench_trend` / :func:`trend_regressions` — the trajectory of
   each bench config in ``BENCH_LOCAL.jsonl`` and the configs whose latest
   run regressed past a threshold (``obs_report trend
@@ -124,7 +124,7 @@ def fleet_report(summaries: list[dict]) -> dict:
             )
             if lo:
                 watermark[a] = lo
-        freshness = slo.FRESHNESS
+        freshness = slo.freshness_spec()
         devices = []
         for s in devs:
             rep = s["replication"]

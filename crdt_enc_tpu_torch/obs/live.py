@@ -20,10 +20,12 @@ thread, and publishing into it is a dict store under a lock; with no
 server configured :func:`publish` is one global check.
 
 Opt in with ``CRDT_OBS_HTTP=<port>`` (or ``<host>:<port>``; a plain port
-binds 127.0.0.1), or pass ``FoldService(..., live_port=...)`` for a
-service-owned instance, or drive :class:`LiveTelemetryServer` directly.
-``port=0`` binds an ephemeral port; :func:`shutdown` stops the default
-server.
+binds 127.0.0.1), or :func:`configure` the process default in code, or
+pass ``FoldService(..., live_port=...)`` for a service-owned instance, or
+drive :class:`LiveTelemetryServer` directly.  ``port=0`` binds an
+ephemeral port; :func:`shutdown` stops the default server.
+:func:`publish`, :func:`publish_cycle` and :func:`publish_daemon` feed
+the default server, one global check when there is none.
 """
 
 from __future__ import annotations
@@ -255,10 +257,26 @@ _env_resolved = False
 _state_lock = threading.Lock()
 
 
+def configure(port: int | None,
+              host: str = "127.0.0.1") -> "LiveTelemetryServer | None":
+    """Start (or with ``None``, stop) the process-default server,
+    overriding the ``CRDT_OBS_HTTP`` environment variable."""
+    global _default, _env_resolved
+    with _state_lock:
+        if _default is not None:
+            _default.stop()
+        _default = None
+        _env_resolved = True
+        if port is not None:
+            _default = LiveTelemetryServer(port=port, host=host)
+            _default.start()
+        return _default
+
+
 def default_server() -> "LiveTelemetryServer | None":
-    """The process-default server, lazily started from ``CRDT_OBS_HTTP``
-    (resolved ONCE per process — a server is a bound socket, not a
-    re-readable path), else None."""
+    """The configured server, else one lazily started from
+    ``CRDT_OBS_HTTP`` (resolved ONCE per process — a server is a bound
+    socket, not a re-readable path), else None."""
     global _default, _env_resolved
     if _env_resolved:
         return _default
@@ -288,7 +306,8 @@ def default_server() -> "LiveTelemetryServer | None":
 def shutdown() -> None:
     """Stop the default server (if any) — FINAL for this process: env
     resolution stays latched, so the next replication sample does not
-    silently rebind the port the embedder just closed."""
+    silently rebind the port the embedder just closed.  Re-enable with
+    :func:`configure`."""
     global _default, _env_resolved
     with _state_lock:
         if _default is not None:
@@ -316,3 +335,18 @@ def publish(status: dict) -> None:
     if srv is not None:
         srv.publish_health(status)
 
+
+
+def publish_cycle(source: str, summary: dict) -> None:
+    """Feed one service-cycle summary to the default server."""
+    srv = default_server()
+    if srv is not None:
+        srv.publish_cycle(source, summary)
+
+
+def publish_daemon(info: dict) -> None:
+    """Feed the fleet daemon's control-plane health to the default
+    server (the no-server case is one global check, as for publish)."""
+    srv = default_server()
+    if srv is not None:
+        srv.publish_daemon(info)

@@ -15,8 +15,10 @@ package's, so its ``obs_report`` reads a file either package wrote.
 
 Wiring: set ``CRDT_OBS_SINK=/path/run.jsonl`` (or call :func:`configure`)
 and every ``Core.compact`` and fold service cycle appends a record
-(:func:`maybe_write`).  A sink made with ``max_bytes`` rotates its file
-to ``<path>.1`` when an append would pass that bound.
+(:func:`maybe_write`).  A sink rotates its file to ``<path>.1`` when an
+append would pass its bound: ``max_bytes`` where the sink was made with
+one, else ``CRDT_OBS_SINK_MAX_MB`` (megabytes, re-read per write; unset,
+unparsable or not positive: no rotation).
 
 :func:`to_prometheus` renders a snapshot in the Prometheus text format:
 every counter and gauge its own family with ``# TYPE`` and ``# HELP``;
@@ -41,6 +43,7 @@ from pathlib import Path
 from . import record
 
 ENV_VAR = "CRDT_OBS_SINK"
+ENV_MAX_MB = "CRDT_OBS_SINK_MAX_MB"
 
 #: sink record format version.  2 added ``schema`` itself and the
 #: ``replication`` payload; unstamped records are retroactively 1.
@@ -52,6 +55,17 @@ _configured: "MetricsSink | None | bool" = False  # False = not resolved yet
 
 class SinkSchemaError(ValueError):
     """A record claims a sink schema this package cannot read."""
+
+
+def _max_sink_bytes() -> int:
+    """The rotation bound from ``CRDT_OBS_SINK_MAX_MB`` (0 = off).
+    Re-read per write, like the sink path itself."""
+    raw = os.environ.get(ENV_MAX_MB, "")
+    try:
+        mb = float(raw) if raw else 0.0
+    except ValueError:
+        return 0
+    return int(mb * 1e6) if mb > 0 else 0
 
 
 #: serializes the size-check → rotate → append sequence across threads
@@ -66,7 +80,7 @@ class MetricsSink:
 
     def __init__(self, path: str, max_bytes: int = 0):
         self.path = path
-        # rotation bound in bytes; 0 = the file only grows
+        # rotation bound in bytes; 0 = CRDT_OBS_SINK_MAX_MB's per write
         self.max_bytes = int(max_bytes)
 
     def write(self, label: str, *, snapshot: dict | None = None,
@@ -97,10 +111,11 @@ class MetricsSink:
         try:
             line = json.dumps(rec)
             with _io_lock:
-                if self.max_bytes:
+                limit = self.max_bytes or _max_sink_bytes()
+                if limit:
                     try:
                         if os.path.getsize(self.path) + len(line) + 1 \
-                                > self.max_bytes:
+                                > limit:
                             os.replace(self.path, self.path + ".1")
                     except OSError:
                         pass  # no file yet — first append creates it

@@ -1,34 +1,44 @@
 """Freshness and seal-latency SLOs: targets and live gauges.
 
-The port's copy of ``crdt_enc_tpu/obs/slo.py``.  Two specs:
+The port's copy of ``crdt_enc_tpu/obs/slo.py``.  Two specs, each read
+from the environment per call (:func:`freshness_spec`,
+:func:`seal_latency_spec`):
 
 * **freshness** — indicator ``divergence.watermark_lag`` of a
   replication status (versions the union clock is ahead of the causal
-  stability watermark); target 64 versions (:data:`FRESHNESS`).
+  stability watermark); target ``CRDT_SLO_FRESHNESS_LAG`` (default 64
+  versions).
 * **seal_latency** — a tenant's end-to-end completion latency in a
-  ``FoldService`` cycle; target 2.0 s (:data:`SEAL_LATENCY`).
+  ``FoldService`` cycle; target ``CRDT_SLO_SEAL_LATENCY_S`` (default
+  2.0 s).
 
-Both carry the objective 0.99: at most 1% of samples may violate.  The
-targets are the JAX package's defaults; a caller with other targets
-passes its own :class:`SloSpec`.  :func:`sample_freshness` runs inside
-``Core._sample_replication`` and sets the ``repl_slo_*`` gauges;
-``FoldService`` puts each cycle's :func:`cycle_burn` into its summary, its
-``serve_cycle`` sink record and the ``serve_slo_seal_burn`` gauge.  A
-window's **burn rate** is its violation fraction over the error budget
-(1 − objective): above 1 the window ate budget faster than the objective
-allows.  Post hoc, :func:`burn_report` is a pure function over sink
-records (freshness samples from their ``replication`` payloads,
-seal-latency samples from the ``serve_cycle`` records' ``meta.slo``)
-bucketed into fixed windows, rendered by ``obs_report slo``
-(:func:`format_burn`).
+Both carry the objective ``CRDT_SLO_OBJECTIVE`` (default 0.99: at most
+1% of samples may violate).  An unparsable value, or an objective
+outside (0, 1], keeps the default.  :func:`sample_freshness` runs inside ``Core._sample_replication`` and
+sets the ``repl_slo_*`` gauges; ``FoldService`` puts each cycle's
+:func:`cycle_burn` into its summary, its ``serve_cycle`` sink record and
+the ``serve_slo_seal_burn`` gauge.  A window's **burn rate** is its
+violation fraction over the error budget (1 − objective): above 1 the
+window ate budget faster than the objective allows.  Post hoc,
+:func:`burn_report` is a pure function over sink records (freshness
+samples from their ``replication`` payloads, seal-latency samples from
+the ``serve_cycle`` records' ``meta.slo``) bucketed into fixed windows,
+rendered by ``obs_report slo`` (:func:`format_burn`).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 from . import record
 
+ENV_FRESHNESS = "CRDT_SLO_FRESHNESS_LAG"
+ENV_SEAL = "CRDT_SLO_SEAL_LATENCY_S"
+ENV_OBJECTIVE = "CRDT_SLO_OBJECTIVE"
+
+DEFAULT_FRESHNESS_LAG = 64.0
+DEFAULT_SEAL_LATENCY_S = 2.0
 DEFAULT_OBJECTIVE = 0.99
 DEFAULT_WINDOW_S = 300.0
 
@@ -51,19 +61,43 @@ class SloSpec:
         return max(1.0 - self.objective, 1e-9)
 
 
-#: staleness lag against the watermark, per replication status
-FRESHNESS = SloSpec(
-    name="freshness",
-    indicator="replication.divergence.watermark_lag (versions)",
-    target=64.0,
-)
+def _env_float(var: str, default: float) -> float:
+    raw = os.environ.get(var, "")
+    if not raw:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        return default
 
-#: per-tenant seal latency of a FoldService cycle
-SEAL_LATENCY = SloSpec(
-    name="seal_latency",
-    indicator="FoldService per-tenant completion latency (seconds)",
-    target=2.0,
-)
+
+def _objective() -> float:
+    obj = _env_float(ENV_OBJECTIVE, DEFAULT_OBJECTIVE)
+    return obj if 0.0 < obj <= 1.0 else DEFAULT_OBJECTIVE
+
+
+def freshness_spec() -> SloSpec:
+    """Staleness-lag-vs-watermark target (env-tunable, module docs)."""
+    return SloSpec(
+        name="freshness",
+        indicator="replication.divergence.watermark_lag (versions)",
+        target=_env_float(ENV_FRESHNESS, DEFAULT_FRESHNESS_LAG),
+        objective=_objective(),
+    )
+
+
+def seal_latency_spec() -> SloSpec:
+    """Per-tenant seal-latency target for FoldService cycles."""
+    return SloSpec(
+        name="seal_latency",
+        indicator="FoldService per-tenant completion latency (seconds)",
+        target=_env_float(ENV_SEAL, DEFAULT_SEAL_LATENCY_S),
+        objective=_objective(),
+    )
+
+
+def default_specs() -> list[SloSpec]:
+    return [freshness_spec(), seal_latency_spec()]
 
 
 # ------------------------------------------------------------- live side
@@ -72,20 +106,22 @@ def freshness_value(status: dict) -> float:
     return float(status["divergence"]["watermark_lag"])
 
 
-def sample_freshness(status: dict, spec: SloSpec = FRESHNESS) -> bool:
+def sample_freshness(status: dict, spec: SloSpec | None = None) -> bool:
     """Publish the freshness-SLO gauges for one replication status —
     called by ``Core._sample_replication`` right after the ``repl_*``
     gauges.  Returns whether the sample met the target.  The target
     gauge rides along so a scraper can alert on
     ``repl_watermark_lag > repl_slo_freshness_target`` without
     duplicating config."""
+    if spec is None:
+        spec = freshness_spec()
     ok = freshness_value(status) <= spec.target
     record.gauge("repl_slo_freshness_ok", 1.0 if ok else 0.0)
     record.gauge("repl_slo_freshness_target", spec.target)
     return ok
 
 
-def cycle_burn(results, spec: SloSpec = SEAL_LATENCY) -> dict:
+def cycle_burn(results, spec: SloSpec | None = None) -> dict:
     """Seal-latency burn of ONE FoldService cycle: ``results`` are the
     cycle's TenantResult objects.  Sealed tenants' completion latencies
     compare against the target, and a tenant that ERRORED is a
@@ -95,6 +131,8 @@ def cycle_burn(results, spec: SloSpec = SEAL_LATENCY) -> dict:
     legitimately skipped (a quiet tenant's no-op cycle) are not
     attempts and stay out of the denominator.  The dict rides into the
     service's cycle sink record."""
+    if spec is None:
+        spec = seal_latency_spec()
     sealed = [r for r in results if getattr(r, "sealed", False)]
     errors = sum(
         1 for r in results if getattr(r, "error", None) is not None
@@ -114,10 +152,6 @@ def cycle_burn(results, spec: SloSpec = SEAL_LATENCY) -> dict:
             (violations / attempts) / spec.budget, 4
         ) if attempts else 0.0,
     }
-
-
-def default_specs() -> list[SloSpec]:
-    return [FRESHNESS, SEAL_LATENCY]
 
 
 # --------------------------------------------------------- post-hoc side

@@ -17,7 +17,8 @@ dict-shaped host objects.  This module owns the conversion:
 
 * **sparse fold**: in the regime where the planes would be mostly zeros
   (``orset_fold_sparse_host``), the batch folds on the host by sort and
-  run ends, straight into the sparse state (``orset_apply_coo``); a fold
+  run ends, straight into the sparse state (``orset_apply_coo``, which
+  also writes back the device sort of ``ops.orset.orset_fold_coo``); a fold
   into an empty state runs natively (``statebuild.cpp``) and stashes its
   surviving rows for the warm-open checkpoint,
 * **checkpoint rows**: an ORSet as flat int row buffers over interned
@@ -60,22 +61,59 @@ def pad_orset_rows(cols: "OrsetColumns", target: int, num_replicas: int):
     return cols
 
 
+def strictly_sorted(seq) -> bool:
+    """True iff ``seq`` is strictly ascending (⇒ unique).  C-level
+    pairwise compare — ~3ms at 100k byte-string actors vs ~10ms for an
+    index-based genexp; this sits ahead of every bulk ingest, where a
+    storage listing that is already the sorted actor table lets callers
+    skip a set union + re-sort of 100k keys."""
+    import operator
+    from itertools import islice
+
+    return all(map(operator.lt, seq, islice(seq, 1, None)))
+
+
 class Vocab:
     """Interning table: object → dense index (first-appearance order)."""
 
-    __slots__ = ("items", "index")
+    __slots__ = ("items", "_index")
 
     def __init__(self, items=()):
-        self.items: list = []
-        self.index: dict = {}
-        for it in items:
-            self.intern(it)
+        items = list(items)
+        index = dict(zip(items, range(len(items))))
+        if len(index) == len(items):  # no duplicates: one bulk dict build
+            self._index: dict | None = index
+            self.items: list = items
+        else:
+            self._index = {}
+            self.items = []
+            for it in items:
+                self.intern(it)
+
+    @classmethod
+    def presorted_unique(cls, items) -> "Vocab":
+        """Vocab over items the CALLER guarantees unique (e.g. a
+        strictly-sorted actor table).  Skips the eager index build —
+        hashing 100k byte-string keys costs ~10ms and the bulk fold
+        paths only read ``items`` positionally; the index still builds
+        lazily on first ``intern``/lookup."""
+        v = cls.__new__(cls)
+        v.items = list(items)
+        v._index = None
+        return v
+
+    @property
+    def index(self) -> dict:
+        if self._index is None:
+            self._index = dict(zip(self.items, range(len(self.items))))
+        return self._index
 
     def intern(self, item) -> int:
-        idx = self.index.get(item)
+        index = self.index
+        idx = index.get(item)
         if idx is None:
             idx = len(self.items)
-            self.index[item] = idx
+            index[item] = idx
             self.items.append(item)
         return idx
 

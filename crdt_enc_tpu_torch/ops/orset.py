@@ -10,6 +10,8 @@ contracts and argument names, on torch tensors.
   legal.
 * **merge**: the Orswot clock-filter merge as pure elementwise arithmetic
   over ``(E, R)`` planes.
+* **sparse fold** (``orset_fold_coo``): the batch sorted by segment key
+  and reduced to one max per touched ``(member, actor)``, no planes;
 * **tenant folds** (the fold service's buckets): T tenants' folds as ONE
   fold over ``(E, T·R)`` planes, tenant t's replica r in column
   ``t·R + r`` (``orset_fold_tenants``), and the plane diff that cuts each
@@ -159,6 +161,54 @@ def orset_fold(
 # actors are int32 and its cells int64, so T·R must stay below 2^31 (at the
 # bucket caps, 2^10 tenants of at most 2^20 cells, T·R ≤ 2^30).
 TENANT_COLUMNS_MAX = 2**31 - 1
+
+
+def orset_fold_coo(clock0, kind, member, actor, counter, *,
+                   num_members: int, num_replicas: int):
+    """Sparse fold: aggregate an op batch WITHOUT the dense ``(E, R)``
+    planes (the JAX package's ``orset_fold_coo``, an XLA function there,
+    plain PyTorch here on whatever device the tensors share).
+
+    The batch sorts by ``(segment key, counter)``; the last row of each
+    key's run holds that segment's max, so the work is O(N log N) and
+    independent of E·R.  Key ``member·R + actor`` is a live add's dot,
+    key ``E·R + member·R + actor`` a remove horizon, key ``2·E·R`` a row
+    that drops out (a padding row with ``actor >= R``, a replayed add,
+    any other kind).  Returns ``(clock, seg_keys, seg_max, is_seg_max)``
+    for ``ops.columnar.orset_apply_coo``; ``clock`` is ``clock0`` raised
+    by each live add's counter.  Keys and counters are int64, so the key
+    space is not bounded by int32 here; the accelerator routes batches
+    with ``2·E·R < 2^31`` to it, as the JAX package does."""
+    common_device(clock0, kind, member, actor, counter)
+    E, R = int(num_members), int(num_replicas)
+    clock0 = clock0.to(torch.int64)
+    member = member.to(torch.int64)
+    actor = actor.to(torch.int64)
+    counter = counter.to(torch.int64)
+    pad = actor >= R
+    actor_ix = actor.clamp(max=R - 1)
+    is_add = (kind == KIND_ADD) & ~pad
+    is_rm = (kind == KIND_RM) & ~pad
+    seen = counter <= clock0[actor_ix]
+    live_add = is_add & ~seen
+    valid = live_add | is_rm
+    seg = member * R + actor_ix
+    drop = 2 * E * R
+    key = torch.where(valid, torch.where(is_rm, seg + E * R, seg),
+                      torch.full_like(seg, drop))
+    # lexicographic (key, counter): a stable sort by counter, then a
+    # stable sort by key
+    by_counter = torch.sort(counter, stable=True).indices
+    by_key = torch.sort(key[by_counter], stable=True).indices
+    order = by_counter[by_key]
+    skey, scounter = key[order], counter[order]
+    nxt = torch.cat([skey[1:], skey.new_full((1,), -1)])
+    is_seg_max = (skey != nxt) & (skey < drop)
+    clock_new = torch.zeros(R, dtype=torch.int64, device=clock0.device)
+    clock_new.scatter_reduce_(
+        0, actor_ix, torch.where(live_add, counter, 0), "amax")
+    clock = torch.maximum(clock0, clock_new)
+    return clock, skey, scounter, is_seg_max
 
 
 def tenant_columns(actor, num_replicas: int):

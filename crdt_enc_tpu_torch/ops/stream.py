@@ -21,12 +21,15 @@ device, so device memory does not grow with the stream's length.
   planes ping-pong between two triples, so the device holds two chunk
   slots, the fold's scratch and two plane triples whatever the chunk
   count;
-* :func:`run_striped_ingest_pipeline` is the host-side producer pool
-  that decrypts and decodes chunks ahead of the fold (native calls that
-  release the interpreter lock), with a sequencer that hands them to the
-  consumer in strict chunk order, so the folded bytes do not depend on
-  the pool's width.  It is copied as it is: host threading, nothing of
-  JAX;
+* :func:`run_ingest_pipeline` (one producer a chunk) and
+  :func:`run_striped_ingest_pipeline` (producers share a chunk's file
+  stripes) are the host-side producer pools that decrypt and decode
+  chunks ahead of the fold (native calls that release the interpreter
+  lock), with a sequencer that hands them to the consumer in strict
+  chunk order, so the folded bytes do not depend on the pool's width.
+  They are copied as they are: host threading, nothing of JAX.  Their
+  width is :func:`stream_producer_count` (an explicit request, else
+  ``CRDT_STREAM_PRODUCERS``, else one per core but one);
 
 Exactness: chunked ≡ whole batch under the causal-delivery contract the
 core keeps (per-actor op files apply in version order): each chunk's
@@ -53,10 +56,24 @@ from ..utils import trace
 from .orset_fold_cuda import orset_fold_cuda
 
 
-def stream_producer_count() -> int:
-    """The ingest fan-out width (the N in the N-producer pipeline): one
-    producer per core but one, which the consumer keeps, at least 1."""
-    return max(1, (os.cpu_count() or 1) - 1)
+def stream_producer_count(requested: int = 0) -> int:
+    """Resolve the ingest fan-out width (the N in the N-producer
+    pipeline): an explicit positive ``requested`` wins, then the
+    ``CRDT_STREAM_PRODUCERS`` environment override (an unparsable or
+    non-positive value is ignored), then one producer per core but one,
+    which the consumer keeps, at least 1."""
+    if requested > 0:
+        return int(requested)
+    env = os.environ.get("CRDT_STREAM_PRODUCERS", "")
+    if env.strip():
+        try:
+            n = int(env)
+        except ValueError:
+            n = 0
+        if n > 0:
+            return n
+    cpus = os.cpu_count() or 1
+    return max(1, cpus - 1)
 
 
 class ChunkPool:
@@ -293,6 +310,142 @@ class PipelineError(Exception):
     original exception as ``__cause__``."""
 
 
+def run_ingest_pipeline(
+    spans, ingest_fn, reduce_fn, *, depth: int = 0, producers: int = 1,
+    thread_prefix: str = "crdt-ingest-producer",
+):
+    """Ordered fan-out pipeline over ``spans`` (any sequence of work
+    items — encrypted-blob slices for one remote's chunked ingest, or
+    whole tenants for the multi-tenant serving layer's cross-tenant
+    decode fan-out, ``serve/service.py``).
+
+    ``producers`` worker threads pull span indices from a shared cursor
+    and run ``ingest_fn(span, k)`` — decrypt + decode; host work whose
+    native calls release the GIL — concurrently, while the calling
+    thread runs ``reduce_fn(ingested, k)`` — columnarize + fold.  A
+    sequencer on the calling thread re-emits completed chunks in STRICT
+    chunk-index order, so the reduction order — and therefore the
+    donated-fold planes and the resulting state bytes — is identical to
+    the single-producer pipeline whatever the workers' finish order.
+
+    Backpressure: a ``BoundedSemaphore(depth)`` is acquired BEFORE a
+    chunk is claimed and released only after its reduce completes, so at
+    most ``depth`` chunks are ever live host-side — including chunks the
+    sequencer is holding back.  ``depth=0`` auto-sizes to
+    ``max(2, producers + 1)``: one chunk per worker in flight plus one
+    being reduced (the N-producer generalization of the double buffer).
+    No deadlock is possible: indices are claimed in increasing order
+    immediately after a slot acquire, so the chunk the sequencer waits
+    for is always either unclaimed with a free slot on its way, or
+    already being ingested by a live worker.
+
+    Stage timing: each ingest runs under a ``stream.ingest`` span and
+    each reduce under ``stream.reduce``, both with ``meta=k``; workers
+    are named ``<thread_prefix>-<i>`` (default ``crdt-ingest-producer``;
+    the serving layer passes ``crdt-serve-producer`` so its lanes stay
+    distinguishable in a timeline export) so the timeline export gives
+    each its own lane.  ``stream.producer.wait`` (meta = producer index)
+    times a worker's backpressure stall, ``stream.sequence`` (meta = k)
+    times the sequencer's wait for the next in-order chunk, and the
+    ``stream_producers`` gauge records the pool width of the run.
+
+    Errors: the first failing producer sets the shared stop flag — its
+    peers cancel at their next claim or slot poll, never claiming new
+    chunks — and the failure surfaces here as :class:`PipelineError`
+    (original as ``__cause__``) once every chunk BEFORE the failed index
+    has been reduced (chunks after it are discarded, releasing their
+    pending sequencer slots).  A consumer exception stops all producers
+    at their next poll and re-raises unchanged.  Either way the worker
+    threads are joined before this function returns.
+    """
+    spans = list(spans)
+    n_spans = len(spans)
+    producers = max(1, int(producers))
+    if depth <= 0:
+        depth = max(2, producers + 1)
+    trace.gauge("stream_producers", producers)
+    if n_spans == 0:
+        return
+    slots = threading.BoundedSemaphore(depth)
+    out_q: _queue.Queue = _queue.Queue()
+    stop = threading.Event()
+    cursor_lock = threading.Lock()
+    next_index = [0]
+
+    def produce(pid: int):
+        k = None
+        try:
+            while True:
+                # backpressure BEFORE claiming an index: a worker must
+                # never sit on a claimed chunk while waiting for memory,
+                # or the sequencer could stall behind an unstarted chunk
+                # (poll so a dead consumer can't strand this thread)
+                with trace.span("stream.producer.wait", meta=pid):
+                    while not slots.acquire(timeout=0.1):
+                        if stop.is_set():
+                            return
+                if stop.is_set():
+                    slots.release()
+                    return
+                with cursor_lock:
+                    k = next_index[0]
+                    next_index[0] += 1
+                if k >= n_spans:
+                    slots.release()
+                    return
+                with trace.span("stream.ingest", meta=k):
+                    item = ingest_fn(spans[k], k)
+                out_q.put(("chunk", k, item))
+                k = None
+        except BaseException as e:  # noqa: BLE001 — relayed to consumer
+            stop.set()  # first failure cancels the peers
+            out_q.put(("error", k if k is not None else -1, e))
+
+    workers = [
+        threading.Thread(
+            target=produce, args=(i,),
+            name=f"{thread_prefix}-{i}", daemon=True,
+        )
+        for i in range(producers)
+    ]
+    for w in workers:
+        w.start()
+    stash: dict[int, object] = {}
+    failures: dict[int, BaseException] = {}
+    expected = 0
+    try:
+        while expected < n_spans:
+            if failures and expected >= min(failures):
+                k = min(failures)
+                raise PipelineError(
+                    f"ingest producer failed at chunk {k}"
+                ) from failures[k]
+            if expected in stash:
+                item = stash.pop(expected)
+            else:
+                with trace.span("stream.sequence", meta=expected):
+                    while True:
+                        tag, k, item = out_q.get()
+                        if tag == "error":
+                            failures[k] = item
+                            break
+                        if k == expected:
+                            break
+                        stash[k] = item  # holds its slot until reduced
+                if tag == "error":
+                    continue  # drain the pre-failure prefix, then raise
+            try:
+                with trace.span("stream.reduce", meta=expected):
+                    reduce_fn(item, expected)
+            finally:
+                slots.release()
+            expected += 1
+    finally:
+        stop.set()
+        for w in workers:
+            w.join(timeout=30.0)
+
+
 class _ChunkWork:
     """One claimed chunk on the unified work queue: its stripe list, the
     claim cursor, the landed parts, and the remaining-stripe count."""
@@ -308,7 +461,9 @@ class _ChunkWork:
 
 
 def run_striped_ingest_pipeline(
-    spans, split_fn, stripe_fn, assemble_fn, reduce_fn, *, producers: int = 1,
+    spans, split_fn, stripe_fn, assemble_fn, reduce_fn, *,
+    depth: int = 0, producers: int = 1, inline: bool | None = None,
+    thread_prefix: str = "crdt-ingest-producer",
 ):
     """File-granular fan-out over ``spans``: the unified work queue.
 
@@ -325,14 +480,20 @@ def run_striped_ingest_pipeline(
     items in STRICT chunk order through a sequencer that stashes chunks
     finishing early, so the folded bytes are the same at any producer
     count and any stripe split.  Backpressure: a
-    ``BoundedSemaphore(producers + 1)`` (at least 2) is acquired before a
-    chunk is opened and released only after its reduce completes, so at
-    most that many chunks are ever live, stashed ones included.
+    ``BoundedSemaphore(depth)`` (``depth=0``: ``producers + 1``, at least
+    2) is acquired before a chunk is opened and released only after its
+    reduce completes, so at most that many chunks are ever live, stashed
+    ones included.
+
+    ``inline`` (None = auto): with one producer on a single-core host
+    the worker thread cannot overlap anything, so the whole pipeline
+    runs on the calling thread, byte-identically; ``inline=False``
+    forces the threaded path.
 
     Spans: ``stream.stripe``, ``stream.ingest`` and ``stream.reduce``
     (``meta=k``), ``stream.producer.wait`` (meta = producer index) and
     ``stream.sequence`` (meta = k); workers are named
-    ``crdt-ingest-producer-<i>``; the ``stream_producers`` gauge records the
+    ``<thread_prefix>-<i>``; the ``stream_producers`` gauge records the
     pool width.
 
     Errors: the first stripe or assemble failure stops the pool and
@@ -344,10 +505,27 @@ def run_striped_ingest_pipeline(
     spans = list(spans)
     n_spans = len(spans)
     producers = max(1, int(producers))
+    if depth <= 0:
+        depth = max(2, producers + 1)
     trace.gauge("stream_producers", producers)
     if n_spans == 0:
         return
-    slots = threading.BoundedSemaphore(max(2, producers + 1))
+    if inline is None:
+        inline = producers == 1 and (os.cpu_count() or 1) <= 1
+    if inline:
+        for k, span in enumerate(spans):
+            stripes = split_fn(span, k)
+            with trace.span("stream.ingest", meta=k):
+                parts = [
+                    stripe_fn(stripe, k, s)
+                    for s, stripe in enumerate(stripes)
+                ]
+                item = assemble_fn(parts, span, k)
+            with trace.span("stream.reduce", meta=k):
+                reduce_fn(item, k)
+        return
+
+    slots = threading.BoundedSemaphore(depth)
     out_q: _queue.Queue = _queue.Queue()
     stop = threading.Event()
     lock = threading.Lock()
@@ -435,7 +613,7 @@ def run_striped_ingest_pipeline(
 
     workers = [
         threading.Thread(target=produce, args=(i,),
-                         name=f"crdt-ingest-producer-{i}", daemon=True)
+                         name=f"{thread_prefix}-{i}", daemon=True)
         for i in range(producers)
     ]
     for w in workers:

@@ -14,7 +14,9 @@ op-file payloads decode natively into columns and fold on the device
 without per-op Python objects.  OR-Set batches past ``STREAM_CHUNK_ROWS``
 rows fold blockwise (ops/stream.py), and OR-Set batches in the sparse
 regime (few rows over a huge vocabulary) fold by one sort on the host
-(``orset_fold_sparse_host``), whichever entry point they come through.
+(``orset_fold_sparse_host``), or with ``sparse_device`` by one sort on
+the device (``ops.orset.orset_fold_coo``), whichever entry point they
+come through.
 ``merge_states`` merges three or more ORSets on the device.
 ``open_fold_session`` (parallel/session.py) feeds the core's pipelined
 ingest chunk by chunk; ``fold_encrypted_stream`` runs decrypt, decode and
@@ -39,6 +41,8 @@ counterpart here.
 from __future__ import annotations
 
 import operator
+import os
+import warnings
 import weakref
 from itertools import islice
 
@@ -68,6 +72,7 @@ from ..ops.columnar import (
     counter_ops_to_columns,
     dense_to_vclock,
     lww_ops_to_columns,
+    orset_apply_coo,
     orset_fits_int32,
     orset_fold_sparse_host,
     orset_ops_to_columns,
@@ -85,7 +90,7 @@ from ..ops.native_decode import (
     decode_orset_payload_batch,
     decode_orset_payload_spans,
 )
-from ..ops.orset import orset_fold, orset_merge_many
+from ..ops.orset import orset_fold, orset_fold_coo, orset_merge_many
 from ..ops.stream import ChunkPool, iter_orset_chunks, orset_fold_stream
 from ..utils import codec, trace
 
@@ -123,7 +128,8 @@ class TorchAccelerator(HostAccelerator):
     three or more ORSet states on the device; other state types and
     batches below ``min_device_batch`` take the host loops.  Sparse
     OR-Set batches over huge vocabularies fold with the vectorized host
-    fold, as in the JAX package.
+    fold, or the device COO fold under ``sparse_device``, as in the JAX
+    package.
 
     ``device``: ``None`` means ``"cuda"``, and then CUDA must be
     available: the accelerator raises rather than carry on silently on
@@ -133,10 +139,28 @@ class TorchAccelerator(HostAccelerator):
     ``mesh``: a ``parallel.mesh.Mesh``.  With two or more shards every
     fold and merge routes through the sharded functions — op rows over
     ``dp``, state planes over ``mp`` — so ``Core.compact`` runs on every
-    shard; the device is the mesh's home.  ``sharded_stream`` (None =
-    on) lets the fold session stream through the sharded fold (parallel/
-    session.py ``_device_feed_sharded``) instead of buffering the whole
-    batch for one sharded fold at finish."""
+    shard; the device is the mesh's home.  ``sharded_stream`` lets the
+    fold session stream through the sharded fold (parallel/session.py
+    ``_device_feed_sharded``) instead of buffering the whole batch for
+    one sharded fold at finish: None = ``CRDT_SHARDED_STREAM`` (``0``
+    off, ``1`` or unset on, anything else warns and keeps on), and only
+    ever with an active mesh.
+
+    ``sparse_device``: sparse-regime OR-Set folds with ``2·E·R < 2^31``
+    take the COO fold on the accelerator's device (``ops.orset.
+    orset_fold_coo``: sort the batch by ``(member, actor)`` key, one max
+    per key) instead of the host sort; the writeback is the host route's
+    ``orset_apply_coo``.  Off by default, as in the JAX package.
+
+    ``plane_reuse``: keep a dense fold's planes on the device for the
+    next fold of the same state (None = ``CRDT_PLANE_REUSE``; ``0``,
+    ``false``, ``off``, ``no`` or ``disabled`` turn it off, so the cache
+    is never consulted or filled).
+
+    ``stream_producers``: the ingest fan-out of ``fold_encrypted_stream``
+    and the core's pipelined ingest (0 = ``ops.stream.
+    stream_producer_count``: ``CRDT_STREAM_PRODUCERS``, else one per
+    core but one)."""
 
     # Above this many plane cells per batch row the dense planes' init and
     # sweep dominate the fold; below SPARSE_MIN_CELLS they are cheap.
@@ -147,7 +171,10 @@ class TorchAccelerator(HostAccelerator):
     STREAM_CHUNK_ROWS = 1 << 22
 
     def __init__(self, device=None, min_device_batch: int = MIN_DEVICE_BATCH,
-                 mesh=None, sharded_stream: bool | None = None):
+                 mesh=None, sharded_stream: bool | None = None,
+                 sparse_device: bool = False,
+                 plane_reuse: bool | None = None,
+                 stream_producers: int = 0):
         if mesh is not None:
             if device is not None and torch.device(device) != mesh.home:
                 raise ValueError(f"TorchAccelerator: device {device} is not "
@@ -165,11 +192,32 @@ class TorchAccelerator(HostAccelerator):
         self.device = device
         self.min_device_batch = min_device_batch
         self.mesh = mesh
-        self.sharded_stream = (sharded_stream is not False
-                               and self._mesh_active())
+        # an unrecognized CRDT_SHARDED_STREAM keeps the auto default:
+        # never a silent opt-in from a mistyped opt-out
+        if sharded_stream is None:
+            env = os.environ.get("CRDT_SHARDED_STREAM", "").strip().lower()
+            if env in ("0", "false", "off", "no", "disabled"):
+                sharded_stream = False
+            elif env in ("1", "true", "on", "yes", "enabled") or not env:
+                sharded_stream = True
+            else:
+                warnings.warn(
+                    f"CRDT_SHARDED_STREAM={env!r} not recognized; "
+                    "keeping the auto default (on with an active mesh)",
+                    stacklevel=2,
+                )
+                sharded_stream = True
+        self.sharded_stream = bool(sharded_stream) and self._mesh_active()
+        self.sparse_device = sparse_device
         # device-resident plane reuse across fold rounds (one device
         # only: the sharded fold never fills it)
+        if plane_reuse is None:
+            plane_reuse = os.environ.get(
+                "CRDT_PLANE_REUSE", ""
+            ).strip().lower() not in ("0", "false", "off", "no", "disabled")
+        self.plane_reuse = bool(plane_reuse)
         self._plane_cache: _OrsetPlaneCache | None = None
+        self.stream_producers = stream_producers
 
     def _mesh_active(self) -> bool:
         return self.mesh is not None and self.mesh.size > 1
@@ -226,7 +274,10 @@ class TorchAccelerator(HostAccelerator):
     # ---------------------------------------------------------- plane cache
     def _plane_cache_for(self, state: ORSet) -> _OrsetPlaneCache | None:
         """The live cache entry for ``state``, or None (no entry, an entry
-        for another object, or the state mutated since it was filled)."""
+        for another object, or the state mutated since it was filled;
+        always None with ``plane_reuse`` off)."""
+        if not self.plane_reuse:
+            return None
         c = self._plane_cache
         if c is None or c.ref() is not state:
             return None
@@ -290,8 +341,11 @@ class TorchAccelerator(HostAccelerator):
         post-writeback epoch.  The weakref finalizer drops the entry when
         the state dies — plane-sized device buffers must not outlive the
         replica they cache (the accelerator is held weakly in the
-        callback, so nothing keeps anything alive)."""
+        callback, so nothing keeps anything alive).  With ``plane_reuse``
+        off only the epoch moves."""
         state._mut += 1
+        if not self.plane_reuse:
+            return
         accel_ref = weakref.ref(self)
 
         def _drop(dead_ref):
@@ -358,6 +412,9 @@ class TorchAccelerator(HostAccelerator):
             # its rows for the checkpoint under that epoch): only the
             # planes go
             self._drop_plane_cache(state)
+            if self.sparse_device and 2 * E * R < 2**31:
+                return self._fold_orset_coo_device(
+                    state, kind, member, actor, counter, members, replicas)
             return orset_fold_sparse_host(state, kind, member, actor,
                                           counter, members, replicas)
         if cache is not None:
@@ -401,6 +458,31 @@ class TorchAccelerator(HostAccelerator):
             cache.canon if cache is not None else None,
         )
         return state
+
+    def _fold_orset_coo_device(self, state: ORSet, kind, member, actor,
+                               counter, members: Vocab,
+                               replicas: Vocab) -> ORSet:
+        """The sparse regime on the device: ``orset_fold_coo`` sorts the
+        batch by segment key and takes one max per key without dense
+        planes; the writeback is ``orset_apply_coo``, shared with the
+        host route, so the two cannot drift."""
+        # the dense clock first: it may intern clock actors into
+        # `replicas`, and the segment keys are taken modulo the final R
+        clock0 = vclock_to_dense(state.clock, replicas)
+        E, R = len(members), len(replicas)
+        with trace.span("fold.coo"):
+            dev = self._upload((
+                clock0, np.asarray(kind, np.int8), np.asarray(member),
+                np.asarray(actor), np.asarray(counter),
+            ))
+            clock, skey, smax, is_max = (
+                x.cpu().numpy() for x in orset_fold_coo(
+                    *dev, num_members=E, num_replicas=R)
+            )
+            del dev
+        with trace.span("fold.writeback"):
+            return orset_apply_coo(state, clock, skey, smax, is_max,
+                                   members, replicas)
 
     def _fold_orset_sharded(self, state: ORSet, kind, member, actor, counter,
                             members: Vocab, replicas: Vocab) -> ORSet:
@@ -681,20 +763,26 @@ class TorchAccelerator(HostAccelerator):
         return open_fold_session(self, state, actors_hint)
 
     def fold_encrypted_stream(self, state, key: bytes, blobs: list, *,
-                              actors_hint=(), n_chunks: int | None = None,
+                              actors_hint=(), chunk_blobs: int = 0,
+                              n_chunks: int | None = None, depth: int = 0,
+                              n_threads: int = 0,
                               n_producers: int = 0) -> bool:
         """Encrypted op-file blobs in, folded ``state`` out, with decrypt,
         decode and fold overlapped (the JAX accelerator's config-5 entry).
 
-        The blobs split into ``n_chunks`` chunks (None:
-        ``ENCRYPTED_STREAM_CHUNKS``, 8 as in the JAX package).
-        ``n_producers`` worker threads (0: one per core but one,
-        ops/stream.py ``stream_producer_count``) claim file-granular
-        stripes of each chunk off one work queue
-        (``run_striped_ingest_pipeline``) and decrypt them natively; the worker landing a chunk's last stripe
-        decodes it, and this thread reduces the chunks in order through a
-        fold session (BUFFER, HOST_REDUCE or DEVICE_STREAM by regime), so
-        the bytes do not depend on the producer count or the stripe
+        The blobs split into chunks of ``chunk_blobs`` blobs (0: into
+        ``n_chunks`` chunks; None: ``ENCRYPTED_STREAM_CHUNKS``, 8 as in
+        the JAX package).  ``n_producers`` worker threads (0: the
+        accelerator's ``stream_producers``, itself 0 = ops/stream.py
+        ``stream_producer_count``) claim file-granular stripes of each
+        chunk off one work queue (``run_striped_ingest_pipeline``, at
+        most ``depth`` chunks live, 0 = producers + 1) and decrypt them
+        natively with ``n_threads`` threads a call (0: the native pool's
+        own width for one producer, one thread each for several); the
+        worker landing a chunk's last stripe decodes it, and this thread
+        reduces the chunks in order through a fold session (BUFFER,
+        HOST_REDUCE or DEVICE_STREAM by regime), so the bytes do not
+        depend on the producer count, the thread count or the stripe
         split.
 
         Returns False — with ``state`` untouched, since sessions mutate
@@ -716,15 +804,20 @@ class TorchAccelerator(HostAccelerator):
         n = len(blobs)
         if n == 0:
             return True
-        if n_chunks is None:
-            n_chunks = ENCRYPTED_STREAM_CHUNKS
-        chunk_blobs = -(-n // max(n_chunks, 1))
+        if chunk_blobs <= 0:
+            if n_chunks is None:
+                n_chunks = ENCRYPTED_STREAM_CHUNKS
+            chunk_blobs = -(-n // max(n_chunks, 1))
         spans = [blobs[i : i + chunk_blobs] for i in range(0, n, chunk_blobs)]
-        producers = n_producers if n_producers > 0 else stream_producer_count()
+        producers = n_producers if n_producers > 0 else self.stream_producers
+        if producers <= 0:
+            producers = stream_producer_count()
         # several producers: each stripe decrypts single-threaded and the
         # pool is the parallelism; one producer keeps the native call's
         # own threads (0 = from the core count)
-        stripe_threads = 0 if producers == 1 else 1
+        stripe_threads = n_threads if n_threads else (
+            0 if producers == 1 else 1
+        )
 
         def split(span, k):
             """Byte-bounded stripes, so one giant op file forms its own
@@ -770,7 +863,8 @@ class TorchAccelerator(HostAccelerator):
 
         try:
             run_striped_ingest_pipeline(
-                spans, split, stripe, assemble, reduce, producers=producers,
+                spans, split, stripe, assemble, reduce,
+                depth=depth, producers=producers,
             )
             with trace.span("stream.finish"):
                 session.finish()

@@ -36,7 +36,7 @@ control plane needs:
   probe every ``breaker_probe_every`` cycles attempts ONE tenant; a
   successful seal closes the breaker.
 * **admission / eviction while running** — :meth:`admit` gates new
-  tenants against the warm plane tier's byte budget (observed
+  tenants against ``max_tenants`` and the warm plane tier's byte budget (observed
   bytes-per-tenant, falling back to a configured estimate) and
   :meth:`evict` checkpoints a tenant and hands its core back, both
   serialized against in-flight cycles by the daemon lock — the fleet
@@ -69,7 +69,7 @@ import time
 from dataclasses import dataclass, field
 
 from ..utils import trace
-from .service import IO_WIDTH, FoldService, ServeConfig
+from .service import FoldService, ServeConfig
 
 logger = logging.getLogger("crdt_enc_tpu_torch.serve.daemon")
 
@@ -78,9 +78,18 @@ ACTIVE = "active"
 BACKOFF = "backoff"
 QUARANTINED = "quarantined"
 
-#: admission refuses tenants past this many (and past the byte budget at
-#: the per-tenant resident cost)
-MAX_TENANTS = 100_000
+#: error classes the backoff path treats as self-clearing (substring
+#: match on the ``TenantResult.error`` repr — the service reports errors
+#: as reprs so tenant isolation never re-raises across the fleet); the
+#: classification labels the backoff's log line
+TRANSIENT_ERRORS = (
+    "IngestDecryptError",
+    "StaleWriterError",
+    "MissingKeyError",
+    "OSError",
+    "ConnectionError",
+    "TimeoutError",
+)
 
 
 class AdmissionError(RuntimeError):
@@ -95,6 +104,16 @@ class DaemonConfig:
     :meth:`FleetDaemon.run_forever` between cycles."""
 
     interval_s: float = 1.0
+    # wall-clock-aware pacing: with interval_auto on, run_forever paces
+    # by next_interval() — the freshness-SLO burn over the last
+    # burn_window_s of the daemon's clock drives the interval
+    # geometrically between interval_max_s (no burn) and interval_min_s
+    # (burn >= 1: laggards holding the watermark back are visited
+    # sooner)
+    interval_auto: bool = False
+    interval_min_s: float = 0.05
+    interval_max_s: float = 8.0
+    burn_window_s: float = 30.0
     # scheduler: compact when backlog >= min_backlog_files or watermark
     # lag exceeds the freshness-SLO target, and at least every
     # max_idle_cycles regardless; at most `batch` tenants per cycle
@@ -113,9 +132,10 @@ class DaemonConfig:
     # half-open probe every M cycles while degraded
     breaker_after: int = 3
     breaker_probe_every: int = 4
-    # admission: refuse tenants past MAX_TENANTS, or past the byte budget
+    # admission: refuse tenants past max_tenants, or past the byte budget
     # admission_bytes (0 = serve.warm_bytes) at the per-tenant resident
     # cost, assumed tenant_cost_bytes until the warm tier has observed one
+    max_tenants: int = 100_000
     admission_bytes: int = 0
     tenant_cost_bytes: int = 1 << 20
     serve: ServeConfig = field(
@@ -161,10 +181,13 @@ class FleetDaemon:
         self._entries: dict[str, TenantEntry] = {}
         self._rng = random.Random(f"crdt-daemon-{seed}")
         self._cycle = 0
-        # the deterministic-clock seam: every wall-time read goes
-        # through here
+        # the deterministic-clock seam: every wall-time read (uptime,
+        # the SLO burn window, the auto interval) goes through here
         self._clock = clock if clock is not None else time.monotonic
         self._started = self._clock()
+        # live freshness-burn samples (clock_t, bad, good) for the
+        # wall-clock-aware interval (pruned to burn_window_s)
+        self._burn_window: list = []
         # freshness-wait protocol: per-tenant waiters blocked until the
         # tenant's stable prefix covers a target clock; a waiting tenant
         # jumps the cadence queue
@@ -206,7 +229,7 @@ class FleetDaemon:
             raise AdmissionError(f"daemon is {self.state}")
         if tid in self._entries:
             raise AdmissionError(f"tenant {tid!r} already admitted")
-        if len(self._entries) >= MAX_TENANTS:
+        if len(self._entries) >= self.config.max_tenants:
             raise AdmissionError(
                 f"fleet full ({len(self._entries)} tenants)"
             )
@@ -293,7 +316,7 @@ class FleetDaemon:
         """The freshness-SLO target, resolved once per cycle."""
         from ..obs import slo as obs_slo
 
-        return obs_slo.FRESHNESS.target
+        return obs_slo.freshness_spec().target
 
     def _score(self, entry: TenantEntry, target: float):
         """Staleness priority, as a sort KEY: a pending freshness
@@ -408,8 +431,9 @@ class FleetDaemon:
             await self._compact(selected, report)
             await self._poll(rest, report)
 
-        # ---- freshness-wait resolution
+        # ---- freshness-wait resolution + live SLO burn sample
         await self._resolve_waiters(report)
+        self._note_burn(target)
 
         # ---- gauges + outcome bookkeeping
         counts = {ACTIVE: 0, BACKOFF: 0, QUARANTINED: 0}
@@ -481,11 +505,49 @@ class FleetDaemon:
                 [w for w in pending if not w[1].done()]
             )
 
+    def _note_burn(self, target: float) -> None:
+        """One live freshness-burn sample per cycle: the fraction of
+        tenants whose watermark lag exceeds the SLO target, window-
+        bucketed by the daemon clock — obs/slo.py's burn accounting
+        applied to the running fleet instead of sink records."""
+        bad = good = 0
+        for entry in self._entries.values():
+            status = entry.status()
+            if status is None:
+                continue
+            if float(status["divergence"]["watermark_lag"]) > target:
+                bad += 1
+            else:
+                good += 1
+        now = self._clock()
+        self._burn_window.append((now, bad, good))
+        horizon = now - max(self.config.burn_window_s, 1e-9)
+        while self._burn_window and self._burn_window[0][0] < horizon:
+            self._burn_window.pop(0)
+
     def next_interval(self) -> float:
-        """The pacing for run_forever's next sleep: ``interval_s``,
-        published as the ``daemon_interval_s`` gauge."""
-        trace.gauge("daemon_interval_s", self.config.interval_s)
-        return self.config.interval_s
+        """The pacing for run_forever's next sleep.  Fixed
+        ``interval_s`` unless ``interval_auto``; with it, the freshness
+        burn rate over the live window drives the interval
+        geometrically from ``interval_max_s`` (no burn) down to
+        ``interval_min_s`` (burn >= 1).  Published as the
+        ``daemon_interval_s`` gauge either way."""
+        cfg = self.config
+        if not cfg.interval_auto:
+            trace.gauge("daemon_interval_s", cfg.interval_s)
+            return cfg.interval_s
+        from ..obs import slo as obs_slo
+
+        spec = obs_slo.freshness_spec()
+        bad = sum(b for _, b, _ in self._burn_window)
+        total = bad + sum(g for _, _, g in self._burn_window)
+        frac = bad / total if total else 0.0
+        burn = min(1.0, frac / spec.budget)
+        lo = max(cfg.interval_min_s, 1e-3)
+        hi = max(cfg.interval_max_s, lo)
+        interval = hi * (lo / hi) ** burn
+        trace.gauge("daemon_interval_s", interval)
+        return interval
 
     async def _compact(self, entries, report, *, half_open: bool = False):
         """Run one FoldService cycle over ``entries`` and feed the
@@ -536,7 +598,7 @@ class FleetDaemon:
     async def _poll(self, entries, report) -> None:
         """Stat-only freshness refresh for tenants not compacted this
         cycle: updates each tenant's staleness inputs without any
-        decrypt/decode work — fanned out under the service's ``IO_WIDTH``
+        decrypt/decode work — fanned out under the service's ``io_width``
         bound so a large quiet fleet does not pay one sequential storage
         round-trip per tenant.  Poll failures ride the same backoff
         machine — an unreachable remote backs its tenant off whether it
@@ -544,7 +606,7 @@ class FleetDaemon:
         entries = [e for e in entries if e.state == ACTIVE]
         if not entries:
             return
-        sem = asyncio.Semaphore(IO_WIDTH)
+        sem = asyncio.Semaphore(max(1, self.config.serve.io_width))
 
         async def one(entry: TenantEntry):
             async with sem:
@@ -579,6 +641,7 @@ class FleetDaemon:
     def _note_failure(self, entry: TenantEntry, error: str) -> None:
         entry.failures += 1
         entry.last_error = error
+        transient = any(t in error for t in TRANSIENT_ERRORS)
         if entry.state == QUARANTINED:
             # a failed re-probe re-parks; the modulo cadence restarts
             entry.quarantined_at = self._cycle
@@ -603,8 +666,10 @@ class FleetDaemon:
         entry.eligible_at = self._cycle + max(1, round(delay))
         trace.add("daemon_backoffs", 1)
         logger.info(
-            "tenant %s backing off until cycle %d (failure %d: %s)",
-            entry.tid, entry.eligible_at, entry.failures, error,
+            "tenant %s backing off until cycle %d (%s failure %d: %s)",
+            entry.tid, entry.eligible_at,
+            "transient" if transient else "unclassified",
+            entry.failures, error,
         )
 
     # ------------------------------------------------------------- drain
@@ -659,8 +724,10 @@ class FleetDaemon:
         return errors
 
     async def run_forever(self, *, max_cycles: int = 0) -> None:
-        """The supervised loop: cycle, pace by ``interval_s``, drain on
-        request (or after ``max_cycles`` > 0).  A cycle that raises
+        """The supervised loop: cycle, pace by :meth:`next_interval`
+        (``interval_s``, or the burn-paced interval under
+        ``interval_auto``), drain on request (or after ``max_cycles`` >
+        0).  A cycle that raises
         unexpectedly is logged and the loop keeps going — the daemon
         only stops on drain."""
         try:

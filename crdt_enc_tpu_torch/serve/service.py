@@ -88,10 +88,6 @@ from .warm import DEFAULT_BYTE_BUDGET, PlaneWarmTier
 
 logger = logging.getLogger("crdt_enc_tpu_torch.serve")
 
-#: concurrent tenant ingests and seals (a bounded asyncio semaphore); the
-#: daemon's stat-only polls share the bound
-IO_WIDTH = 16
-
 
 @dataclass
 class ServeConfig:
@@ -100,6 +96,12 @@ class ServeConfig:
     rows_cap: int = bucketing.DEFAULT_ROWS_CAP
     cells_cap: int = bucketing.DEFAULT_CELLS_CAP
     tenants_cap: int = bucketing.DEFAULT_TENANTS_CAP
+    # decode fan-out width: 0 = auto (ops.stream.stream_producer_count:
+    # CRDT_STREAM_PRODUCERS, else one per core but one)
+    producers: int = 0
+    # concurrent tenant ingests and seals (a bounded asyncio semaphore);
+    # the daemon's stat-only polls share the bound
+    io_width: int = 16
     # the warm plane tier (serve.warm); off, it is neither consulted nor
     # filled, and every cycle folds each tenant from its state
     warm: bool = True
@@ -409,7 +411,7 @@ class FoldService:
 
     # ------------------------------------------------------------ ingest
     async def _ingest_all(self, works) -> None:
-        sem = asyncio.Semaphore(IO_WIDTH)
+        sem = asyncio.Semaphore(max(1, self.config.io_width))
 
         async def one(w: _TenantWork):
             async with sem:
@@ -540,41 +542,53 @@ class FoldService:
 
     # ------------------------------------------------------------ decode
     def _decode_all(self, works) -> None:
-        """The cross-tenant decode fan-out, off the event loop: groups of
-        tenants mapped over a thread pool (the native decoders release
-        the interpreter lock); each result lands on its own work item."""
-        from concurrent.futures import ThreadPoolExecutor
+        """The cross-tenant decode fan-out, off the event loop: the
+        ordered producer pool (``ops.stream.run_ingest_pipeline``) with
+        groups of tenants as its work items, ``config.producers`` wide
+        (the native decoders release the interpreter lock); results land
+        on each work item in tenant order."""
+        from ..ops.stream import run_ingest_pipeline, stream_producer_count
 
-        from ..ops.stream import stream_producer_count
-
-        producers = stream_producer_count()
+        producers = self.config.producers
+        if producers <= 0:
+            producers = stream_producer_count()
         # a few groups per producer: thousands of tiny tenants ride in
-        # groups, not one pool hop each
+        # groups, not one queue hop and span each
         group = max(1, -(-len(works) // max(producers * 4, 1)))
         chunks = [works[i : i + group] for i in range(0, len(works), group)]
 
-        def decode_group(chunk: list) -> None:
+        def decode_one(w: _TenantWork):
+            with trace.span("serve.decode", meta=w.idx):
+                if w.kind == "orset":
+                    return _decode_orset_columns(
+                        w.core.adapter, w.payloads, w.actors_sorted
+                    )
+                return _decode_gcounter_columns(
+                    w.core.adapter, w.payloads, w.actors_sorted
+                )
+
+        def ingest(chunk: list, k: int):
+            out = []
             for w in chunk:
                 try:
-                    with trace.span("serve.decode", meta=w.idx):
-                        if w.kind == "orset":
-                            w.cols = _decode_orset_columns(
-                                w.core.adapter, w.payloads, w.actors_sorted
-                            )
-                        else:
-                            w.cols = _decode_gcounter_columns(
-                                w.core.adapter, w.payloads, w.actors_sorted
-                            )
-                    # None = the per-op fallback
+                    out.append(decode_one(w))
                 except Exception as e:  # tenant isolation
-                    w.result.error = repr(e)
-                    w.result.path = "error"
+                    out.append(("error", e))
+            return out
 
-        with ThreadPoolExecutor(
-            max_workers=min(producers, len(chunks)),
-            thread_name_prefix="crdt-serve-producer",
-        ) as pool:
-            list(pool.map(decode_group, chunks))
+        def reduce(decoded_list, k: int):
+            for w, decoded in zip(chunks[k], decoded_list):
+                if isinstance(decoded, tuple) and len(decoded) == 2 and \
+                        decoded[0] == "error":
+                    w.result.error = repr(decoded[1])
+                    w.result.path = "error"
+                else:
+                    w.cols = decoded  # None = the per-op fallback
+
+        run_ingest_pipeline(
+            chunks, ingest, reduce, producers=producers,
+            thread_prefix="crdt-serve-producer",
+        )
 
     # -------------------------------------------------------------- fold
     def _fold_batched(self, works) -> None:
@@ -1046,7 +1060,7 @@ class FoldService:
 
     # -------------------------------------------------------------- seal
     async def _seal_all(self, works, t0: float) -> None:
-        sem = asyncio.Semaphore(IO_WIDTH)
+        sem = asyncio.Semaphore(max(1, self.config.io_width))
 
         async def one(w: _TenantWork):
             async with sem:

@@ -20,15 +20,24 @@ this statically, so this module enforces the same contract at runtime:
 The proxy layer is active only under ``__debug__`` (i.e. not with
 ``python -O``), mirroring a debug-mode borrow checker: release builds pay
 nothing, test/dev builds turn the convention into a hard error.
+:func:`in_section` tells whether the caller runs inside a section (a
+context variable counts the nesting), and :func:`assert_outside_section`
+guards an await point against one.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import inspect
 from typing import Any, Callable, TypeVar
 
 T = TypeVar("T")
+
+# section nesting depth of the current context (debug builds only)
+_depth: contextvars.ContextVar[int] = contextvars.ContextVar(
+    "lockbox_depth", default=0
+)
 
 class LockBoxViolation(RuntimeError):
     """A LockBox borrow escaped its synchronous section and was used."""
@@ -113,9 +122,11 @@ class LockBox:
         if not __debug__:
             return fn(self._value)
         borrow = _Borrow(self._value)
+        tok = _depth.set(_depth.get() + 1)
         try:
             out = fn(borrow)
         finally:
+            _depth.reset(tok)
             object.__setattr__(borrow, "_lockbox_alive", False)
         if inspect.isawaitable(out) or inspect.isgenerator(out):
             raise TypeError(
@@ -123,3 +134,20 @@ class LockBox:
                 f"({type(out).__name__}); the borrow must not cross awaits"
             )
         return out
+
+    def replace(self, value: T) -> None:
+        """Swap the guarded value (setup/teardown only, not a section)."""
+        self._value = value
+
+
+def in_section() -> bool:
+    """True when the caller is (transitively) inside a LockBox section."""
+    return _depth.get() > 0
+
+
+def assert_outside_section(what: str) -> None:
+    """Guard for await points: raise if erroneously inside a section."""
+    if in_section():
+        raise LockBoxViolation(
+            f"{what} would suspend inside a LockBox synchronous section"
+        )

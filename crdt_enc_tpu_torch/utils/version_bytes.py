@@ -1,7 +1,8 @@
 """Version-tagged byte blobs — the wire-format substrate.
 
-The port's copy of ``crdt_enc_tpu/utils/version_bytes.py`` without
-``VersionBytesBuf`` (nothing in the port writes vectored).
+The port's copy of ``crdt_enc_tpu/utils/version_bytes.py``, with
+``VersionBytesBuf``, the zero-copy version‖content buffer for vectored
+writes.
 
 Every persisted object in the framework (op files, state snapshots, remote
 metadata, key material, ciphertext envelopes) is a ``VersionBytes``: a 16-byte
@@ -113,3 +114,70 @@ class VersionBytes:
         if self.version not in supported:
             raise VersionError(self.version, supported)
         return self
+
+    @property
+    def uuid(self) -> uuid.UUID:
+        return uuid.UUID(bytes=self.version)
+
+    def buf(self) -> "VersionBytesBuf":
+        return VersionBytesBuf(self.version, self.content)
+
+
+class VersionBytesBuf:
+    """Zero-copy buffer chaining the version tag and the content.
+
+    Implements the chunked-buffer contract (remaining / chunk / advance /
+    chunks_vectored) so writers can emit version‖content without concatenating
+    (reference ``VersionBytesBuf``, version_bytes.rs:245-309).
+    """
+
+    def __init__(self, version: bytes | uuid.UUID, content: bytes):
+        self._version = memoryview(_as_version(version))
+        self._content = memoryview(bytes(content))
+        self._pos = 0  # absolute cursor over version ‖ content
+
+    def __len__(self) -> int:
+        return self.remaining()
+
+    def remaining(self) -> int:
+        return (VERSION_LEN + len(self._content)) - self._pos
+
+    def chunk(self) -> memoryview:
+        """The current contiguous chunk (never straddles the boundary)."""
+        if self._pos < VERSION_LEN:
+            return self._version[self._pos :]
+        off = self._pos - VERSION_LEN
+        return self._content[off:]
+
+    def advance(self, n: int) -> None:
+        if n < 0:
+            raise IndexError(f"cannot advance by negative amount {n}")
+        if n > self.remaining():
+            raise IndexError(
+                f"cannot advance {n} bytes; only {self.remaining()} remaining"
+            )
+        self._pos += n
+
+    def chunks_vectored(self, limit: int = 64) -> list[memoryview]:
+        """All remaining chunks, for vectored (writev-style) I/O."""
+        out: list[memoryview] = []
+        if limit <= 0 or self.remaining() == 0:
+            return out
+        if self._pos < VERSION_LEN:
+            out.append(self._version[self._pos :])
+            if len(out) < limit and len(self._content) > 0:
+                out.append(self._content[:])
+        else:
+            off = self._pos - VERSION_LEN
+            if off < len(self._content):
+                out.append(self._content[off:])
+        return out
+
+    def read_all(self) -> bytes:
+        """Drain the buffer into one bytes object."""
+        out = bytearray()
+        while self.remaining():
+            c = self.chunk()
+            out += c
+            self.advance(len(c))
+        return bytes(out)

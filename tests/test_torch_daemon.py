@@ -72,7 +72,6 @@ from crdt_enc_tpu_torch.serve import (
     FoldService,
     ServeConfig,
 )
-from crdt_enc_tpu_torch.serve import daemon as daemon_mod
 from crdt_enc_tpu_torch.serve.daemon import (
     ACTIVE,
     BACKOFF,
@@ -540,26 +539,22 @@ def test_jittered_backoff_schedule_equals_the_jax_daemon():
 # --------------------------------------------------- admission/eviction
 
 
-def max_tenants(side, daemon, n: int, monkeypatch) -> None:
-    """The fleet cap: a constant of the port's daemon module, a config
-    field of the JAX daemon."""
-    if side is PORT:
-        monkeypatch.setattr(daemon_mod, "MAX_TENANTS", n)
-    else:
-        daemon.config.max_tenants = n
+def max_tenants(daemon, n: int) -> None:
+    """The fleet cap: a config field of both daemons."""
+    daemon.config.max_tenants = n
 
 
-def test_admission_budget_and_eviction_checkpoint(monkeypatch):
+def test_admission_budget_and_eviction_checkpoint():
     async def scenario():
         _, fleet = await twin_fleet([(25, b"adm"), (0, b"extra")])
         outcomes = {}
         for side in SIDES:
             (core, storage), (extra, _) = fleet[side.name]
             daemon = side.Daemon([core], quick_cfg(side))
-            max_tenants(side, daemon, 1, monkeypatch)
+            max_tenants(daemon, 1)
             with pytest.raises(side.AdmissionError):
                 await daemon.admit(extra)
-            max_tenants(side, daemon, 100, monkeypatch)
+            max_tenants(daemon, 100)
             # the byte budget is the serve warm tier's (the JAX daemon's
             # admission_bytes left at 0)
             warm_bytes = daemon.config.serve.warm_bytes
@@ -887,8 +882,8 @@ def test_daemon_drain_fails_pending_waiters_loudly():
 def test_daemon_interval_is_the_configured_interval():
     """``next_interval`` paces run_forever by ``interval_s`` and publishes
     it as the ``daemon_interval_s`` gauge, as the JAX daemon does with its
-    wall-clock-aware pacing off (the default; the port has no auto
-    interval)."""
+    wall-clock-aware pacing off (the default; ``interval_auto`` is
+    tests/test_torch_settings_serve.py's)."""
 
     async def scenario():
         got = {}

@@ -323,9 +323,10 @@ def test_striped_empty_chunks_and_empty_split():
 
 
 def test_striped_single_producer_runs_on_one_worker(monkeypatch):
-    """On a one-core host the width resolves to one producer, and the
-    pipeline runs on exactly one worker thread, joined on return, with
-    the chunks reduced in order on the calling thread."""
+    """On a one-core host the width resolves to one producer, and with
+    ``inline=False`` (the auto default runs inline there) the pipeline
+    runs on exactly one worker thread, joined on return, with the chunks
+    reduced in order on the calling thread."""
     monkeypatch.setattr(S.os, "cpu_count", lambda: 1)
     spawned = []
     real_thread = threading.Thread
@@ -345,7 +346,7 @@ def test_striped_single_producer_runs_on_one_worker(monkeypatch):
     bounded(lambda: S.run_striped_ingest_pipeline(
         list(range(6)), lambda sp, k: [0, 1], lambda it, k, s: (k, s),
         lambda parts, sp, k: (k, parts), reduce,
-        producers=S.stream_producer_count()))
+        producers=S.stream_producer_count(), inline=False))
     assert order == [(k, [(k, 0), (k, 1)]) for k in range(6)]
     assert [n for n in spawned if n and n.startswith("crdt-ingest")] == [
         "crdt-ingest-producer-0"]

@@ -24,6 +24,12 @@ offload:
 Op-file writes go through a same-directory tmp file + fsync + atomic link,
 so a crash mid-write can never leave a torn op file where the dense version
 scan would find it.
+
+The per-file round trips are counted where they happen, once a batch,
+chunk or scan group: ``storage_files_read`` and ``storage_bytes_read``
+(op files and snapshots read), ``storage_files_statted`` (op files a
+probe or ``stat_ops`` found) and ``storage_files_removed`` (op,
+snapshot and delta files unlinked).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import numpy as np
 from .. import native
 from ..core.storage import Storage
 from ..models.vclock import Actor
+from ..utils import trace
 from .memory import content_name
 
 FS_CONCURRENCY = 32  # reference buffer_unordered(32), crdt-enc-tokio lib.rs:112
@@ -152,11 +159,25 @@ def _list_dir(path: str) -> list[str]:
         return []
 
 
-def _remove_quiet(path: str) -> None:
+def _remove_quiet(path: str) -> bool:
+    """Unlink ``path``; whether it was there to unlink."""
     try:
         os.remove(path)
     except FileNotFoundError:
-        pass
+        return False
+    return True
+
+
+def _count_read(files: list, nbytes: int) -> None:
+    """One batch's files and bytes read, counted once for the batch."""
+    if files:
+        trace.add("storage_files_read", len(files))
+        trace.add("storage_bytes_read", nbytes)
+
+
+def _count_removed(n: int) -> None:
+    if n:
+        trace.add("storage_files_removed", n)
 
 
 class FsStorage(Storage):
@@ -229,10 +250,11 @@ class FsStorage(Storage):
         await self._run(_write_file_new, os.path.join(d, name), bytes(data))
         return name
 
-    async def _remove_ca(self, d: str, names: list[str]) -> None:
-        await asyncio.gather(
+    async def _remove_ca(self, d: str, names: list[str]) -> int:
+        gone = await asyncio.gather(
             *(self._run(_remove_quiet, os.path.join(d, n)) for n in names)
         )
+        return sum(gone)
 
     async def list_remote_meta_names(self) -> list[str]:
         return await self._list_ca(self._meta_dir())
@@ -250,13 +272,15 @@ class FsStorage(Storage):
         return await self._list_ca(self._states_dir())
 
     async def load_states(self, names: list[str]) -> list[tuple[str, bytes]]:
-        return await self._load_ca(self._states_dir(), names)
+        out = await self._load_ca(self._states_dir(), names)
+        _count_read(out, sum(len(raw) for _, raw in out))
+        return out
 
     async def store_state(self, data: bytes) -> str:
         return await self._store_ca(self._states_dir(), data)
 
     async def remove_states(self, names: list[str]) -> None:
-        await self._remove_ca(self._states_dir(), names)
+        _count_removed(await self._remove_ca(self._states_dir(), names))
 
     # -- op logs -----------------------------------------------------------
     async def list_op_actors(self) -> list[Actor]:
@@ -414,7 +438,10 @@ class FsStorage(Storage):
         )
         if got == -1:
             return []  # no ops directory at all
-        return [actor_first_versions[i] for i in np.flatnonzero(mask).tolist()]
+        kept = [actor_first_versions[i] for i in np.flatnonzero(mask).tolist()]
+        if kept:
+            trace.add("storage_files_statted", len(kept))
+        return kept
 
     async def load_ops(
         self, actor_first_versions: list[tuple[Actor, int]]
@@ -425,7 +452,9 @@ class FsStorage(Storage):
         per_actor = await asyncio.gather(
             *(self._run(self._scan, a, f) for a, f in actor_first_versions)
         )
-        return [item for chunk in per_actor for item in chunk]
+        out = [item for chunk in per_actor for item in chunk]
+        _count_read(out, sum(len(raw) for *_, raw in out))
+        return out
 
     async def iter_op_chunks(
         self,
@@ -484,9 +513,11 @@ class FsStorage(Storage):
                         chunk.append(item)
                         size += len(item[2])
                         if size >= max_bytes:
+                            _count_read(chunk, size)
                             yield chunk
                             chunk, size = [], 0
             if chunk:
+                _count_read(chunk, size)
                 yield chunk
         finally:
             for t in tasks:
@@ -519,6 +550,8 @@ class FsStorage(Storage):
                     v += len(sizes)
                     if exhausted:
                         break
+            if out:
+                trace.add("storage_files_statted", len(out))
             return out
 
         n = len(actor_first_versions)
@@ -541,21 +574,26 @@ class FsStorage(Storage):
         )
 
     async def remove_ops(self, actor_last_versions: list[tuple[Actor, int]]) -> None:
-        def rm(actor: Actor, last: int) -> None:
+        def rm(actor: Actor, last: int) -> int:
             d = self._ops_dir(actor)
+            gone = 0
             for n in _list_dir(d):
                 try:
                     v = int(n)
                 except ValueError:
                     continue
                 if v <= last:
-                    _remove_quiet(os.path.join(d, n))
+                    gone += _remove_quiet(os.path.join(d, n))
             try:
                 os.rmdir(d)  # tidy an emptied actor dir; fails if ops remain
             except OSError:
                 pass
+            return gone
 
-        await asyncio.gather(*(self._run(rm, a, last) for a, last in actor_last_versions))
+        gone = await asyncio.gather(
+            *(self._run(rm, a, last) for a, last in actor_last_versions)
+        )
+        _count_removed(sum(gone))
 
     # -- delta snapshots ---------------------------------------------------
     # Same layout idiom as the op logs (``remote/deltas/<actor-hex>/<N>``)
@@ -610,20 +648,23 @@ class FsStorage(Storage):
     async def remove_deltas(
         self, actor_last_versions: list[tuple[Actor, int]]
     ) -> None:
-        def rm(actor: Actor, last: int) -> None:
+        def rm(actor: Actor, last: int) -> int:
             d = self._deltas_dir(actor)
+            gone = 0
             for n in _list_dir(d):
                 try:
                     v = int(n)
                 except ValueError:
                     continue
                 if v <= last:
-                    _remove_quiet(os.path.join(d, n))
+                    gone += _remove_quiet(os.path.join(d, n))
             try:
                 os.rmdir(d)
             except OSError:
                 pass
+            return gone
 
-        await asyncio.gather(
+        gone = await asyncio.gather(
             *(self._run(rm, a, last) for a, last in actor_last_versions)
         )
+        _count_removed(sum(gone))

@@ -19,6 +19,7 @@ its pointer-array route for large blobs are not copied.
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import os
 import secrets
 
@@ -227,14 +228,14 @@ def decrypt_blobs_chunked(
             yield open_chunk(k)
         return
 
+    def submit(k):
+        # in a copy of the caller's context: the span sits in its tree
+        return ex.submit(contextvars.copy_context().run, open_chunk, k)
+
     with ThreadPoolExecutor(1) as ex:
-        fut = ex.submit(open_chunk, 0)
+        fut = submit(0)
         for i in range(len(spans)):
-            nxt = (
-                ex.submit(open_chunk, i + 1)
-                if i + 1 < len(spans)
-                else None
-            )
+            nxt = submit(i + 1) if i + 1 < len(spans) else None
             yield fut.result()
             fut = nxt
 

@@ -1995,7 +1995,9 @@ def fold_mode(argv: list, smoke: bool) -> dict:
 
     def on_device(*arrays):
         if device.type == "cuda":
-            trace.add("h2d_bytes", sum(x.nbytes for x in arrays))
+            n = sum(x.nbytes for x in arrays)
+            trace.add("h2d_bytes", n)
+            trace.add("h2d_pageable_bytes", n)
         return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
                 for x in arrays]
 

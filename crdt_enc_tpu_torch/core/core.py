@@ -462,6 +462,11 @@ class Core:
     # ------------------------------------------------------------------ open
     @classmethod
     async def open(cls, opts: OpenOptions) -> "Core":
+        with trace.span("core.open"):
+            return await cls._open(opts)
+
+    @classmethod
+    async def _open(cls, opts: OpenOptions) -> "Core":
         core = cls(opts)
         # build the native libraries off the event loop before the first
         # pack, seal or scan needs them (a failed build raises here)
@@ -1800,9 +1805,10 @@ class Core:
             if python_mode:
                 await self._fold_chunk_python(files, clears, blocked)
                 return
-            payloads, metas = self._validate_chunk(
-                files, clears, overlay, blocked
-            )
+            with trace.span("ops.chunk_validate"):
+                payloads, metas = self._validate_chunk(
+                    files, clears, overlay, blocked
+                )
             if not payloads:
                 return
             task = asyncio.create_task(
@@ -1814,7 +1820,10 @@ class Core:
 
         try:
             while True:
-                item = await q.get()
+                # the fold sat starved of chunks: the reads' share of the
+                # compaction's critical path
+                with trace.span("ops.chunk_wait"):
+                    item = await q.get()
                 tag = item[0]
                 if tag == "end":
                     break
@@ -2041,9 +2050,10 @@ class Core:
     async def compact(self) -> None:
         """Fold everything, snapshot, write-new-then-delete-old
         (north-star path, lib.rs:332-380)."""
-        with trace.span("compact.ingest"):
-            await self.read_remote(_sample=False)
-        await self._compact_seal()
+        with trace.span("core.compact"):
+            with trace.span("compact.ingest"):
+                await self.read_remote(_sample=False)
+            await self._compact_seal()
 
     async def _compact_seal(
         self, *, _backlog: list | None = None,
@@ -2076,7 +2086,8 @@ class Core:
         ):
             state_obj = _state_obj[0]
         else:
-            state_obj = self.adapter.state_to_obj(d.state)
+            with trace.span("compact.to_obj"):
+                state_obj = self.adapter.state_to_obj(d.state)
         cursor_obj = d.next_op_versions.to_obj()
         snap_mut = getattr(d.state, "_mut", None)
         with trace.span("compact.seal"):
@@ -2086,7 +2097,8 @@ class Core:
         delta_plan = self._plan_delta_seal(state_bytes, cursor_obj,
                                            _cut=_delta_cut)
         # sealer id: readers attribute the cursor to this replica
-        payload = snapshot_payload(state_bytes, cursor_obj, self.actor_id)
+        with trace.span("compact.payload"):
+            payload = snapshot_payload(state_bytes, cursor_obj, self.actor_id)
         states_to_remove = sorted(d.read_states)
         ops_to_remove = sorted(d.next_op_versions.counters.items())
         prior_names = frozenset(d.read_states)

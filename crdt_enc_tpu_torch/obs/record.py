@@ -29,29 +29,40 @@ Usage::
                       #   "p50_ms", "p95_ms", "p99_ms"}}, "counters", "gauges"}
 
 The event log (off by default) records one entry per span exit —
-``{"name", "kind": "span", "t0", "t1", "meta", "tid", "thread"}`` with
-``time.perf_counter`` seconds comparable across threads — and, while it
-is on, one per counter or gauge update (``kind`` ``"counter"`` or
-``"gauge"``, the post-update ``value`` at ``t0 == t1``): the JAX
-package's schema, so ``obs.timeline`` (either package's) builds one lane
-per recording thread and a counter track per counter from a record the
-port wrote.  It is a ring buffer of ``DEFAULT_EVENT_CAPACITY`` entries
-(:func:`set_events_capacity`); overflow, or a shrink, bumps the
-``events_dropped`` counter.  :func:`reset` restores the defaults (off,
-default capacity).
+``{"name", "kind": "span", "t0", "t1", "meta", "tid", "thread", "id",
+"parent", "root"}`` with ``time.perf_counter`` seconds comparable across
+threads — and, while it is on, one per counter or gauge update (``kind``
+``"counter"`` or ``"gauge"``, the post-update ``value`` at ``t0 ==
+t1``, and the ``parent`` and ``root`` of the span it was made in).  The
+JAX package's keys are all there, so ``obs.timeline`` (either package's)
+builds one lane per recording thread and a counter track per counter
+from a record the port wrote.  It is a ring buffer of
+``DEFAULT_EVENT_CAPACITY`` entries (:func:`set_events_capacity`);
+overflow, or a shrink, bumps the ``events_dropped`` counter.
+:func:`reset` restores the defaults (off, default capacity).
+
+The span tree: while the log is on, every span gets ``id``, a
+process-wide sequence number; ``parent``, the id of the innermost span
+open in the caller's context (None for an outermost span); and ``root``,
+the id of the outermost span of that chain (its own id for an outermost
+span, such as ``core.open``, ``core.compact``, ``serve.cycle`` or
+``daemon.cycle``).  They travel in a context variable, so they follow
+``asyncio`` tasks and ``asyncio.to_thread`` hops as the counter taps do;
+a span in a worker thread started without a copy of the caller's context
+is a root of its own.  A span entered while the log was off carries
+None for all three.  With the log off, ``span()`` reads no context
+variable.
 """
 
 from __future__ import annotations
 
 import contextvars
-import logging
+import itertools
 import math
 import threading
 import time
 from collections import deque
 from contextlib import contextmanager
-
-logger = logging.getLogger("crdt_enc_tpu_torch.trace")
 
 DEFAULT_EVENT_CAPACITY = 65536
 
@@ -105,19 +116,50 @@ def quantiles_ms(hist: dict, count: int) -> dict:
 
 
 # ------------------------------------------------------------------- spans
+# The span tree, while the event log is on: (id, root) of the innermost
+# span open in this context.  Tasks and to_thread hops copy the context at
+# creation, so a child task's spans name the span that spawned it.
+_open_span: contextvars.ContextVar[tuple | None] = contextvars.ContextVar(
+    "crdt_torch_trace_open_span", default=None
+)
+_span_ids = itertools.count(1)  # next() is atomic under the GIL
+
+
+def _tree_node() -> tuple:
+    """(id, parent, root) for a new span in this context."""
+    outer = _open_span.get()
+    sid = next(_span_ids)
+    return (sid, None, sid) if outer is None else (sid, outer[0], outer[1])
+
+
 @contextmanager
 def span(name: str, meta=None):
     """Time a phase.  Re-entrant: every exit accumulates (count, seconds,
     max, histogram) under ``name``.  ``meta`` (e.g. a chunk index) is
     recorded only in the event log, never in the aggregate."""
+    if not _events_enabled:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _record_span(name, t0, time.perf_counter(), meta)
+        return
+    tree = _tree_node()
+    token = _open_span.set((tree[0], tree[2]))
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        _record_span(name, t0, time.perf_counter(), meta)
+        t1 = time.perf_counter()
+        try:
+            _open_span.reset(token)
+        except ValueError:  # left in another context than it was entered
+            pass
+        _record_span(name, t0, t1, meta, tree)
 
 
-def _record_span(name: str, t0: float, t1: float, meta=None) -> None:
+def _record_span(name: str, t0: float, t1: float, meta=None,
+                 tree: tuple = (None, None, None)) -> None:
     dt = t1 - t0
     with _lock:
         slot = _spans.setdefault(name, [0, 0.0, 0.0, {}])
@@ -130,8 +172,8 @@ def _record_span(name: str, t0: float, t1: float, meta=None) -> None:
         if _events_enabled:
             e = _event_base(name, "span")
             e["t0"], e["t1"], e["meta"] = t0, t1, meta
+            e["id"], e["parent"], e["root"] = tree
             _append_event_locked(e)
-    logger.debug("span %s: %.6fs", name, dt)
 
 
 def observe(name: str, seconds: float, meta=None) -> None:
@@ -139,7 +181,8 @@ def observe(name: str, seconds: float, meta=None) -> None:
     context manager: a duration measured elsewhere (a tenant's
     end-to-end latency in a service cycle)."""
     t1 = time.perf_counter()
-    _record_span(name, t1 - seconds, t1, meta)
+    tree = _tree_node() if _events_enabled else (None, None, None)
+    _record_span(name, t1 - seconds, t1, meta, tree)
 
 
 # ---------------------------------------------------------------- counters
@@ -200,6 +243,8 @@ def _append_value_event_locked(name: str, kind: str, value) -> None:
     e = _event_base(name, kind)
     e["t0"] = e["t1"] = time.perf_counter()
     e["meta"], e["value"] = None, value
+    outer = _open_span.get()
+    e["parent"], e["root"] = (None, None) if outer is None else outer
     _append_event_locked(e)
 
 
@@ -237,8 +282,10 @@ def events() -> list[dict]:
     """A copy of the recorded occurrences, in completion order.  Span
     entries: name, kind ``"span"``, t0, t1 (``time.perf_counter``
     seconds, comparable across threads), meta, tid and thread (the
-    recording thread).  Counter and gauge entries carry kind
-    ``"counter"``/``"gauge"`` and the post-update ``value`` at t0."""
+    recording thread), id, parent and root (the span tree).  Counter and
+    gauge entries carry kind ``"counter"``/``"gauge"``, the post-update
+    ``value`` at t0, and the parent and root of the span they were made
+    in."""
     with _lock:
         return [dict(e) for e in _events]
 

@@ -181,6 +181,7 @@ def decode_adds_device(packed, actors_sorted: list, device=None):
         # as it is enqueued
         if device.type == "cuda":
             trace.add("h2d_bytes", buf.nbytes + base.nbytes)
+            trace.add("h2d_pageable_bytes", buf.nbytes + base.nbytes)
         dbuf = _tensor(buf).to(device)
         dbase = _tensor(base).to(device)
         member = dbuf[dbase + 2].to(torch.int32)

@@ -172,6 +172,7 @@ def crdtmap_scatter_device(
         a = np.ascontiguousarray(x, np.int64)
         if device.type == "cuda":
             trace.add("h2d_bytes", a.nbytes)
+            trace.add("h2d_pageable_bytes", a.nbytes)
         return torch.from_numpy(a).to(device)
 
     NK, R = births0.shape

@@ -45,6 +45,7 @@ producer) index as ``meta``, and the ``stream_producers`` gauge.
 
 from __future__ import annotations
 
+import contextvars
 import os
 import queue as _queue
 import threading
@@ -95,6 +96,7 @@ class ChunkPool:
             raise ValueError(f"ChunkPool needs depth >= 2, got {depth}")
         self.chunk_rows = chunk_rows
         self.depth = depth
+        self.pin = pin
         self._free: _queue.Queue = _queue.Queue()
         dtypes = (torch.int8, torch.int32, torch.int32, torch.int32)
         for _ in range(depth):
@@ -189,8 +191,9 @@ def fold_chunks_overlapped(planes, chunks, fold_step, *, pool=None,
     sharded stream passes its mesh's row placement,
     ``parallel.mesh.stream_sharding``): on the card it is issued on the
     side stream in place of the slot copy, so chunk k+1's upload still
-    rides under chunk k's fold.  This loop counts ``h2d_bytes``; ``put``
-    must not.
+    rides under chunk k's fold.  This loop counts ``h2d_bytes`` (and
+    ``h2d_pageable_bytes`` unless the chunks come from a pinned ``pool``);
+    ``put`` must not.
 
     Returns the final planes without waiting for the card (callers block
     and pull under ``stream.d2h`` with :func:`planes_to_host`)."""
@@ -216,7 +219,10 @@ def fold_chunks_overlapped(planes, chunks, fold_step, *, pool=None,
         host = _host_tensors(host_chunk)
         s = k % 2
         with trace.span("stream.h2d", meta=k):
-            trace.add("h2d_bytes", sum(x.nbytes for x in host))
+            n = sum(x.nbytes for x in host)
+            trace.add("h2d_bytes", n)
+            if pool is None or not pool.pin:
+                trace.add("h2d_pageable_bytes", n)
             fresh = put is None and (slots[s] is None or any(
                 d.shape != h.shape for d, h in zip(slots[s], host)))
             if fresh:
@@ -291,7 +297,9 @@ def orset_fold_stream(clock0, add0, rm0, chunks, *, num_members: int,
     else:
         host = [np.ascontiguousarray(x, np.int32) for x in (clock0, add0, rm0)]
         if device.type == "cuda":
-            trace.add("h2d_bytes", sum(x.nbytes for x in host))
+            n = sum(x.nbytes for x in host)
+            trace.add("h2d_bytes", n)
+            trace.add("h2d_pageable_bytes", n)
         planes = tuple(torch.from_numpy(x).to(device) for x in host)
     spare: list = [None]
 
@@ -401,9 +409,11 @@ def run_ingest_pipeline(
             stop.set()  # first failure cancels the peers
             out_q.put(("error", k if k is not None else -1, e))
 
+    # each producer runs in a copy of the caller's context, so its spans
+    # sit in the caller's span tree
     workers = [
         threading.Thread(
-            target=produce, args=(i,),
+            target=contextvars.copy_context().run, args=(produce, i),
             name=f"{thread_prefix}-{i}", daemon=True,
         )
         for i in range(producers)
@@ -612,8 +622,9 @@ def run_striped_ingest_pipeline(
             out_q.put(("error", k if k is not None else -1, e))
 
     workers = [
-        threading.Thread(target=produce, args=(i,),
-                         name=f"{thread_prefix}-{i}", daemon=True)
+        threading.Thread(target=contextvars.copy_context().run,
+                         args=(produce, i), name=f"{thread_prefix}-{i}",
+                         daemon=True)
         for i in range(producers)
     ]
     for w in workers:

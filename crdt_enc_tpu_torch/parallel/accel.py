@@ -227,9 +227,12 @@ class TorchAccelerator(HostAccelerator):
 
     def _upload(self, arrays) -> list:
         """numpy arrays → tensors on ``self.device``; counts the bytes
-        that cross to a CUDA device in ``h2d_bytes``."""
+        that cross to a CUDA device in ``h2d_bytes`` and, since a numpy
+        source is pageable, in ``h2d_pageable_bytes``."""
         if self.device.type == "cuda":
-            trace.add("h2d_bytes", sum(a.nbytes for a in arrays))
+            n = sum(a.nbytes for a in arrays)
+            trace.add("h2d_bytes", n)
+            trace.add("h2d_pageable_bytes", n)
         return [
             torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
             for a in arrays
@@ -1191,8 +1194,9 @@ class TorchAccelerator(HostAccelerator):
         them in one device call."""
         members, replicas = Vocab(), Vocab()
         all_states = [state] + list(others)
-        for s in all_states:
-            orset_scan_vocab(s, members, replicas)  # cheap vocab-only pass
+        with trace.span("merge.vocab"):
+            for s in all_states:
+                orset_scan_vocab(s, members, replicas)  # vocab-only pass
         E, R = len(members), len(replicas)
         if E == 0 or R == 0:
             # nothing to densify; clocks alone still merge on the host

@@ -152,7 +152,9 @@ def _upload(mesh: Mesh, columns) -> tuple:
     """Host columns → tensors on ``mesh.home``, counted at issue where
     they cross to a card."""
     if mesh.home.type == "cuda":
-        trace.add("h2d_bytes", sum(x.nbytes for x in columns))
+        n = sum(x.nbytes for x in columns)
+        trace.add("h2d_bytes", n)
+        trace.add("h2d_pageable_bytes", n)
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(mesh.home)
                  for x in columns)
 

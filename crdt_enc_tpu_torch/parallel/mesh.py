@@ -176,6 +176,8 @@ def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
         return x
     if x.device.type == "cpu" and device.type == "cuda":
         trace.add("h2d_bytes", x.nbytes)
+        if not x.is_pinned():
+            trace.add("h2d_pageable_bytes", x.nbytes)
     return x.to(device)
 
 

@@ -459,7 +459,8 @@ class OrsetFoldSession:
             )
         # concurrent applies may have introduced members (never actors of
         # the fed rows: those index the fixed actors_sorted columns)
-        orset_scan_vocab(state, self.members, self.replicas)
+        with trace.span("session.vocab"):
+            orset_scan_vocab(state, self.members, self.replicas)
         E = len(self.members)
         R_final = len(self.replicas)
         if self.mode == "host_reduce":

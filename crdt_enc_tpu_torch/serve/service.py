@@ -779,6 +779,7 @@ class FoldService:
             ]
         if dev.type == "cuda":
             trace.add("h2d_bytes", h2d)
+            trace.add("h2d_pageable_bytes", h2d)
         if self._mesh_active:
             # tenant lanes over dp, member planes over mp: slot and member
             # classes already divide the mesh by the planner's law
@@ -899,6 +900,7 @@ class FoldService:
                                  dtype=torch.int64, device=code.device)
             if code.device.type == "cuda":
                 trace.add("h2d_bytes", slots.nbytes)
+                trace.add("h2d_pageable_bytes", slots.nbytes)
             rows = orset_ops.orset_plane_diff_rows_tenants(
                 code, add_b, out[1], out[2], T, slots
             )
@@ -942,8 +944,9 @@ class FoldService:
             counter[slot, :n] = c
             clock0[slot, : len(dense)] = dense
         if dev.type == "cuda":
-            trace.add("h2d_bytes",
-                      clock0.nbytes + actor.nbytes + counter.nbytes)
+            n = clock0.nbytes + actor.nbytes + counter.nbytes
+            trace.add("h2d_bytes", n)
+            trace.add("h2d_pageable_bytes", n)
         dev_rows = [torch.from_numpy(x).to(dev)
                     for x in (clock0, actor, counter)]
         if self._mesh_active:

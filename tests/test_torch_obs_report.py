@@ -132,11 +132,15 @@ def record_two_lanes(rec_mod) -> list:
 
 def test_port_events_carry_the_jax_schema():
     """Every port event has the JAX keys: spans ``kind: "span"`` with
-    ``tid``/``thread``; counter and gauge updates are events too."""
+    ``tid``/``thread``; counter and gauge updates are events too.  The
+    port adds the span tree and nothing else: ``id``, ``parent`` and
+    ``root`` on a span, ``parent`` and ``root`` on a counter or gauge."""
+    tree = {"span": ["id", "parent", "root"], "counter": ["parent", "root"],
+            "gauge": ["parent", "root"]}
     pev = record_two_lanes(record)
     jev = record_two_lanes(jrecord)
     assert [(e["name"], e["kind"], sorted(e)) for e in pev] == [
-        (e["name"], e["kind"], sorted(e)) for e in jev]
+        (e["name"], e["kind"], sorted([*e, *tree[e["kind"]]])) for e in jev]
     assert {e["kind"] for e in pev} == {"span", "counter", "gauge"}
     assert len({e["tid"] for e in pev if e["kind"] == "span"}) == 2
     counter = next(e for e in pev if e["kind"] == "counter")

@@ -96,6 +96,7 @@ def test_map_scatter_counts_no_upload_on_the_cpu(seed):
         snap = trace.snapshot()
         assert "map.scatter_device" in snap["spans"]
         assert "h2d_bytes" not in snap["counters"]
+        assert "h2d_pageable_bytes" not in snap["counters"]
     finally:
         trace.reset()
 
@@ -119,7 +120,10 @@ def test_map_scatter_counts_its_upload_on_the_card(dev, monkeypatch, seed):
         monkeypatch.setattr(torch, "from_numpy", from_numpy)
         out = map_device.crdtmap_scatter_device(*args, **{**kw, "device": dev})
         monkeypatch.setattr(torch, "from_numpy", real_from_numpy)
-        assert trace.snapshot()["counters"]["h2d_bytes"] == sum(uploaded) > 0
+        counters = trace.snapshot()["counters"]
+        assert counters["h2d_bytes"] == sum(uploaded) > 0
+        # a numpy source is pageable
+        assert counters["h2d_pageable_bytes"] == counters["h2d_bytes"]
         trace.reset()
         fold_on(dev, *map_history(seed))
         assert trace.snapshot()["counters"]["h2d_bytes"] >= sum(uploaded)
@@ -127,3 +131,29 @@ def test_map_scatter_counts_its_upload_on_the_card(dev, monkeypatch, seed):
         trace.reset()
     for a, b in zip(out, cpu_out):
         assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pin", [True, False, None], ids=["pinned", "pageable", "no-pool"])
+def test_stream_counts_pageable_uploads_apart(dev, pin):
+    """The overlapped stream counts every chunk in ``h2d_bytes``, and in
+    ``h2d_pageable_bytes`` only where no pinned pool stages it."""
+    from crdt_enc_tpu_torch.ops import stream
+
+    rows, n = 64, 3
+    pool = None if pin is None else stream.ChunkPool(rows, depth=2, pin=pin)
+    cols = [np.arange(rows * n, dtype=np.int32) % 5 for _ in range(4)]
+    chunks = stream.iter_orset_chunks(*cols, rows, 7, pool=pool)
+    planes = (torch.zeros(4, dtype=torch.int32, device=dev),)
+    trace.reset()
+    try:
+        stream.fold_chunks_overlapped(planes, chunks, lambda p, c: p,
+                                      pool=pool)
+        torch.cuda.synchronize()
+        counters = trace.snapshot()["counters"]
+    finally:
+        trace.reset()
+    chunk_bytes = rows * (1 + 4 + 4 + 4)
+    assert counters["h2d_bytes"] == n * chunk_bytes
+    assert counters.get("h2d_pageable_bytes", 0) == (
+        0 if pin else n * chunk_bytes)

@@ -36,7 +36,12 @@ Phases:
    allows (the fold timed into two distinct zero planes); for both fold
    entries also the per-call time over 20 back-to-back calls, the device
    time of each pass (torch.profiler), the host's enqueue time per call,
-   and the skewed batches;
+   and the skewed batches; then the merge and the stacking kernel
+   (``orset_stack_cells``) at the compaction's shape, S = 9, E = 4,096,
+   R = 5,000: the stacks rebuilt from all the merge stacks' cells equal
+   them, and from STACK_CELLS of those cells equal the plain version on
+   the card, with both times and the bound (the zero fill's bytes and 8
+   bytes a cell);
 6. the LWW kernel against ``lww_fold_plain`` (torch.equal on every output)
    at config 4, on a heavy-tie batch with padding rows, on saturated
    timestamps and on 2^23 config-4 rows (past what the grid keeps in
@@ -335,6 +340,9 @@ K3_E, K3_R, K3_SEED = 4096, 261_000, 9
 # (its replica's empty one and 8 snapshots) over 4,096 members and the
 # 5,000 actors the snapshots saw
 K4_S, K4_R, K4_SEED = 9, 5000, 12
+# the cells the nine states of a config-3 compaction hold (the benchmark's
+# orset3-merge8: eight snapshots of 625 actors and the replica's own)
+STACK_CELLS = 215_000
 # phase 11: 1.25 x STREAM_CHUNK_ROWS config-3-width rows (two chunks, the
 # second partial), as op files of STREAM_FILE_OPS ops; cut from 2.5 x when
 # phase 22 joined and from 1.5 x when phase 24 did, to keep the script
@@ -1383,7 +1391,73 @@ def phase_k4_compaction_shape(device, rate: float):
           f"host enqueue {out['host_enqueue_ms']:.4f} ms, plain "
           f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
           f"(bytes: {nbytes / 1e6:.1f} MB)", flush=True)
-    return errs["orset_merge_many"], out
+    stack_err, stack = phase_stack_cells(stacks, rate)
+    return errs["orset_merge_many"], out, stack_err, stack
+
+
+def phase_stack_cells(stacks, rate: float):
+    """The stacking kernel at the compaction's shape, on the K4 stacks of
+    ``phase_k4_compaction_shape``: rebuilt from all their cells, the stacks
+    equal them exactly; from STACK_CELLS of those cells (drawn from the
+    seed, the count a config-3 compaction's nine states hold) the kernel
+    equals the plain version on the card bit for bit.  Its single-call,
+    back-to-back and host-enqueue times, the plain time and the bound
+    (the zero fill's bytes and 8 bytes a cell).  Returns (max_abs_err,
+    the times)."""
+    import torch
+
+    from crdt_enc_tpu_torch.ops import orset as P
+    from crdt_enc_tpu_torch.ops import orset_merge_cuda as M
+
+    _, adds, rms = stacks
+    S, E, R = adds.shape
+    rows, counts = [], []
+    for stack in (adds, rms):
+        for s in range(S):
+            flat = stack[s].reshape(-1)
+            idx = torch.nonzero(flat).squeeze(1)
+            rows.append(torch.stack([idx.int(), flat[idx]], 1))
+            counts.append(len(idx))
+    cells = torch.cat(rows).contiguous()
+    offsets = torch.tensor([0, *np.cumsum(counts).tolist()],
+                           dtype=torch.int64, device=adds.device)
+    del rows
+    errs: dict = {}
+    check_equal(f"stacks from all {len(cells)} cells of the merge's stacks "
+                f"(S={S}, E={E}, R={R})", (adds, rms),
+                P.orset_stack_cells(cells, offsets, S, E, R), errs,
+                "orset_stack_cells")
+    gen = torch.Generator(device=adds.device).manual_seed(K4_SEED)
+    keep = torch.randperm(len(cells), generator=gen,
+                          device=adds.device)[:STACK_CELLS].sort().values
+    few, few_offsets = cells[keep].contiguous(), torch.searchsorted(keep,
+                                                                    offsets)
+    check_equal(f"stacks from {len(few)} of those cells",
+                P.orset_stack_cells_plain(few, few_offsets, S, E, R),
+                M.orset_stack_cells_cuda(few, few_offsets, S, E, R), errs,
+                "orset_stack_cells")
+
+    def kernel():
+        return M.orset_stack_cells_cuda(few, few_offsets, S, E, R)
+
+    nbytes = 2 * S * E * R * 4 + 8 * len(few) + 8 * (2 * S + 1)
+    out = dict(S=S, E=E, R=R, cells=len(few), all_cells=len(cells),
+               ms=time_ms(kernel),
+               plain_ms=time_ms(lambda: P.orset_stack_cells_plain(
+                   few, few_offsets, S, E, R)),
+               all_cells_ms=time_ms(lambda: M.orset_stack_cells_cuda(
+                   cells, offsets, S, E, R)),
+               back_to_back_ms=time_stream_ms(kernel),
+               host_enqueue_ms=host_enqueue_ms(kernel),
+               bound_ms=nbytes / rate * 1e3, bound_by="bytes")
+    print(f"  orset_stack_cells at S={S}, E={E}, R={R}, {len(few)} cells: "
+          f"kernel {out['ms']:.4f} ms ({len(cells)} cells "
+          f"{out['all_cells_ms']:.4f} ms), back to back "
+          f"{out['back_to_back_ms']:.4f} ms, host enqueue "
+          f"{out['host_enqueue_ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+          f"bound {out['bound_ms']:.4f} ms (bytes: {nbytes / 1e6:.1f} MB)",
+          flush=True)
+    return errs["orset_stack_cells"], out
 
 
 # ---- compaction end to end (phase 10) --------------------------------------
@@ -1770,10 +1844,12 @@ def phase_compaction(files, E: int, R: int, device, root: str) -> dict:
     warm = warm_reopen(lambda: compaction_options(root, "card", remote["remote"],
                                                   accel), card, cb)
     if (launches["orset_fold"] != expected_fold
-            or launches["orset_merge_many"] != 1):
+            or launches["orset_merge_many"] != 1
+            or launches["orset_stack_cells"] != 1):
         raise AssertionError(
             f"the compaction's launches {launches} do not match its session "
-            f"mode {session.mode} (fold {expected_fold}) and one merge")
+            f"mode {session.mode} (fold {expected_fold}) and one merge of "
+            "stacks built from the states' cells")
     live = dict(card=card, host=host, accel=accel, probe=probe,
                 remote=remote["remote"], host_remote=host_remote)
     return dict(launches=launches, wall_s=wall, host_wall_s=host_wall,
@@ -6598,6 +6674,10 @@ KERNELS = {
     "orset_merge_many": ("crdt_enc_tpu_torch/csrc/orset_merge.cu",
                          "crdt_enc_tpu/ops/pallas_merge.py:111",
                          "K4 orset_merge_many_pallas"),
+    "orset_stack_cells": ("crdt_enc_tpu_torch/csrc/orset_merge.cu",
+                          "crdt_enc_tpu/parallel/accel.py:1380",
+                          "none: the JAX merge stacks dense host planes "
+                          "(np.stack) before K4"),
     "lww_fold": ("crdt_enc_tpu_torch/csrc/lww_fold.cu",
                  "crdt_enc_tpu/ops/pallas_lww.py:332",
                  "K5 lww_fold_pallas -> _lww_fold_pallas_impl"),
@@ -6759,9 +6839,12 @@ def main(bench_only: bool = False) -> int:
     del fold_inputs, stacks, skewed
     gc.collect()
     torch.cuda.empty_cache()
-    k4_err, k4_shape = phase_k4_compaction_shape("cuda", rate)
+    k4_err, k4_shape, stack_err, stack = phase_k4_compaction_shape("cuda",
+                                                                   rate)
     errs["orset_merge_many"] = max(errs["orset_merge_many"], k4_err)
     times["orset_merge_many"]["compaction_shape"] = k4_shape
+    errs["orset_stack_cells"] = stack_err
+    times["orset_stack_cells"] = stack
 
     header(f"== 6. LWW kernel against plain (config 4: N={LWW_N}, K={LWW_K}, "
           f"R={LWW_R}, V={LWW_V}; heavy ties; saturated; {PAST_N} rows; "

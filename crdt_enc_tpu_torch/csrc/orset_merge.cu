@@ -18,8 +18,23 @@
 // stay in L1/L2.  At S = 8, E = 4096, R = 10,000 that is ~2.95 GB.
 // The work per cell is a handful of integer compares per step.
 //
-// The entry point launches on the given stream and returns
-// cudaGetLastError(); the Python wrapper raises when that is nonzero.
+// A second entry, orset_stack_cells_launch, builds the stacks K4 reads
+// from the states' cells instead of from dense host planes (it replaces
+// no TPU kernel: the JAX package densifies on the host).  Sparse
+// snapshots fill about one plane slot in a thousand, so shipping
+// coordinates moves a few MB where the dense stacks are
+// S * 2 * E * R * 4 bytes (1.47 GB for nine config-3 snapshots).  The
+// host lists each cell once as (e * R + r, counter), grouped by plane
+// (adds, then removes) and state, with 2S + 1 group offsets; the entry
+// zero-fills one (2, S, E, R) buffer with cudaMemsetAsync and launches
+// stack_cells_kernel, one thread per cell, which finds its group by a
+// binary search over the offsets and stores its counter.  A state holds
+// a cell once, so plain stores suffice.  What bounds it: the memset's
+// 2 * S * E * R * 4 bytes; the cells are 8 bytes each, read once.
+//
+// Each entry point launches on the given stream and returns
+// cudaGetLastError() (or the memset's error); the Python wrapper raises
+// when that is nonzero.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -69,7 +84,42 @@ __global__ void merge_kernel(const int32_t* __restrict__ clocks,
   }
 }
 
+// cells: (n, 2) int32 rows (e * R + r, counter); offsets: 2S + 1 int64,
+// offsets[g] the first row of group g = plane * S + s, offsets[2S] = n.
+__global__ void stack_cells_kernel(const int2* __restrict__ cells,
+                                   const int64_t* __restrict__ offsets,
+                                   int32_t groups, int64_t n, int64_t plane,
+                                   int32_t* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  // the last group whose first row is at or before i (groups may be empty)
+  int32_t lo = 0, hi = groups;
+  while (hi - lo > 1) {
+    const int32_t mid = (lo + hi) >> 1;
+    if (offsets[mid] <= i) lo = mid; else hi = mid;
+  }
+  const int2 c = cells[i];
+  out[(int64_t)lo * plane + c.x] = c.y;
+}
+
 }  // namespace
+
+extern "C" int orset_stack_cells_launch(const void* cells,
+                                        const void* offsets, int64_t n,
+                                        int32_t S, int32_t E, int32_t R,
+                                        void* out, void* stream) {
+  const int64_t plane = (int64_t)E * R;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t rc = cudaMemsetAsync(out, 0, (size_t)(2 * S * plane) * 4, st);
+  if (rc != cudaSuccess) return (int)rc;
+  if (n > 0) {
+    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+    stack_cells_kernel<<<blocks, kThreads, 0, st>>>(
+        (const int2*)cells, (const int64_t*)offsets, 2 * S, n, plane,
+        (int32_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int orset_merge_many_launch(const void* clocks,
                                        const void* prev_run, const void* run,

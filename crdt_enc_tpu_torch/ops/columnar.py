@@ -32,6 +32,7 @@ range) raise.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from itertools import chain
 
 import numpy as np
 
@@ -228,6 +229,40 @@ def orset_state_to_planes(
         for r, c in dfr.items():
             rm[e, replicas.index[r]] = c
     return clock, add, rm
+
+
+def orset_states_to_cells(
+    states: list, members: Vocab, replicas: Vocab
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The stacked planes of ``orset_state_to_planes`` over S states, as
+    cells: ``clocks (S, R)`` int32, ``cells (n, 2)`` int32 rows ``(e * R +
+    r, counter)`` and ``offsets (2S + 1,)`` int64, where group ``g = plane
+    * S + s`` (adds, then removes) holds rows ``offsets[g]:offsets[g +
+    1]``.  ``ops.orset.orset_stack_cells`` builds the dense stacks from
+    them.  The vocabularies must already hold everything the states
+    mention (``orset_scan_vocab``), and ``E * R`` must fit int32."""
+    S, R = len(states), len(replicas)
+    mi, ri = members.index, replicas.index
+    groups = [getattr(s, plane) for plane in ("entries", "deferred")
+              for s in states]
+    offsets = np.zeros(2 * S + 1, np.int64)
+    offsets[1:] = np.cumsum([sum(map(len, g.values())) for g in groups])
+    cells = np.empty((int(offsets[-1]), 2), np.int32)
+    for g, lo, hi in zip(groups, offsets[:-1].tolist(), offsets[1:].tolist()):
+        if lo == hi:
+            continue
+        cells[lo:hi, 0] = np.fromiter(
+            (mi[m] * R + ri[r] for m, c in g.items() for r in c),
+            np.int32, hi - lo)
+        cells[lo:hi, 1] = np.fromiter(
+            chain.from_iterable(c.values() for c in g.values()),
+            np.int32, hi - lo)
+    clocks = np.zeros((S, R), np.int32)
+    for i, s in enumerate(states):
+        counters = s.clock.counters
+        if counters:
+            clocks[i, [ri[r] for r in counters]] = list(counters.values())
+    return clocks, cells, offsets
 
 
 def _grouped_rows_dicts_native(

@@ -21,12 +21,12 @@ Counters are int32 and always ≥ 1 for real dots, so 0 is the universal
 "absent" value.  Padding rows carry the ``actor >= R`` sentinel and drop
 out.
 
-``orset_fold`` and ``orset_merge_many`` dispatch on the tensors' device:
-CUDA tensors go to the hand-written kernels (``orset_fold_cuda``,
-``orset_merge_cuda``), CPU tensors to the plain code in this module.  The
-plain functions (``*_plain``, ``orset_merge_many_tree``) are also the
-references the kernels are held against on the card; the main path never
-calls them with CUDA tensors.
+``orset_fold``, ``orset_stack_cells`` and ``orset_merge_many`` dispatch on
+the tensors' device: CUDA tensors go to the hand-written kernels
+(``orset_fold_cuda``, ``orset_merge_cuda``), CPU tensors to the plain code
+in this module.  The plain functions (``*_plain``,
+``orset_merge_many_tree``) are also the references the kernels are held
+against on the card; the main path never calls them with CUDA tensors.
 """
 
 from __future__ import annotations
@@ -397,6 +397,33 @@ def orset_merge_many_tree(clocks, adds, rms):
             rmm = torch.cat([rmm, r[-1:]])
         c, a, r = cm, am, rmm
     return c[0], a[0], r[0]
+
+
+def orset_stack_cells_plain(cells, offsets, S: int, E: int, R: int):
+    """The ``(S, E, R)`` add and remove stacks of S states from their cells
+    (``ops.columnar.orset_states_to_cells``): ``cells (n, 2)`` int32 rows
+    ``(e * R + r, counter)``, grouped as ``g = plane * S + s`` (adds, then
+    removes) with ``offsets (2S + 1,)`` the groups' first rows.  Every
+    other cell is 0.  The plain version of the stacking kernel."""
+    plane = E * R
+    out = torch.zeros(2 * S * plane, dtype=torch.int32, device=cells.device)
+    group = torch.repeat_interleave(
+        torch.arange(2 * S, device=cells.device), offsets.diff())
+    out[group * plane + cells[:, 0].long()] = cells[:, 1]
+    out = out.view(2, S, E, R)
+    return out[0], out[1]
+
+
+def orset_stack_cells(cells: torch.Tensor, offsets: torch.Tensor, S: int,
+                      E: int, R: int):
+    """The stacks ``orset_merge_many`` reads, built on the cells' device:
+    CUDA tensors run the stacking kernel, CPU tensors the plain
+    version."""
+    if common_device(cells, offsets).type == "cuda":
+        from .orset_merge_cuda import orset_stack_cells_cuda
+
+        return orset_stack_cells_cuda(cells, offsets, S, E, R)
+    return orset_stack_cells_plain(cells, offsets, S, E, R)
 
 
 def orset_merge_many(clocks: torch.Tensor, adds: torch.Tensor,

@@ -79,6 +79,7 @@ from ..ops.columnar import (
     orset_planes_to_state,
     orset_scan_vocab,
     orset_state_to_planes,
+    orset_states_to_cells,
     vclock_to_dense,
 )
 from ..ops.counters import gcounter_fold, pncounter_fold
@@ -90,7 +91,8 @@ from ..ops.native_decode import (
     decode_orset_payload_batch,
     decode_orset_payload_spans,
 )
-from ..ops.orset import orset_fold, orset_fold_coo, orset_merge_many
+from ..ops.orset import (orset_fold, orset_fold_coo, orset_merge_many,
+                         orset_stack_cells)
 from ..ops.stream import ChunkPool, iter_orset_chunks, orset_fold_stream
 from ..utils import codec, trace
 
@@ -1191,27 +1193,34 @@ class TorchAccelerator(HostAccelerator):
 
     def _merge_orsets(self, state: ORSet, others: list) -> ORSet:
         """Stack every state's planes over one shared vocabulary and merge
-        them in one device call."""
+        them in one device call.
+
+        The host uploads the states' cells (8 bytes each; a state holds at
+        most one cell a member and actor, so never more than the dense
+        stacks' ``S * 2 * E * R * 4`` bytes) and the device builds the
+        stacks from them (``orset_stack_cells``)."""
         members, replicas = Vocab(), Vocab()
         all_states = [state] + list(others)
         with trace.span("merge.vocab"):
             for s in all_states:
                 orset_scan_vocab(s, members, replicas)  # vocab-only pass
         E, R = len(members), len(replicas)
-        if E == 0 or R == 0:
-            # nothing to densify; clocks alone still merge on the host
+        if E == 0 or R == 0 or E * R >= 2**31:
+            # nothing to densify, or planes past the cells' int32 key:
+            # the host merge
             return super().merge_states(state, others)
+        S = len(all_states)
         with trace.span("merge.planes"):
-            planes = [
-                orset_state_to_planes(s, members, replicas, scanned=True)
-                for s in all_states
-            ]
-            stacks = [np.stack([p[i] for p in planes]) for i in range(3)]
-            del planes
+            clocks, cells, offsets = orset_states_to_cells(
+                all_states, members, replicas)
+            trace.add("merge_coo_cells", len(cells))
         with trace.span("merge.device"):
-            dev = self._upload(stacks)
-            del stacks
-            clock, add, rm = (x.cpu().numpy() for x in orset_merge_many(*dev))
+            clocks, cells, offsets = self._upload((clocks, cells, offsets))
+            adds, rms = orset_stack_cells(cells, offsets, S, E, R)
+            del cells, offsets
+            clock, add, rm = (x.cpu().numpy()
+                              for x in orset_merge_many(clocks, adds, rms))
+            del clocks, adds, rms
         with trace.span("merge.writeback"):
             merged = orset_planes_to_state(clock, add, rm, members, replicas)
         state.clock = merged.clock

@@ -31,7 +31,9 @@ from crdt_enc_tpu.models import LWWMap as JLWWMap
 from crdt_enc_tpu.models import ORSet as JORSet
 from crdt_enc_tpu.models import PNCounter as JPNCounter
 from crdt_enc_tpu.models.orset import AddOp as JAddOp
+from crdt_enc_tpu.models.orset import RmOp as JRmOp
 from crdt_enc_tpu.models.vclock import Dot as JDot
+from crdt_enc_tpu.models.vclock import VClock as JVClock
 from crdt_enc_tpu.models import canonical_bytes as j_canonical_bytes
 from crdt_enc_tpu.parallel.accel import TpuAccelerator
 
@@ -54,7 +56,14 @@ from crdt_enc_tpu_torch.core.adapters import (
     orset_adapter,
     pncounter_adapter,
 )
-from crdt_enc_tpu_torch.models.orset import op_from_obj
+from crdt_enc_tpu_torch.models.orset import RmOp, op_from_obj
+from crdt_enc_tpu_torch.models.vclock import VClock
+from crdt_enc_tpu_torch.ops.columnar import (
+    orset_scan_vocab,
+    orset_state_to_planes,
+    orset_states_to_cells,
+)
+from crdt_enc_tpu_torch.ops.orset import orset_stack_cells
 from crdt_enc_tpu_torch.utils import trace
 
 ACTORS = [uuid.UUID(int=i + 1).bytes for i in range(7)]
@@ -123,8 +132,9 @@ def test_fold_ops_into_nonempty_state(seed):
     assert canonical_bytes(t) == j_canonical_bytes(j) == canonical_bytes(h)
 
 
-@pytest.mark.parametrize("S", [3, 5])
-def test_merge_many_orsets_matches_host(S):
+def sparse_states(S):
+    """S replicas of one 10-member history, each with 30 adds and observed
+    removes of its own: a few cells of each state's planes filled."""
     rng = np.random.default_rng(3 + S)
     base = JORSet()
     for i in range(10):
@@ -141,16 +151,123 @@ def test_merge_many_orsets_matches_host(S):
                 op = s.add_ctx(ACTORS[r + 1], int(rng.integers(15)))
             s.apply(op)
         states.append(s)
+    return states
+
+
+def full_states(S, E=6):
+    """S states whose every (member, actor) cell holds a dot or a remove
+    horizon (the two are exclusive in a state): each actor adds each
+    member, replica r re-adds some members as actor r, then remove
+    horizons past the clock replace some dots."""
+    rng = np.random.default_rng(11 + S)
+    states = []
+    for r in range(S):
+        s = JORSet()
+        for a in ACTORS[:S]:
+            for m in range(E):
+                s.apply(s.add_ctx(a, m))
+        for m in rng.choice(E, E // 2, replace=False).tolist():
+            s.apply(s.add_ctx(ACTORS[r], m))
+        for m in range(E):
+            for a in ACTORS[:S]:
+                if rng.random() < 0.3:
+                    ahead = s.clock.get(a) + int(rng.integers(1, 4))
+                    s.apply(JRmOp(m, JVClock({a: ahead})))
+        states.append(s)
+    return states
+
+
+def cell_count(state) -> int:
+    return sum(len(c) for plane in (state.entries, state.deferred)
+               for c in plane.values())
+
+
+@pytest.mark.parametrize("S,full", [
+    pytest.param(3, False, id="3"), pytest.param(5, False, id="5"),
+    pytest.param(3, True, id="dense-3"), pytest.param(5, True, id="dense-5"),
+])
+def test_merge_many_orsets_matches_host(S, full):
+    """Sparse states and states whose cells fill their planes upload their
+    cells; each merge equals the JAX device and host merges and the
+    port's host loop."""
+    states = full_states(S) if full else sparse_states(S)
     j = TpuAccelerator(min_device_batch=1).merge_states(
         copy.deepcopy(states[0]), [copy.deepcopy(s) for s in states[1:]])
     jh = JHostAccelerator().merge_states(
         copy.deepcopy(states[0]), [copy.deepcopy(s) for s in states[1:]])
     ported = [port_state(s) for s in states]
+    cells = sum(map(cell_count, ported))
+    trace.reset()
     t = cpu_accel().merge_states(ported[0], ported[1:])
+    counters = trace.snapshot()["counters"]
     h = HostAccelerator().merge_states(
         port_state(states[0]), [port_state(s) for s in states[1:]])
     assert canonical_bytes(t) == j_canonical_bytes(j) == canonical_bytes(h)
     assert canonical_bytes(t) == j_canonical_bytes(jh)
+    assert counters["merge_coo_cells"] == cells
+    if full:  # one cell a member and actor: the dense stacks' count
+        assert any(c.deferred for c in ported)
+        assert cells == S * 6 * S
+
+
+STACK_CASES = ("deferred", "empty", "clock_only")
+
+
+def stack_case(case, S):
+    """Port states for the cells-to-stacks check: random adds and observed
+    removes, plus remove horizons past the clock (``deferred``), an empty
+    replica (``empty``) or actors known only from a clock
+    (``clock_only``)."""
+    rng = np.random.default_rng(STACK_CASES.index(case) * 10 + S)
+    actors = [uuid.UUID(int=100 + i).bytes for i in range(9)]
+    states = []
+    for r in range(S):
+        s = ORSet()
+        for _ in range(40):
+            m = int(rng.integers(12))
+            if rng.random() < 0.25:
+                op = s.rm_ctx(m)
+                if op.ctx.is_empty():
+                    continue
+            else:
+                op = s.add_ctx(actors[int(rng.integers(len(actors)))], m)
+            s.apply(op)
+        if case == "deferred":
+            for m in rng.choice(12, 4, replace=False).tolist():
+                a = actors[int(rng.integers(len(actors)))]
+                s.apply(RmOp(m, VClock({a: s.clock.get(a) + 2})))
+            assert s.deferred
+        states.append(s)
+    if case == "empty":
+        states[0] = ORSet()
+    if case == "clock_only":
+        for r, s in enumerate(states):
+            s.clock.counters[uuid.UUID(int=200 + r).bytes] = 7 + r
+    return states
+
+
+@pytest.mark.parametrize("S", [3, 9])
+@pytest.mark.parametrize("case", STACK_CASES)
+def test_stacks_from_cells_equal_host_planes(case, S):
+    states = stack_case(case, S)
+    members, replicas = PK.Vocab(), PK.Vocab()
+    for s in states:
+        orset_scan_vocab(s, members, replicas)
+    E, R = len(members), len(replicas)
+    planes = [orset_state_to_planes(s, members, replicas, scanned=True)
+              for s in states]
+    want = [np.stack([p[i] for p in planes]) for i in range(3)]
+    clocks, cells, offsets = orset_states_to_cells(states, members, replicas)
+    assert len(cells) == sum(map(cell_count, states))
+    assert offsets[0] == 0 and offsets[-1] == len(cells)
+    adds, rms = orset_stack_cells(torch.from_numpy(cells),
+                                  torch.from_numpy(offsets), S, E, R)
+    for got, ref in zip((clocks, adds.numpy(), rms.numpy()), want):
+        assert got.dtype == ref.dtype == np.int32
+        assert np.array_equal(got, ref)
+    if case == "clock_only":
+        assert R > len({a for s in states for p in (s.entries, s.deferred)
+                        for c in p.values() for a in c})
 
 
 def test_merge_of_two_states_takes_the_host_loop():

@@ -162,7 +162,8 @@ def test_each_mode_prints_one_record_and_appends_it(mode, tiny, tmp_path,
     assert rec["backend"] == "cpu" and rec["device_count"] == 1
     assert rec["power_limit_w"] is None
     assert set(rec["launches"]) == {"orset_scatter", "orset_fold",
-                                    "orset_merge_many", "lww_fold"}
+                                    "orset_stack_cells", "orset_merge_many",
+                                    "lww_fold"}
     # the CPU runs the plain versions: no kernel launches
     assert not any(rec["launches"].values())
     (stored,) = read_records(path)

@@ -251,6 +251,54 @@ def test_merge_matches_plain_tree(dev, S):
     assert_equal(P.orset_merge_many_tree(*stacks), got)
 
 
+def cells_of(adds, rms):
+    """The cell list of stacked host planes, grouped as the merge's cell
+    route groups them (adds, then removes, each by state)."""
+    S, _, R = adds.shape
+    rows, offsets = [], [0]
+    for stack in (adds, rms):
+        for s in range(S):
+            e, r = np.nonzero(stack[s])
+            rows.append(np.stack([e * R + r, stack[s][e, r]], 1))
+            offsets.append(offsets[-1] + len(e))
+    return (torch.from_numpy(np.concatenate(rows).astype(np.int32)),
+            torch.tensor(offsets, dtype=torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,E,R,empty", [
+    (1, 70, 513, False), (3, 70, 513, True), (9, 70, 513, False),
+    (9, 512, 5000, False),
+])
+def test_stacks_from_cells_match_host_planes(dev, monkeypatch, S, E, R,
+                                             empty):
+    """The stacking kernel's stacks equal the host planes bit for bit,
+    and K4 over them equals the plain tree merge of the host planes."""
+    def refuse(*a, **k):
+        raise AssertionError("plain path reached with CUDA tensors")
+
+    monkeypatch.setattr(M, "orset_stack_cells_plain", refuse)
+    clocks, adds, rms = (x.numpy() for x in canonical_stack(S, E, R, "cpu"))
+    if empty:  # a state with no cells: two empty groups
+        adds[1] = 0
+        rms[1] = 0
+    cells, offsets = cells_of(adds, rms)
+    n0 = M.launches["orset_stack_cells"]
+    got = P.orset_stack_cells(cells.to(dev), offsets.to(dev), S, E, R)
+    assert M.launches["orset_stack_cells"] == n0 + 1
+    torch.cuda.synchronize()
+    assert_equal((torch.from_numpy(adds), torch.from_numpy(rms)), got)
+    host = [torch.from_numpy(x) for x in (clocks, adds, rms)]
+    merged = P.orset_merge_many(torch.from_numpy(clocks).to(dev), *got)
+    assert_equal(P.orset_merge_many_tree(*host), merged)
+    with pytest.raises(TypeError, match="offsets"):
+        M.orset_stack_cells_cuda(cells.to(dev), offsets.to(dev).int(), S, E,
+                                 R)
+    with pytest.raises(ValueError, match="cells"):
+        M.orset_stack_cells_cuda(cells[:, :1].contiguous().to(dev),
+                                 offsets.to(dev), S, E, R)
+
+
 @pytest.mark.cuda
 def test_cuda_tensors_never_take_the_plain_path(dev, monkeypatch):
     def refuse(*a, **k):

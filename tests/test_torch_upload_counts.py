@@ -157,3 +157,85 @@ def test_stream_counts_pageable_uploads_apart(dev, pin):
     assert counters["h2d_bytes"] == n * chunk_bytes
     assert counters.get("h2d_pageable_bytes", 0) == (
         0 if pin else n * chunk_bytes)
+
+
+def merge_inputs(S: int, full: bool):
+    """S OR-Set states for the S-way merge: a few random adds and removes
+    each (sparse), or every (member, actor) cell holding a dot or a
+    remove horizon past the clock (full)."""
+    rng = random.Random(S * 2 + full)
+    states = []
+    for r in range(S):
+        s = P.ORSet()
+        if full:
+            for a in ACTORS:
+                for m in range(5):
+                    s.apply(s.add_ctx(a, m))
+            for m in range(5):
+                a = rng.choice(ACTORS)
+                s.apply(P.RmOp(m, P.VClock({a: s.clock.get(a) + 1 + r})))
+        else:
+            for _ in range(12):
+                m = rng.randrange(8)
+                if rng.random() < 0.25 and s.entries.get(m):
+                    s.apply(s.rm_ctx(m))
+                else:
+                    s.apply(s.add_ctx(rng.choice(ACTORS), m))
+        states.append(s)
+    return states
+
+
+def merged_with_counters(device, states):
+    from crdt_enc_tpu_torch import HostAccelerator
+
+    trace.reset()
+    try:
+        got = TorchAccelerator(device=device, min_device_batch=1).merge_states(
+            P.ORSet.from_obj(states[0].to_obj()),
+            [P.ORSet.from_obj(s.to_obj()) for s in states[1:]])
+        counters = trace.snapshot()["counters"]
+    finally:
+        trace.reset()
+    host = HostAccelerator().merge_states(
+        P.ORSet.from_obj(states[0].to_obj()),
+        [P.ORSet.from_obj(s.to_obj()) for s in states[1:]])
+    assert canonical_bytes(got) == canonical_bytes(host)
+    return counters
+
+
+def merge_upload_bytes(states) -> int:
+    """What the merge uploads: the (S, R) clocks, the cells (8 bytes each)
+    and 2S + 1 int64 offsets."""
+    S = len(states)
+    R = len({a for s in states for a in s.clock.counters})
+    return 4 * S * R + 8 * cell_count(states) + 8 * (2 * S + 1)
+
+
+def cell_count(states) -> int:
+    return sum(len(c) for s in states for p in (s.entries, s.deferred)
+               for c in p.values())
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["cells", "dense"])
+def test_merge_route_counts_no_upload_on_the_cpu(full):
+    states = merge_inputs(3, full)
+    counters = merged_with_counters("cpu", states)
+    assert "h2d_bytes" not in counters
+    assert counters["merge_coo_cells"] == cell_count(states)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True], ids=["cells", "dense"])
+def test_merge_route_counts_its_upload_on_the_card(dev, full):
+    """Sparse states and states that fill their planes both upload their
+    cells and the card stacks them; the merge equals the host loop and
+    ``h2d_bytes`` counts exactly what was shipped.  Full states ship the
+    dense stacks' bytes (one cell a member and actor) and the offsets."""
+    states = merge_inputs(4, full)
+    counters = merged_with_counters(dev, states)
+    assert counters["h2d_bytes"] == merge_upload_bytes(states)
+    assert counters["h2d_pageable_bytes"] == counters["h2d_bytes"]
+    assert counters["merge_coo_cells"] == cell_count(states)
+    if full:
+        E, R = 5, len(ACTORS)
+        assert counters["h2d_bytes"] == 4 * 4 * R * (1 + 2 * E) + 8 * 9

@@ -34,6 +34,39 @@ from ..host import RssSampler
 from ..reference import orset as ref_orset
 from ..reference import sealed
 
+# the checks that catch a broken compaction (portbench/tests): the
+# control raises every one of CONTROL_CHECKS above its limit, and each
+# planted fault at least one of FAULT_CHECKS
+CONTROL_CHECKS = ("snap_cells_off", "snap_clock_off", "mem_cells_off",
+                  "files_left")
+FAULT_CHECKS = ("snap_cells_off", "mem_cells_off")
+
+
+def _columns(config: dict, seed: int):
+    s = config["shape"]
+    return gen.columns(seed, s["replicas"], s["members"], s["ops_per_actor"],
+                       s["rm_every"], s["rm_back"])
+
+
+def _snapshots(traffic: dict) -> tuple:
+    return traffic["snapshots"], traffic.get("snapshot_stride", 16)
+
+
+def stated(config: dict, traffic: dict) -> dict:
+    """The work the configuration and the traffic imply, for every seed."""
+    return gen.counts(config["shape"], *_snapshots(traffic))
+
+
+def _measure(cols, config: dict, traffic: dict) -> dict:
+    s = config["shape"]
+    return gen.measured_counts(cols, s["replicas"], s["ops_per_file"],
+                               *_snapshots(traffic))
+
+
+def measured(config: dict, traffic: dict, seed: int) -> dict:
+    """The same numbers counted from the work generated for ``seed``."""
+    return _measure(_columns(config, seed), config, traffic)
+
 
 class FsRemote:
     """The remote folder under ``$TMPDIR``, its snapshot sides and the
@@ -169,18 +202,17 @@ def run(ctx) -> dict:
 
     cfg, tr = ctx.config, ctx.traffic
     shape, widths = cfg["shape"], cfg["widths"]
-    R, E, n = shape["replicas"], shape["members"], shape["ops_per_actor"]
+    R, n = shape["replicas"], shape["ops_per_actor"]
     opf = shape["ops_per_file"]
-    S, stride = tr["snapshots"], tr.get("snapshot_stride", 16)
+    S, stride = _snapshots(tr)
     split: dict = {}
 
     t = time.perf_counter()
-    cols = gen.columns(ctx.seed, R, E, n, shape["rm_every"], shape["rm_back"])
+    cols = _columns(cfg, ctx.seed)
     actors = gen.actor_ids(ctx.seed, R)
     key = bytes(gen.rng_for(ctx.seed, 3).integers(0, 256, 32, dtype="u1"))
     files = gen.files(cols, actors, n, opf)
-    counts = gen.measured_counts(cols, R, opf, S, stride)
-    ctx.check_counts(counts, {**cfg["counts"], **tr["counts"]})
+    ctx.check_counts(_measure(cols, cfg, tr), {**cfg["counts"], **tr["counts"]})
     split["generate_s"] = time.perf_counter() - t
 
     port.pin_widths(widths)

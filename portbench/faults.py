@@ -11,8 +11,10 @@ NAME`` plants one under the timed path, and the tests under
   op file and no snapshot.
 - ``half``: half of the batch left out: the op files of every other actor
   (by the parity of the id's first byte) are not read.
-- ``alter``: an answer altered where it is produced: one live counter of
-  the folded state is raised by one before the seal.
+- ``alter``: an answer altered where it is produced: one live value of
+  the folded state is raised by one before the seal, chosen by the
+  state's type (:data:`ALTER`): an OR-Set's counter of its least member
+  and actor, an LWW map's timestamp of its first live key.
 """
 
 from __future__ import annotations
@@ -85,9 +87,35 @@ def wrap(storage, name: str):
     return storage
 
 
+def _alter_orset(state) -> None:
+    if state.entries:
+        m = min(state.entries)
+        state.entries[m][min(state.entries[m])] += 1
+
+
+def _alter_lwwmap(state) -> None:
+    live = state.keys()
+    if live:
+        state.entries[live[0]][0] += 1
+
+
+# the program's state type's name -> how ``alter`` changes one live value
+ALTER = {"ORSet": _alter_orset, "LWWMap": _alter_lwwmap}
+
+
+def alter(state) -> None:
+    """Raise one live value of ``state`` by one, by its type."""
+    kind = type(state).__name__
+    if kind not in ALTER:
+        raise TypeError(f"the alter fault has no alteration for a {kind} "
+                        f"state; it alters {sorted(ALTER)}")
+    ALTER[kind](state)
+    state._mut += 1
+
+
 @contextlib.contextmanager
 def scope(name: str):
-    """Around the timed path: ``alter`` raises one live counter of the
+    """Around the timed path: ``alter`` raises one live value of the
     state before every seal."""
     if name != "alter":
         yield
@@ -97,12 +125,7 @@ def scope(name: str):
     original = Core._compact_seal
 
     async def altered(self, **kw):
-        state = self._data.state
-        if state.entries:
-            m = min(state.entries)
-            a = min(state.entries[m])
-            state.entries[m][a] += 1
-            state._mut += 1
+        alter(self._data.state)
         kw.pop("_state_obj", None)
         kw.pop("_packed_state", None)
         return await original(self, **kw)

@@ -1,12 +1,13 @@
 """The system under test: how the benchmark opens the port's replicas.
 
 Everything here is the port's public surface (``Core``, ``OpenOptions``,
-the storages, the cryptors, ``TorchAccelerator``), set
-up as a deployment would: encrypted with XChaCha20-Poly1305, the OR-Set
-adapter, the defaults of every switch, and the widths the configuration
-pins.  The one seam is the data key: the cryptor's key generation returns
-the key the benchmark drew from the seed, so the reference can open what
-the program sealed without taking anything the program made.
+the storages, the cryptors, ``TorchAccelerator``), set up as a
+deployment would: encrypted with XChaCha20-Poly1305, the cell's CRDT
+adapter (the OR-Set's by default), the defaults of every switch, and the
+widths the configuration pins.  The one seam is the data key: the
+cryptor's key generation returns the key the benchmark drew from the
+seed, so the reference can open what the program sealed without taking
+anything the program made.
 """
 
 from __future__ import annotations
@@ -29,14 +30,16 @@ def seeded_cryptor(key: bytes):
     return SeededCryptor()
 
 
-def options(storage, accel, key: bytes):
-    """``OpenOptions`` of an encrypted OR-Set replica that joins (or
-    creates) the remote behind ``storage``."""
+def options(storage, accel, key: bytes, adapter=None):
+    """``OpenOptions`` of an encrypted replica that joins (or creates) the
+    remote behind ``storage``: of an OR-Set, unless ``adapter`` gives
+    another type."""
     from crdt_enc_tpu_torch import OpenOptions, PlainKeyCryptor, orset_adapter
 
     return OpenOptions(
         storage=storage, cryptor=seeded_cryptor(key),
-        key_cryptor=PlainKeyCryptor(), adapter=orset_adapter(),
+        key_cryptor=PlainKeyCryptor(),
+        adapter=orset_adapter() if adapter is None else adapter,
         supported_data_versions=(DATA_VERSION,),
         current_data_version=DATA_VERSION, accelerator=accel, create=True)
 

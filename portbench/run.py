@@ -10,6 +10,17 @@ the driver that traffic names (``portbench/drivers/<driver>.py``) and, with
 (``portbench/metrics/<metric>.py``) are all found by name, so a new cell
 or metric is new files and entries, never an edit.
 
+Every driver reports, beside ``setup_s``, the end-to-end metric
+``compact_rss_mb``: the largest growth of the host's resident set over
+one timed unit of its window (a compaction, a cycle), sampled by
+``host.RssSampler`` from the benchmark's own thread.  A driver's module
+also states its work (``stated(config, traffic)`` and
+``measured(config, traffic, seed)``, the counts a run checks) and the
+checks that catch a broken timed path (``CONTROL_CHECKS``, every one of
+which the control raises above its limit, and ``FAULT_CHECKS``, one of
+which each planted fault raises), for the tests under
+``portbench/tests``.
+
 The last line of standard output is the result: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
 with ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1`` a
@@ -30,7 +41,6 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
-import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -82,6 +92,12 @@ def resolve(bench: dict, workload: str) -> dict:
     with open(os.path.join(PKG, "traffic", cell["traffic"] + ".json")) as f:
         traffic = json.load(f)
     return {"cell": cell, "config": config, "traffic": traffic}
+
+
+def driver(name: str):
+    """The driver module ``portbench/drivers/<name>.py``."""
+    return load_file_module(os.path.join(PKG, "drivers", name + ".py"),
+                            "portbench.drivers." + name)
 
 
 def metrics_for(bench: dict, workload: str, trace: bool) -> list:
@@ -256,10 +272,8 @@ def run(argv) -> dict:
     log("host " + json.dumps(host.context(ROOT, tempfile.gettempdir())))
     # the context line is for reading noise, not set-up: kept out of setup_s
     ctx.aside_s = time.perf_counter() - t
-    driver = importlib.import_module("portbench.drivers."
-                                     + cell["traffic"]["driver"])
     try:
-        out = driver.run(ctx)
+        out = driver(cell["traffic"]["driver"]).run(ctx)
     finally:
         ctx.cleanup()
     bad = forbidden_loaded()

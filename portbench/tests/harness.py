@@ -1,5 +1,11 @@
 """Shared by the benchmark's CPU tests: run a cell in process, shrunk to
-a size a test can hold, through the plain PyTorch path."""
+a size a test can hold, through the plain PyTorch path.
+
+What a test needs of a cell is found by name, as the runner finds its
+files: the small shape in ``portbench/tests/small/<config>.json`` (keys
+that replace the configuration's and the traffic's own), and the stated
+and measured work and the checks that catch a fault in the module of the
+driver its traffic names (``run.driver``)."""
 
 from __future__ import annotations
 
@@ -7,25 +13,31 @@ import copy
 import json
 import os
 
-from portbench import gen, run
+from portbench import run
 
-SMALL = {
-    "orset-10kx1M": {"replicas": 64, "members": 32, "ops_per_actor": 20,
-                     "rm_every": 10, "rm_back": 5, "ops_per_file": 8},
-}
+
+def cells() -> list:
+    """The names of the manifest's cells."""
+    return [w["name"] for w in run.manifest()["workloads"]]
+
+
+def driver(workload: str):
+    """The module of the driver the cell's traffic names."""
+    return run.driver(run.resolve(run.manifest(), workload)["traffic"]["driver"])
 
 
 def small_cell(workload: str) -> dict:
-    """The cell's files as the harness resolves them, with the
-    configuration's scale cut and its stated counts worked out again."""
-    cell = run.resolve(run.manifest(), workload)
-    cell = copy.deepcopy(cell)
-    conf = cell["config"]
-    shape = dict(SMALL[conf["name"]])
-    conf["shape"] = shape
-    tr = cell["traffic"]
-    snaps = tr.get("snapshots", 0)
-    c = gen.counts(shape, snaps, tr.get("snapshot_stride", 16))
+    """The cell's files as the harness resolves them, with the small
+    shape's keys in place and the stated counts worked out again by the
+    cell's driver."""
+    cell = copy.deepcopy(run.resolve(run.manifest(), workload))
+    conf, tr = cell["config"], cell["traffic"]
+    with open(os.path.join(run.PKG, "tests", "small",
+                           cell["cell"]["config"] + ".json")) as f:
+        small = json.load(f)
+    conf.update(small.get("config", {}))
+    tr.update(small.get("traffic", {}))
+    c = driver(workload).stated(conf, tr)
     conf["counts"] = {k: c[k] for k in conf["counts"]}
     tr["counts"] = {k: c[k] for k in tr["counts"]}
     return cell
@@ -40,6 +52,11 @@ def run_small(monkeypatch, workload: str, seed: int, *extra: str,
                       "--device", "cpu", *extra])
     json.dumps(result)  # the line the harness prints
     return result
+
+
+def over(result: dict) -> set:
+    """The checks of a run that read above their limits."""
+    return {k for k, c in result["checks"].items() if c["value"] > c["limit"]}
 
 
 def repo_root() -> str:

@@ -1,6 +1,7 @@
 """On the card, at each cell's own size: a short run is correct, and the
-control (one stored op file not folded) is not.  Run on the card's
-machine with ``python3 -m pytest portbench/tests -m cuda``; skips here."""
+control (one stored op file not folded) is not, every check its driver
+names for the control above its limit.  Run on the card's machine with
+``python3 -m pytest portbench/tests -m cuda``; skips here."""
 
 import json
 import os
@@ -9,9 +10,7 @@ import sys
 
 import pytest
 
-from harness import repo_root
-
-CELLS = ["orset3-merge8"]
+from harness import cells, driver, over, repo_root
 
 
 @pytest.fixture
@@ -33,11 +32,12 @@ def _run(workload: str, seed: int, *extra: str) -> dict:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload", cells())
 def test_a_short_run_is_correct_and_the_control_is_not(card, workload):
     sound = _run(workload, 2**31 + 101)
     assert sound["correct"], sound["checks"]
     assert sound["device"]["platform"] == "gpu"
     control = _run(workload, 2**31 + 101, "--fault", "control")
     assert not control["correct"]
-    assert control["checks"]["snap_cells_off"]["value"] > 0
+    assert set(driver(workload).CONTROL_CHECKS) <= over(control), (
+        control["checks"])

@@ -5,32 +5,20 @@ import json
 import numpy as np
 import pytest
 
+from harness import cells, driver, small_cell
 from portbench import gen, run
 
 
-def _cells():
-    bench = run.manifest()
-    return [run.resolve(bench, w["name"]) for w in bench["workloads"]]
-
-
-@pytest.mark.parametrize("cell", _cells(), ids=lambda c: c["cell"]["name"])
-def test_every_seed_does_the_stated_work(cell):
-    conf, tr = cell["config"], cell["traffic"]
-    shape = conf["shape"]
-    S, stride = tr.get("snapshots", 0), tr.get("snapshot_stride", 16)
+@pytest.mark.parametrize("workload", cells())
+def test_every_seed_does_the_stated_work(workload):
+    cell = run.resolve(run.manifest(), workload)
+    conf, tr, work = cell["config"], cell["traffic"], driver(workload)
     stated = {**conf["counts"], **tr["counts"]}
-    assert {k: v for k, v in gen.counts(shape, S, stride).items()
+    assert {k: v for k, v in work.stated(conf, tr).items()
             if k in stated} == stated
-    seen = set()
     for seed in range(12):
-        cols = gen.columns(seed, shape["replicas"], shape["members"],
-                           shape["ops_per_actor"], shape["rm_every"],
-                           shape["rm_back"])
-        measured = gen.measured_counts(cols, shape["replicas"],
-                                       shape["ops_per_file"], S, stride)
+        measured = work.measured(conf, tr, seed)
         assert {k: measured[k] for k in stated} == stated
-        seen.add(hash(cols[1][:64].tobytes()))
-    assert len(seen) > 1, "the seed must pick the members"
 
 
 def test_files_cut_each_actor_alike():
@@ -52,5 +40,18 @@ def test_removes_aim_at_an_earlier_add_of_the_same_actor():
 def test_ids_and_keys_follow_the_seed():
     assert gen.actor_ids(3, 10) == gen.actor_ids(3, 10)
     assert gen.actor_ids(3, 10) != gen.actor_ids(4, 10)
+    members = {gen.columns(seed, 16, 32, 100, 10, 5)[1].tobytes()
+               for seed in range(12)}
+    assert len(members) > 1, "the seed must pick the members"
     json.dumps(gen.counts({"replicas": 4, "members": 8, "ops_per_actor": 24,
                            "rm_every": 10, "rm_back": 5, "ops_per_file": 6}))
+
+
+@pytest.mark.parametrize("workload", cells())
+def test_the_small_shape_does_its_stated_work(workload):
+    cell = small_cell(workload)
+    conf, tr = cell["config"], cell["traffic"]
+    stated = {**conf["counts"], **tr["counts"]}
+    for seed in (0, 2**31 + 5):
+        measured = driver(workload).measured(conf, tr, seed)
+        assert {k: measured[k] for k in stated} == stated

@@ -73,7 +73,9 @@ def test_names_units_and_lines():
 
 def test_every_cell_reports_what_it_must():
     e2e = {m["name"]: m for m in BENCH["end_to_end"]}
-    assert "setup_s" in e2e and "workloads" not in e2e["setup_s"]
+    # every driver reports these two (portbench/run.py)
+    for name in ("setup_s", "compact_rss_mb"):
+        assert name in e2e and "workloads" not in e2e[name]
     four = sum(w["chips"] == 4 for w in BENCH["workloads"])
     assert four <= max(1, len(BENCH["workloads"]) // 4)
     for w in BENCH["workloads"]:
@@ -103,6 +105,9 @@ def test_every_file_is_found_by_name():
         cell = run.resolve(BENCH, w["name"])
         driver = cell["traffic"]["driver"]
         assert os.path.exists(os.path.join(pkg, "drivers", driver + ".py"))
+        mod = run.driver(driver)
+        assert all(callable(getattr(mod, f)) for f in ("run", "stated", "measured"))
+        assert mod.CONTROL_CHECKS and mod.FAULT_CHECKS
     for m in BENCH["per_layer"]:
         path = os.path.join(pkg, "metrics", m["name"] + ".py")
         assert os.path.exists(path), path
@@ -119,12 +124,17 @@ def _named(kind: str) -> set:
     return {"configs": {os.path.basename(c["file"]) for c in BENCH["configs"]},
             "traffic": {w["traffic"] + ".json" for w in BENCH["workloads"]},
             "drivers": {c["traffic"]["driver"] + ".py" for c in cells}
-            | {"__init__.py"}}[kind]
+            | {"__init__.py"},
+            "tests/small": {c["name"] + ".json" for c in BENCH["configs"]},
+            }[kind]
 
 
-@pytest.mark.parametrize("kind", ["configs", "traffic", "drivers"])
+@pytest.mark.parametrize("kind", ["configs", "traffic", "drivers",
+                                  "tests/small"])
 def test_no_stray_data_file_or_driver(kind):
-    """Every configuration, traffic mix and driver on disk is one a cell
-    names: nothing is kept that no cell measures."""
+    """Every configuration, traffic mix, driver and small shape on disk is
+    one a cell names: nothing is kept that no cell measures.  A driver's
+    helper modules live outside ``drivers/``, as ``gen.py`` and
+    ``reference/`` do."""
     here = set(os.listdir(os.path.join(ROOT, "portbench", kind))) - {"__pycache__"}
     assert here == _named(kind)

@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from harness import run_small
+from harness import cells, run_small
 from portbench import gen
 from portbench.reference import msgpack, orset, sealed, xchacha
 
@@ -105,7 +105,7 @@ def test_sealed_blob_opens_with_the_frozen_contract():
         sealed.open_payload(blob, os.urandom(32), port.DATA_VERSION)
 
 
-@pytest.mark.parametrize("workload", ["orset3-merge8"])
+@pytest.mark.parametrize("workload", cells())
 @pytest.mark.parametrize("seed", [0, 2**31 + 11])
 def test_a_small_run_of_each_cell_is_correct(monkeypatch, workload, seed):
     res = run_small(monkeypatch, workload, seed)
@@ -113,11 +113,12 @@ def test_a_small_run_of_each_cell_is_correct(monkeypatch, workload, seed):
     assert res["attempted"] >= 1 and res["failed"] == 0
     assert list(res)[-1] == "checks"
     assert res["metrics"]["setup_s"]["value"] > 0
+    assert "compact_rss_mb" in res["metrics"]  # every driver reports it
     assert all(c["value"] == 0 and c["limit"] == 0
                for c in res["checks"].values())
 
 
-@pytest.mark.parametrize("workload", ["orset3-merge8"])
+@pytest.mark.parametrize("workload", cells())
 def test_a_traced_small_run_reports_per_layer_metrics(monkeypatch, workload):
     res = run_small(monkeypatch, workload, 3, trace=1)
     assert res["correct"]
